@@ -1,0 +1,178 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+``fused_chain_walk`` replaces the TPU kernel
+``ddqst_tpu/ops/pallas_kernels.py::fused_chain_walk``: the whole T-step
+reverse table walk of the grid sampler in one launch
+(``csrc/chain_walk.cu``). Beside it, ``fused_chain_walk_reference`` is the
+same walk with the same Philox4x32-10 words, computed with tensor ops.
+
+The wrapper takes the plain version only for tensors that lie on the CPU
+(that is what the CPU tests exercise). For CUDA tensors it launches the
+kernel or raises; nothing falls back. ``fused_chain_walk.launches`` counts
+kernel launches (never plain-version calls), so a run can show that its
+main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ddqst_tpu_torch.ops import _build
+
+# Philox4x32-10 constants (Salmon et al., SC'11; Random123).
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+_MAX_G = 128  # the kernel's shared-memory slice holds at most 2^7 outcomes
+
+
+def _mulhilo(m: int, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of ``m * a`` for uint32 values held in int64.
+
+    The full 64-bit product overflows signed int64, so ``m`` is split into
+    16-bit limbs: every partial product stays below 2^49.
+    """
+    p0 = a * (m & 0xFFFF)
+    mid = a * (m >> 16) + (p0 >> 16)
+    return mid >> 16, ((mid & 0xFFFF) << 16) | (p0 & 0xFFFF)
+
+
+def philox4x32_10(ctr, key: tuple[int, int]):
+    """Philox4x32-10 on counters ``ctr = (c0, c1, c2, c3)`` (int64 tensors
+    holding uint32 values, broadcastable) under ``key = (k0, k1)``.
+
+    Returns the four uint32 output words as int64 tensors.
+    """
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _check_walk_args(seed, tables, init, num_qubits) -> None:
+    if not isinstance(seed, int) or not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be an int in [0, 2^64), got {seed!r}")
+    if tables.dtype != torch.float32 or tables.dim() != 4:
+        raise ValueError(
+            f"tables must be [T, C, 2^N, N] float32, got {tuple(tables.shape)} "
+            f"{tables.dtype}"
+        )
+    t_steps, c, g, n = tables.shape
+    if n != num_qubits or g != 2**num_qubits:
+        raise ValueError(
+            f"tables shape {tuple(tables.shape)} does not match N={num_qubits}"
+        )
+    if init.dtype != torch.int32 or init.dim() != 2 or init.shape[0] != c:
+        raise ValueError(
+            f"init must be [C={c}, S] int32, got {tuple(init.shape)} {init.dtype}"
+        )
+    if init.device != tables.device:
+        raise ValueError(
+            f"tables on {tables.device} but init on {init.device}"
+        )
+    if t_steps < 1 or init.shape[1] < 1:
+        raise ValueError("need T >= 1 steps and S >= 1 chains")
+
+
+def fused_chain_walk_reference(
+    seed: int, tables: torch.Tensor, init: torch.Tensor, num_qubits: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same walk, the same bits.
+
+    ``tables [T, C, 2^N, N]`` float32 (index 0 is t = T), ``init [C, S]``
+    int32, 64-bit ``seed``; returns ``[C, S]`` int32. Step i draws, for
+    chain (c, s), the Philox4x32-10 block with counter (s, c, i, q // 4)
+    and key (seed mod 2^32, seed >> 32); bit q uses word q % 4 and
+    ``u = (word >> 8) * 2^-24``.
+    """
+    _check_walk_args(seed, tables, init, num_qubits)
+    t_steps, c, g, n = tables.shape
+    s = init.shape[1]
+    dev = tables.device
+    key = (seed & _MASK32, seed >> 32)
+    s_idx = torch.arange(s, device=dev, dtype=torch.int64).expand(c, s)
+    c_idx = torch.arange(c, device=dev, dtype=torch.int64)[:, None].expand(c, s)
+    row_base = c_idx * g
+    flat = tables.reshape(t_steps, c * g, n)
+    x = init.to(torch.int64)
+    for i in range(t_steps):
+        p1 = flat[i][row_base + x]  # [C, S, N]
+        nx = torch.zeros_like(x)
+        for qb in range((n + 3) // 4):
+            words = philox4x32_10(
+                (s_idx, c_idx, torch.full_like(s_idx, i),
+                 torch.full_like(s_idx, qb)),
+                key,
+            )
+            for k in range(min(4, n - 4 * qb)):
+                q = 4 * qb + k
+                u = (words[k] >> 8).to(torch.float32) * (1.0 / 16777216.0)
+                nx |= (u < p1[..., q]).to(torch.int64) << q
+        x = nx
+    return x.to(torch.int32)
+
+
+def _chain_walk_fn():
+    fn = _build.load("chain_walk").ddqst_fused_chain_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # tables, init, out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # T, C, g, N
+        ctypes.c_int,  # S
+        ctypes.c_uint64,  # seed
+        ctypes.c_void_p,  # stream
+    ]
+    return fn
+
+
+def fused_chain_walk(
+    seed: int, tables: torch.Tensor, init: torch.Tensor, num_qubits: int
+) -> torch.Tensor:
+    """Run the whole T-step reverse chain walk in one CUDA kernel launch.
+
+    Args:
+      seed: 64-bit int; the Philox key.
+      tables: ``[T, C, 2^N, N]`` float32 P(bit=1) per (step, conditioning
+        row, current outcome); index 0 = the first reverse step (t = T).
+      init: ``[C, S]`` int32 initial outcome indices.
+      num_qubits: N, with 2^N <= 128.
+
+    Returns:
+      ``[C, S]`` int32 final outcome indices (samples of x_0).
+
+    CPU tensors take :func:`fused_chain_walk_reference`; CUDA tensors launch
+    the kernel on the current stream, or raise.
+    """
+    _check_walk_args(seed, tables, init, num_qubits)
+    if tables.device.type == "cpu":
+        return fused_chain_walk_reference(seed, tables, init, num_qubits)
+    if tables.device.type != "cuda":
+        raise ValueError(f"unsupported device {tables.device}")
+    t_steps, c, g, n = tables.shape
+    if g > _MAX_G:
+        raise ValueError(f"the CUDA walk needs 2^N <= {_MAX_G}, got {g}")
+    if c > 65535:
+        raise ValueError(f"the CUDA walk takes at most 65,535 rows, got {c}")
+    if not (tables.is_contiguous() and init.is_contiguous()):
+        raise ValueError("tables and init must be contiguous")
+    s = init.shape[1]
+    out = torch.empty_like(init)
+    fn = _chain_walk_fn()
+    stream = torch.cuda.current_stream(tables.device).cuda_stream
+    with torch.cuda.device(tables.device):
+        err = fn(tables.data_ptr(), init.data_ptr(), out.data_ptr(),
+                 t_steps, c, g, n, s, seed, stream)
+    if err != 0:
+        raise RuntimeError(f"chain_walk kernel launch failed: cudaError {err}")
+    fused_chain_walk.launches += 1
+    return out
+
+
+fused_chain_walk.launches = 0

@@ -1,0 +1,394 @@
+"""D3PM forward noising, denoising loss, and reverse samplers.
+
+The port's counterpart of ``ddqst_tpu/ops/diffusion.py`` for the full
+route's generate mode:
+
+- ``q_sample`` / ``denoising_loss`` — x_t is ``x_0 XOR Bernoulli(cum_flip[t])``
+  (every transition is a symmetric flip channel), and the loss is the
+  cross-entropy of the predicted x_0 logits.
+- ``p_sample`` — the per-chain reverse sampler (one denoiser call per step
+  for every chain).
+- ``grid_p1_tables`` / ``p_sample_grid`` / ``sample_all_bases`` — the
+  exhaustive-grid sampler: at small N the denoiser's inputs (x_t, t, basis)
+  take only T·3^N·2^N values, so all per-step P(bit=1) tables come from a
+  few batched forwards and the reverse chain becomes a table walk. On a
+  CUDA device that walk is the hand-written kernel
+  (:func:`ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`).
+
+Randomness comes from an explicit ``torch.Generator`` on the working
+device. The streams differ from ``jax.random``'s, so the samplers match the
+JAX package in distribution, and the deterministic parts (posterior,
+tables) to float tolerance.
+
+Not ported yet (ROADMAP Queue 1): ``chain_distribution`` and its
+distillation use, ``p_denoise`` (denoise mode), the shadow-route samplers,
+and ``sample_all_bases_chunked`` (``gen_tables_once``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from ddqst_tpu_torch.device import resolve_device, synchronize
+from ddqst_tpu_torch.ops import cuda_kernels
+from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
+
+DenoiseFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+# (x_t [B,N] int, t [B] int, basis [B] int) -> logits [B,N,2]
+
+
+def q_sample(
+    generator: torch.Generator, x0: torch.Tensor, t: torch.Tensor,
+    schedule: DiffusionSchedule,
+) -> torch.Tensor:
+    """Forward noising: flip each bit of x0 with probability cum_flip[t]."""
+    p = schedule.cum_flip[t][..., None]
+    u = torch.rand(x0.shape, generator=generator, device=x0.device)
+    return x0 ^ (u < p).to(x0.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """Mean over (batch, qubit) of -log softmax(logits)[x0]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, x0.long()[..., None]).mean()
+
+
+def denoising_loss(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    x0: torch.Tensor,
+    basis: torch.Tensor,
+    schedule: DiffusionSchedule,
+    t_max: int = 0,
+) -> torch.Tensor:
+    """t ~ U[1, T] (or U[1, t_max]), x_t = q_sample(x0, t), CE(model(x_t), x0)."""
+    upper = t_max if t_max else schedule.num_timesteps
+    t = torch.randint(1, upper + 1, (x0.shape[0],), generator=generator,
+                      device=x0.device)
+    x_t = q_sample(generator, x0, t, schedule)
+    return cross_entropy(denoise_fn(x_t, t, basis), x0)
+
+
+def _resolve_exact(schedule: DiffusionSchedule, exact: bool | None) -> bool:
+    """Resolve the reverse-rule override against the schedule.
+
+    The exact posterior needs a true cumulative flip probability; the
+    linear family's ``cum_flip == betas`` is not one, so exact=True there is
+    rejected instead of silently mis-sampling.
+    """
+    if exact is None:
+        return schedule.exact_posterior
+    if exact and schedule.kind != "cosine":
+        raise ValueError(
+            "exact posterior requires a cumulative schedule; the "
+            f"{schedule.kind!r} family's cum_flip is the reference's "
+            "one-shot quirk (use sampler='renoise' or the cosine schedule)"
+        )
+    return exact
+
+
+def _posterior_p1(
+    logits: torch.Tensor,
+    x_t: torch.Tensor,
+    beta_t: torch.Tensor,
+    cum_flip_tm1: torch.Tensor,
+) -> torch.Tensor:
+    """P(x_{t-1}=1 | x_t, p̂(x_0)) for the symmetric binary channel."""
+    p1_hat = torch.softmax(logits, dim=-1)[..., 1]
+    prior1 = p1_hat * (1.0 - cum_flip_tm1) + (1.0 - p1_hat) * cum_flip_tm1
+    prior0 = 1.0 - prior1
+    x_is_one = x_t == 1
+    trans1 = torch.where(x_is_one, 1.0 - beta_t, beta_t)
+    trans0 = torch.where(x_is_one, beta_t, 1.0 - beta_t)
+    u1 = trans1 * prior1
+    u0 = trans0 * prior0
+    return u1 / (u0 + u1 + 1e-8)
+
+
+@torch.no_grad()
+def p_sample(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    basis: torch.Tensor,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+) -> torch.Tensor:
+    """Per-chain reverse diffusion: one sample of x_0 per basis row.
+
+    ``exact`` None follows the schedule (cosine → exact posterior, linear →
+    renoise). Returns ``[B, N]`` int8.
+    """
+    exact = _resolve_exact(schedule, exact)
+    dev = basis.device
+    num = basis.shape[0]
+    x = (torch.rand((num, num_qubits), generator=generator, device=dev) < 0.5
+         ).to(torch.int8)
+    for t in range(schedule.num_timesteps, 0, -1):
+        t_vec = torch.full((num,), t, dtype=torch.int64, device=dev)
+        logits = denoise_fn(x, t_vec, basis)
+        if exact:
+            p1 = _posterior_p1(
+                logits, x, schedule.betas[t], schedule.cum_flip[t - 1]
+            )
+            x = (torch.rand(p1.shape, generator=generator, device=dev) < p1
+                 ).to(torch.int8)
+        else:
+            # Predict x̂_0, then re-noise to t-1 (skip re-noising at t=1).
+            p1_hat = torch.softmax(logits, dim=-1)[..., 1]
+            x0_hat = (torch.rand(p1_hat.shape, generator=generator, device=dev)
+                      < p1_hat).to(torch.int8)
+            flip_p = schedule.cum_flip[t - 1] if t > 1 else 0.0
+            flips = torch.rand(x0_hat.shape, generator=generator, device=dev
+                               ) < flip_p
+            x = x0_hat ^ flips.to(torch.int8)
+    return x
+
+
+def _grid_p1_table(
+    logits: torch.Tensor,
+    x_bits: torch.Tensor,
+    t,
+    schedule: DiffusionSchedule,
+    exact: bool,
+) -> torch.Tensor:
+    """P(x_{t-1}=1) per grid row for either reverse rule.
+
+    For the renoise rule the two-stage draw (x̂0 ~ Bern(p̂1), then XOR
+    Bern(f)) has per-bit marginal p̂1(1-f) + (1-p̂1)f, exactly equivalent in
+    distribution. ``t`` is a scalar or a per-row ``[R]`` vector.
+    """
+    t = torch.as_tensor(t, device=logits.device)
+    beta = schedule.betas[t]
+    cum = schedule.cum_flip[(t - 1).clamp_min(0)]
+    f = torch.where(t > 1, cum, torch.zeros_like(cum))
+    if t.dim():  # per-row timesteps broadcast over the qubit axis
+        beta, cum, f = beta[:, None], cum[:, None], f[:, None]
+    if exact:
+        return _posterior_p1(logits, x_bits, beta, cum)
+    p1_hat = torch.softmax(logits, dim=-1)[..., 1]
+    return p1_hat * (1.0 - f) + (1.0 - p1_hat) * f
+
+
+def _grid_enum(num_qubits: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The basis × bitstring conditioning grid, row ``basis_idx·2^N + x``.
+
+    Returns ``(grid_x [3^N·2^N, N] int8, grid_basis [3^N·2^N] int64)``.
+    """
+    num_bases = 3**num_qubits
+    g = 2**num_qubits
+    x_enum = (
+        (torch.arange(g, device=device)[:, None]
+         >> torch.arange(num_qubits, device=device)) & 1
+    ).to(torch.int8)
+    grid_x = x_enum.repeat(num_bases, 1)
+    grid_basis = torch.arange(num_bases, device=device).repeat_interleave(g)
+    return grid_x, grid_basis
+
+
+# Rows per model forward: the JAX package's TPU-tuned bound, kept for parity
+# (it bounds the [rows, hidden] activation block to ~0.25 GB at hidden 512).
+_ROW_BUDGET = 1 << 17
+
+
+def _p1_rows_one_t(
+    denoise_fn, t: int, grid_x, grid_basis, schedule, exact, row_budget: int
+) -> torch.Tensor:
+    """Table rows for ONE timestep with every forward <= ``row_budget`` rows."""
+    out = []
+    for lo in range(0, grid_x.shape[0], row_budget):
+        x = grid_x[lo:lo + row_budget]
+        tv = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+        logits = denoise_fn(x, tv, grid_basis[lo:lo + row_budget])
+        out.append(_grid_p1_table(logits, x, tv, schedule, exact))
+    return torch.cat(out)
+
+
+def _tables_for_ts(
+    denoise_fn,
+    ts_c: torch.Tensor,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool,
+    row_budget: int = _ROW_BUDGET,
+) -> torch.Tensor:
+    """P(bit=1) tables ``[len(ts_c), 3^N·2^N, N]`` for the given timesteps.
+
+    Every forward is bounded to ``row_budget`` rows: timesteps are grouped
+    ``m`` at a time when the grid is small, and one timestep's grid is
+    row-chunked when it alone exceeds the budget. A length that ``m`` does
+    not divide (a prime T) is padded with dummy t=1 rows, which are sliced
+    off, so every group is a forward of the same size.
+    """
+    grid_x, grid_basis = _grid_enum(num_qubits, ts_c.device)
+    gtot = grid_x.shape[0]
+    length = ts_c.shape[0]
+    if gtot > row_budget:
+        return torch.stack([
+            _p1_rows_one_t(denoise_fn, int(t), grid_x, grid_basis, schedule,
+                           exact, row_budget)
+            for t in ts_c
+        ])
+    m = min(max(1, row_budget // gtot), length)
+    n_chunks = -(-length // m)
+    ts_pad = torch.cat(
+        [ts_c, torch.ones(n_chunks * m - length, dtype=ts_c.dtype,
+                          device=ts_c.device)]
+    )
+    big_x = grid_x.repeat(m, 1)
+    big_basis = grid_basis.repeat(m)
+    out = []
+    for ts_g in ts_pad.reshape(n_chunks, m):
+        big_t = ts_g.repeat_interleave(gtot)
+        logits = denoise_fn(big_x, big_t, big_basis)  # [m·Gtot, N, 2]
+        p1 = _grid_p1_table(logits, big_x, big_t, schedule, exact)
+        out.append(p1.reshape(m, gtot, num_qubits))
+    return torch.cat(out)[:length]
+
+
+@torch.no_grad()
+def grid_p1_tables(
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    row_budget: int = _ROW_BUDGET,
+) -> torch.Tensor:
+    """P(bit=1) tables for EVERY (t, basis, x) in a few batched forwards.
+
+    Returns ``[T, 3^N·2^N, N]`` float32 on the schedule's device, index 0 =
+    the first reverse step (t = T).
+    """
+    exact = _resolve_exact(schedule, exact)
+    ts = torch.arange(schedule.num_timesteps, 0, -1,
+                      device=schedule.betas.device)
+    return _tables_for_ts(denoise_fn, ts, num_qubits, schedule, exact,
+                          row_budget)
+
+
+def _unpack(idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
+    shifts = torch.arange(num_qubits, device=idx.device)
+    return ((idx[..., None] >> shifts) & 1).to(torch.int8)
+
+
+@torch.no_grad()
+def p_sample_grid(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    basis: torch.Tensor,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+) -> torch.Tensor:
+    """Reverse diffusion via exhaustive-grid evaluation (small N).
+
+    Each step runs one grid forward for its table, then a gather +
+    Bernoulli per chain (the per-step path, cheaper than a full table
+    precompute when chains are few; many chains take the precomputed
+    tables and the fused walk in :func:`sample_all_bases`). Returns
+    ``[B, N]`` int8.
+    """
+    exact = _resolve_exact(schedule, exact)
+    dev = basis.device
+    g = 2**num_qubits
+    powers = 2 ** torch.arange(num_qubits, device=dev)
+    grid_x, grid_basis = _grid_enum(num_qubits, dev)
+    row_base = basis.long() * g
+    x_idx = torch.randint(0, g, (basis.shape[0],), generator=generator,
+                          device=dev)
+    for t in range(schedule.num_timesteps, 0, -1):
+        t_vec = torch.full((grid_x.shape[0],), t, dtype=torch.int64,
+                           device=dev)
+        logits = denoise_fn(grid_x, t_vec, grid_basis)
+        table = _grid_p1_table(logits, grid_x, t, schedule, exact)
+        p1 = table[row_base + x_idx]  # [B, N]
+        u = torch.rand(p1.shape, generator=generator, device=dev)
+        x_idx = ((u < p1).long() * powers).sum(-1)
+    return _unpack(x_idx, num_qubits)
+
+
+@torch.no_grad()
+def sample_all_bases(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    shots: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    grid_mode: str = "auto",
+    walk: str = "auto",
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+) -> torch.Tensor:
+    """Generate ``shots`` samples for every canonical basis.
+
+    Returns ``[3^N, shots, N]`` int8 on ``device`` (default CUDA; raises if
+    CUDA is absent and ``device`` was not given). ``denoise_fn`` (the model),
+    ``schedule`` and ``generator`` live on that device.
+
+    ``grid_mode``: ``'auto'`` uses the grid sampler when the (x, basis) grid
+    is smaller than the chain count, ``'on'``/``'off'`` force it.
+
+    ``walk`` selects the grid path's chain walk:
+
+    - ``'seq'`` — no table precompute: one grid forward per step.
+    - ``'auto'`` — below 32·6^N chains ``'seq'`` (the JAX package's
+      crossover, tuned on a TPU and kept for parity, not an H100 limit);
+      otherwise all T tables in one precompute, then the whole walk through
+      :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`. That
+      wrapper launches the hand-written kernel for CUDA tensors (raising if
+      2^N > 128) and takes its plain version only for CPU tensors.
+    - ``'cuda'`` — the table walk of ``'auto'``, demanded: raises unless
+      the device is CUDA and the grid path is on.
+
+    ``timings``: if given, the seconds spent on the table precompute and the
+    walk are stored under ``'tables'`` and ``'walk'`` (the device is
+    synchronised around each).
+    """
+    dev = resolve_device(device)
+    if generator.device != dev:
+        raise ValueError(f"generator on {generator.device}, expected {dev}")
+    num_bases = 3**num_qubits
+    g = 2**num_qubits
+    chains = num_bases * shots
+    use_grid = grid_mode == "on" or (
+        grid_mode == "auto" and 6**num_qubits < chains
+    )
+    if walk not in ("auto", "cuda", "seq"):
+        raise ValueError(f"unknown walk {walk!r}")
+    if walk == "cuda" and (dev.type != "cuda" or not use_grid):
+        raise ValueError(
+            "walk='cuda' launches the CUDA kernel on the grid path; got "
+            f"device {dev}, grid {'on' if use_grid else 'off'}"
+        )
+    if use_grid and (walk == "cuda" or (
+            walk == "auto" and chains >= 32 * 6**num_qubits)):
+        t0 = time.perf_counter()
+        tables = grid_p1_tables(denoise_fn, num_qubits, schedule, exact)
+        tables = tables.reshape(schedule.num_timesteps, num_bases, g,
+                                num_qubits)
+        init = torch.randint(0, g, (num_bases, shots), generator=generator,
+                             device=dev, dtype=torch.int32)
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=generator,
+                                 device=dev))
+        if timings is not None:
+            synchronize(dev)
+            timings["tables"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx = cuda_kernels.fused_chain_walk(seed, tables.contiguous(), init,
+                                            num_qubits)
+        if timings is not None:
+            synchronize(dev)
+            timings["walk"] = time.perf_counter() - t0
+        return _unpack(idx, num_qubits)
+    basis = torch.arange(num_bases, device=dev).repeat_interleave(shots)
+    if use_grid:
+        out = p_sample_grid(generator, denoise_fn, basis, num_qubits,
+                            schedule, exact=exact)
+    else:
+        out = p_sample(generator, denoise_fn, basis, num_qubits, schedule,
+                       exact=exact)
+    return out.reshape(num_bases, shots, num_qubits)

@@ -1,0 +1,379 @@
+"""End-to-end tomography pipeline: generate → train → sample → reconstruct.
+
+The port's counterpart of ``ddqst_tpu/pipeline.py`` on the full route in
+generate mode:
+
+1. simulate shots in all 3^N bases (:func:`generate_training_data`);
+2. train the denoiser on the denoising cross-entropy (``train.fit``);
+3. build the grid probability tables in one batched forward, and
+4. walk the chains (on CUDA, the hand-written kernel) —
+   ``ops.diffusion.sample_all_bases``;
+5. histogram the samples (``ops.mle.bits_to_counts``);
+6. invert linearly (``ops.pauli.make_counts_inverter``);
+7. compute the metrics (``ops.metrics``), plus the reference's control:
+   linear inversion of the raw training shots.
+
+Options this slice does not port raise ``NotImplementedError`` naming the
+ROADMAP item, before any work is done: exact-chain distillation, denoise
+mode, MLE reconstruction, the shadow route, basis subsets,
+``gen_tables_once``, checkpoints and meshes.
+
+The data cache keeps the JAX package's npz schema, so each package reads
+the other's cache. ``params_load`` / ``params_save`` read and write a
+``torch.save`` state dict (``models.convert.params_from_flax`` turns the JAX
+package's params into one).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ddqst_tpu_torch import train as training
+from ddqst_tpu_torch.config import ExperimentConfig
+from ddqst_tpu_torch.device import resolve_device, synchronize
+from ddqst_tpu_torch.models import build_model
+from ddqst_tpu_torch.ops import diffusion as diff
+from ddqst_tpu_torch.ops import metrics as M
+from ddqst_tpu_torch.ops import pauli
+from ddqst_tpu_torch.ops.mle import bits_to_counts
+from ddqst_tpu_torch.ops.schedules import make_schedule
+from ddqst_tpu_torch.qsim import measure, noise, states
+
+# Max reverse-sampler chains (bases x shots) per sample_all_bases call: the
+# JAX package's TPU dispatch bound, kept for parity (not an H100 limit).
+_GEN_CHAIN_CAP = 1 << 21
+
+
+@dataclasses.dataclass
+class GeneratedData:
+    bits: torch.Tensor         # [B_bases, shots, N] int8
+    basis_labels: np.ndarray   # [B_bases, N] int
+    basis_idx: np.ndarray      # [B_bases] canonical indices
+    target: np.ndarray         # clean statevector [2^N] (fidelity target)
+    circuit: states.Circuit | None  # None when restored from a cache
+    clean_probs: np.ndarray | None = None  # clean Born probs [B_bases, 2^N]
+
+
+def noisy_basis_probs(
+    circuit: states.Circuit, ncfg: noise.NoiseConfig, labels: np.ndarray,
+    device,
+) -> torch.Tensor:
+    """Outcome probabilities ``[B, 2^N]`` of the noisy state in each basis,
+    readout channel included: what the shots are drawn from."""
+    kind, state = noise.noisy_state(circuit, ncfg)
+    rots = torch.from_numpy(measure.rotation_unitaries(labels)).to(device)
+    state = torch.from_numpy(state).to(device)
+    if kind == "pure":
+        probs = measure.batched_probs_pure(state[None], rots)[0]
+    else:
+        probs = measure.batched_probs_mixed(state[None], rots)[0]
+    return noise.apply_readout_to_probs(probs, circuit.num_qubits,
+                                        ncfg.readout_p)
+
+
+def generate_training_data(
+    cfg: ExperimentConfig, generator: torch.Generator, rng: np.random.Generator,
+) -> GeneratedData:
+    """Simulate per-basis measurement shots for the configured state/noise.
+
+    The circuit and basis selection draw from ``rng`` (numpy, as in the JAX
+    package, so one seed gives the same circuit and target); the shots draw
+    from ``generator`` on the working device.
+    """
+    d = cfg.data
+    dev = generator.device
+    circuit = states.prep_circuit(d.state_type, d.num_qubits, d.rqc_depth, rng)
+    target = states.circuit_statevector(circuit)
+    ncfg = noise.get_noise_config(d.noise_type)
+
+    all_labels = pauli.all_basis_labels(d.num_qubits)
+    if d.max_bases and d.max_bases < len(all_labels):
+        sel = rng.choice(len(all_labels), size=d.max_bases, replace=False)
+        sel.sort()
+    else:
+        sel = np.arange(len(all_labels))
+    labels = all_labels[sel]
+    probs = noisy_basis_probs(circuit, ncfg, labels, dev)
+    rots = torch.from_numpy(measure.rotation_unitaries(labels)).to(dev)
+    clean_probs = measure.batched_probs_pure(
+        torch.from_numpy(target).to(dev)[None], rots
+    )[0].cpu().numpy()
+    bits = measure.sample_bits(generator, probs, d.shots_train, d.num_qubits)
+
+    if d.mitigate_train_data and ncfg.readout_p > 0:
+        # Invert the confusion matrix on the empirical per-basis frequencies,
+        # clip negatives, renormalise, and resample the training shots from
+        # the cleaned distribution.
+        counts = bits_to_counts(bits)
+        freqs = counts / counts.sum(dim=-1, keepdim=True)
+        m_inv = torch.from_numpy(np.linalg.inv(
+            noise.confusion_matrix(d.num_qubits, ncfg.readout_p)
+        )).to(dev)
+        clean = torch.einsum("ij,bj->bi", m_inv, freqs).clamp_min(0.0)
+        clean = clean / clean.sum(dim=-1, keepdim=True)
+        bits = measure.sample_bits(generator, clean, d.shots_train,
+                                   d.num_qubits)
+    return GeneratedData(
+        bits=bits,
+        basis_labels=labels,
+        basis_idx=sel.astype(np.int32),
+        target=target,
+        circuit=circuit,
+        clean_probs=clean_probs,
+    )
+
+
+def save_data_cache(path: str, data: GeneratedData) -> None:
+    """Persist a GeneratedData to npz (the JAX package's schema)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:  # file handle: exact name, atomic rename
+        np.savez_compressed(
+            f,
+            bits=data.bits.cpu().numpy().astype(np.int8),
+            basis_labels=np.asarray(data.basis_labels),
+            basis_idx=np.asarray(data.basis_idx),
+            target=np.asarray(data.target),
+            clean_probs=(
+                np.zeros((0,)) if data.clean_probs is None
+                else np.asarray(data.clean_probs)
+            ),
+        )
+    os.replace(tmp, path)
+
+
+def load_data_cache(path: str, device="cpu") -> GeneratedData:
+    """Restore a GeneratedData saved by either package's ``save_data_cache``."""
+    with np.load(path) as z:
+        clean = z["clean_probs"]
+        return GeneratedData(
+            bits=torch.from_numpy(z["bits"].astype(np.int8)).to(device),
+            basis_labels=z["basis_labels"],
+            basis_idx=z["basis_idx"],
+            target=z["target"],
+            circuit=None,
+            clean_probs=None if clean.size == 0 else clean,
+        )
+
+
+def flatten_for_training(
+    bits: torch.Tensor, basis_idx: np.ndarray
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, N] shots + [B] indices → [B*S, N] bits, [B*S] basis indices."""
+    b, s, n = bits.shape
+    basis = torch.from_numpy(np.asarray(basis_idx, np.int64)).to(bits.device)
+    return bits.reshape(b * s, n), basis.repeat_interleave(s)
+
+
+def use_shadow_route(num_qubits: int, max_bases: int | None) -> bool:
+    """The JAX package's switch to per-qubit conditioning at large N."""
+    return num_qubits > 8 or (num_qubits >= 7 and bool(max_bases))
+
+
+def _check_ported(cfg: ExperimentConfig, mesh) -> None:
+    """Raise for every option this slice does not run (never skip one)."""
+    n = cfg.data.num_qubits
+    unported = [
+        (cfg.train.chain_finetune_steps > 0,
+         "exact-chain distillation (chain_finetune_steps > 0): ROADMAP "
+         "Queue 1 items 3-4"),
+        (cfg.diffusion.infer_mode == "denoise",
+         "infer_mode='denoise': ROADMAP Queue 1 item 7"),
+        (cfg.data.reconstruction == "mle",
+         "reconstruction='mle': ROADMAP Queue 1 item 5"),
+        (use_shadow_route(n, cfg.data.max_bases),
+         "the shadow route (N > 8, or N >= 7 with max_bases): ROADMAP "
+         "Queue 1 item 8"),
+        (bool(cfg.data.max_bases) and cfg.data.max_bases < 3**n,
+         "basis subsets (max_bases < 3^N) need the dense inverter: ROADMAP "
+         "Queue 1 item 5"),
+        (cfg.diffusion.gen_tables_once,
+         "gen_tables_once (sample_all_bases_chunked): ROADMAP Queue 1 item 7"),
+        (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
+         "training checkpoints: ROADMAP Queue 1 item 10"),
+        (mesh is not None, "meshes / multi-device: ROADMAP Queue 1 item 10"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def _generators(seed: int, device: torch.device) -> list[torch.Generator]:
+    """Independent data / train / sample generators derived from ``seed``."""
+    return [
+        torch.Generator(device=device).manual_seed(
+            int(ss.generate_state(1, np.uint64)[0])
+        )
+        for ss in np.random.SeedSequence(seed).spawn(3)
+    ]
+
+
+def run_experiment(
+    cfg: ExperimentConfig,
+    seed: int = 0,
+    mesh=None,
+    log_fn: Callable = print,
+    params_load: str = "",
+    params_save: str = "",
+    data_cache: str = "",
+    device: str | torch.device | None = None,
+) -> dict:
+    """Full-route run in generate mode. Returns a metrics dict.
+
+    Keys as in the JAX package: fidelity, raw_fidelity,
+    raw_fidelity_mitigated, trace_distance, trace_distance_raw,
+    expectations, expectations_raw, purity, vn_entropy, ent_entropy, z_bias,
+    losses, rho, rho_raw, target, state (the trained model), samples; plus
+    ``timings`` (seconds per stage: datagen, train, tables, walk, inversion,
+    metrics; the device is synchronised at each boundary) and
+    ``train_steps``.
+
+    Runs on ``device`` (default CUDA; raises if CUDA is absent and
+    ``device`` was not given). ``params_load`` skips CE training and loads a
+    ``torch.save`` state dict; ``params_save`` writes one. ``data_cache`` is
+    an npz path in the JAX package's schema, read if it exists and written
+    otherwise.
+    """
+    dev = resolve_device(device)
+    _check_ported(cfg, mesh)
+    n = cfg.data.num_qubits
+    model = build_model(cfg.model, n, cfg.diffusion.num_timesteps).to(dev)
+    schedule = make_schedule(cfg.diffusion.schedule,
+                             cfg.diffusion.num_timesteps, dev)
+    rng = np.random.default_rng(seed)
+    g_data, g_train, g_sample = _generators(seed, dev)
+    timings: dict[str, float] = {}
+
+    t0 = time.perf_counter()
+    if data_cache and os.path.exists(data_cache):
+        log_fn(f"[{cfg.name}] loading cached data from {data_cache}")
+        data = load_data_cache(data_cache, dev)
+    else:
+        log_fn(
+            f"[{cfg.name}] generating {cfg.data.state_type} "
+            f"N={n} noise={cfg.data.noise_type} shots={cfg.data.shots_train}"
+        )
+        data = generate_training_data(cfg, g_data, rng)
+        if data_cache:
+            save_data_cache(data_cache, data)
+            log_fn(f"[{cfg.name}] cached data to {data_cache}")
+    synchronize(dev)
+    timings["datagen"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    train_steps = 0
+    if params_load:
+        model.load_state_dict(
+            torch.load(params_load, map_location=dev, weights_only=True)
+        )
+        model.eval()
+        losses = torch.zeros(0)
+        log_fn(f"[{cfg.name}] warm start: params from {params_load} "
+               "(CE training skipped)")
+    else:
+        x, basis = flatten_for_training(data.bits, data.basis_idx)
+        log_fn(f"[{cfg.name}] training on {x.shape[0]} shots")
+        model, losses = training.fit(
+            g_train, model, x, basis, cfg.train, schedule, log_fn=log_fn,
+            device=dev,
+        )
+        train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]), 1)
+                       * cfg.train.num_epochs)
+    synchronize(dev)
+    timings["train"] = time.perf_counter() - t0
+    if params_save:
+        torch.save(model.state_dict(), params_save)
+        log_fn(f"[{cfg.name}] saved params to {params_save}")
+
+    if diff._resolve_exact(schedule, cfg.diffusion.exact):
+        log_fn(
+            f"[{cfg.name}] NOTE: exact factorised posterior in use "
+            "(reference parity); pass sampler='renoise' for best "
+            "reconstruction quality"
+        )
+    log_fn(f"[{cfg.name}] sampling {cfg.data.shots_infer}/basis")
+    num_bases = 3**n
+    shots = cfg.data.shots_infer
+    cap = max(1, _GEN_CHAIN_CAP // num_bases)
+    n_calls = -(-shots // cap)
+    per_call = -(-shots // n_calls)  # equal chunks
+    timings["tables"] = timings["walk"] = 0.0
+    chunks = []
+    for _ in range(n_calls):
+        part: dict[str, float] = {}
+        chunks.append(diff.sample_all_bases(
+            g_sample, model, n, per_call, schedule,
+            exact=cfg.diffusion.exact, device=dev, timings=part,
+        ))
+        for k, v in part.items():
+            timings[k] += v
+    samples = torch.cat(chunks, dim=1)[:, :shots] if n_calls > 1 else chunks[0]
+
+    t0 = time.perf_counter()
+    mit_p = 0.0
+    if cfg.data.mitigate_readout:
+        mit_p = noise.get_noise_config(cfg.data.noise_type).readout_p
+    # Samples of a model trained on mitigated data are already clean;
+    # mitigating them again would over-correct.
+    sample_p = 0.0 if cfg.data.mitigate_train_data else mit_p
+    # Counts-native both ways: scatter-add histogram then WHT parities.
+    rho = pauli.make_counts_inverter(n, readout_p=sample_p)(
+        bits_to_counts(samples)
+    )
+    raw_counts = bits_to_counts(data.bits)
+    rho_raw = pauli.make_counts_inverter(n, data.basis_labels)(raw_counts)
+    rho_raw_mit = None
+    if mit_p > 0:
+        rho_raw_mit = pauli.make_counts_inverter(
+            n, data.basis_labels, readout_p=mit_p
+        )(raw_counts)
+    synchronize(dev)
+    timings["inversion"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    target = torch.from_numpy(np.asarray(data.target)).to(dev)
+    pur, vn, ent = M.get_metrics(rho, n)
+    results = {
+        "fidelity": float(M.state_fidelity(target, rho)),
+        "raw_fidelity": float(M.state_fidelity(target, rho_raw)),
+        "raw_fidelity_mitigated": (
+            None if rho_raw_mit is None
+            else float(M.state_fidelity(target, rho_raw_mit))
+        ),
+        "trace_distance": float(M.trace_distance(target, rho)),
+        "trace_distance_raw": float(M.trace_distance(target, rho_raw)),
+        # Single-site ⟨X⟩/⟨Y⟩/⟨Z⟩ per qubit.
+        "expectations": M.pauli_expectations(rho),
+        "expectations_raw": M.pauli_expectations(rho_raw),
+        "purity": float(pur),
+        "vn_entropy": float(vn),
+        "ent_entropy": float(ent),
+        "z_bias": float(M.z_bias(samples[-1])),  # last basis is Z...Z
+        "losses": losses.detach().cpu().numpy(),
+        "rho": rho.cpu().numpy(),
+        "rho_raw": rho_raw.cpu().numpy(),
+        "target": np.asarray(data.target),
+        "state": model,
+        "samples": samples,
+        "train_steps": train_steps,
+        "timings": timings,
+    }
+    timings["metrics"] = time.perf_counter() - t0
+    log_fn(
+        f"[{cfg.name}] fidelity={results['fidelity']:.5f} "
+        f"(raw baseline {results['raw_fidelity']:.5f}) "
+        f"trace_distance={results['trace_distance']:.5f} "
+        f"purity={results['purity']:.5f}"
+    )
+    threshold = 0.9  # reference success criterion
+    ok = results["fidelity"] > threshold
+    log_fn(
+        f"[{cfg.name}] {'SUCCESS' if ok else 'WARNING'}"
+        f": fidelity {'>' if ok else '<='} {threshold}"
+    )
+    return results

@@ -1,0 +1,73 @@
+"""Basis rotation + Born-rule sampling, batched on the caller's device.
+
+The port's counterpart of ``ddqst_tpu/qsim/measure.py``. The rotated
+probability vectors for every basis come from one complex64 einsum, and all
+shots from one ``torch.multinomial`` call with an explicit generator.
+
+Measurement basis rotations: X → H, Y → S† then H (matrix H @ S†),
+Z → identity.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ddqst_tpu_torch.qsim import gates as G
+
+_ROT1 = np.stack([G.H, G.H @ G.SDG, G.I])  # [3, 2, 2]: X, Y, Z
+
+
+def rotation_unitaries(basis_labels: np.ndarray) -> np.ndarray:
+    """``[B, d, d]`` complex64 rotations for a stack of basis labels
+    (ints 0=X, 1=Y, 2=Z; column q = qubit q)."""
+    basis_labels = np.asarray(basis_labels)
+    mats = _ROT1[basis_labels[:, 0]]
+    for q in range(1, basis_labels.shape[1]):
+        nxt = _ROT1[basis_labels[:, q]]
+        mats = np.einsum("kab,kij->kaibj", nxt, mats).reshape(
+            mats.shape[0], mats.shape[1] * 2, mats.shape[2] * 2
+        )
+    return mats
+
+
+def batched_probs_pure(psis: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
+    """``[C, d]`` states x ``[B, d, d]`` rotations -> ``[C, B, d]`` probs."""
+    phi = torch.einsum("bij,cj->cbi", rots, psis)
+    p = phi.real.square() + phi.imag.square()
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def batched_probs_mixed(rhos: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
+    """``[C, d, d]`` density matrices x ``[B, d, d]`` rotations -> ``[C, B, d]``.
+
+    diag(U ρ U†)_i = Σ_k (Uρ)_ik conj(U)_ik; only the real part survives on
+    the diagonal of a Hermitian product.
+    """
+    t = torch.einsum("bij,cjk->cbik", rots, rhos)  # U ρ
+    p = torch.einsum("cbik,bik->cbi", t.real, rots.real) + torch.einsum(
+        "cbik,bik->cbi", t.imag, rots.imag
+    )
+    p = p.clamp_min(0.0)
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def outcomes_to_bits(outcomes: torch.Tensor, num_qubits: int) -> torch.Tensor:
+    """Unpack little-endian outcome indices into ``[..., N]`` bits (qubit 0 first)."""
+    shifts = torch.arange(num_qubits, device=outcomes.device)
+    return ((outcomes[..., None] >> shifts) & 1).to(torch.int8)
+
+
+def sample_bits(
+    generator: torch.Generator, probs: torch.Tensor, shots: int, num_qubits: int
+) -> torch.Tensor:
+    """probs ``[..., d]`` -> bit samples ``[..., shots, N]`` int8.
+
+    ``generator`` lives on ``probs``' device. The draw is categorical, as
+    the JAX package's ``jax.random.categorical``; the two streams differ.
+    """
+    lead, d = probs.shape[:-1], probs.shape[-1]
+    outcomes = torch.multinomial(
+        probs.reshape(-1, d), shots, replacement=True, generator=generator
+    )
+    return outcomes_to_bits(outcomes.reshape(*lead, shots), num_qubits)

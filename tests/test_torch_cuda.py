@@ -1,0 +1,61 @@
+"""The CUDA chain walk on the card (skipped where there is no card).
+
+Run on a GPU machine without JAX installed (this file imports no JAX, and
+``--noconftest`` skips the JAX-only test configuration):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ddqst_tpu_torch.models import d3pm
+from ddqst_tpu_torch.ops import cuda_kernels as ck
+from ddqst_tpu_torch.ops import diffusion as diff
+from ddqst_tpu_torch.ops import schedules
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("n,s", [(3, 5000), (3, 1237), (7, 300), (1, 33)])
+def test_kernel_equals_plain_version(cuda, n, s):
+    rng = np.random.default_rng(n)
+    g = 2**n
+    tables = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (30, 5, g, n)).astype(np.float32)).to(cuda)
+    init = torch.from_numpy(rng.integers(0, g, (5, s)).astype(np.int32)).to(cuda)
+    before = ck.fused_chain_walk.launches
+    out = ck.fused_chain_walk(2**40 + 3, tables, init, n)
+    torch.cuda.synchronize()
+    assert ck.fused_chain_walk.launches == before + 1
+    assert torch.equal(out, ck.fused_chain_walk_reference(2**40 + 3, tables,
+                                                          init, n))
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    tables = torch.zeros((2, 1, 256, 8), device=cuda)
+    init = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck.fused_chain_walk(0, tables, init, 8)  # 2^N > 128
+    with pytest.raises(ValueError):
+        ck.fused_chain_walk(0, torch.zeros((2, 1, 8, 3), device=cuda),
+                            init.cpu(), 3)  # mixed devices
+
+
+def test_sample_all_bases_auto_reaches_the_kernel(cuda):
+    model = d3pm.ConditionalD3PM(3, 27, 20, embed_dim=16, hidden_dim=32,
+                                 num_blocks=2, input_encoding="token").to(cuda)
+    sched = schedules.cosine_schedule(20, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = ck.fused_chain_walk.launches
+    out = diff.sample_all_bases(gen, model, 3, 5000, sched)
+    assert ck.fused_chain_walk.launches == before + 1
+    assert out.shape == (27, 5000, 3) and out.is_cuda

@@ -1,0 +1,154 @@
+"""Port parity: simulator, linear inversion, histograms and metrics against
+ddqst_tpu on the same inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ddqst_tpu.ops import metrics as jM
+from ddqst_tpu.ops import mle as jmle
+from ddqst_tpu.ops import pauli as jpauli
+from ddqst_tpu.ops.complexlib import from_complex, to_complex
+from ddqst_tpu.qsim import measure as jmeasure
+from ddqst_tpu.qsim import noise as jnoise
+from ddqst_tpu.qsim import states as jstates
+from ddqst_tpu_torch import pipeline as tpipe
+from ddqst_tpu_torch.ops import metrics as tM
+from ddqst_tpu_torch.ops import mle as tmle
+from ddqst_tpu_torch.ops import pauli as tpauli
+from ddqst_tpu_torch.qsim import measure as tmeasure
+from ddqst_tpu_torch.qsim import noise as tnoise
+from ddqst_tpu_torch.qsim import states as tstates
+
+# The suite runs in several xdist workers; one intra-op thread each keeps
+# torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("state_type", ["rqc", "ghz", "w"])
+def test_circuit_and_target_match_jax(seed, state_type):
+    jc = jstates.prep_circuit(state_type, 3, 5, np.random.default_rng(seed))
+    tc = tstates.prep_circuit(state_type, 3, 5, np.random.default_rng(seed))
+    assert [(g.name, g.qubits, g.params) for g in tc.gates] == [
+        (g.name, g.qubits, g.params) for g in jc.gates
+    ]
+    np.testing.assert_array_equal(tstates.circuit_statevector(tc),
+                                  jstates.circuit_statevector(jc))
+
+
+@pytest.mark.parametrize("noise_type", ["torino", "readout", "ideal",
+                                        "depolarizing", "thermal"])
+def test_noisy_basis_probs_match_jax(noise_type):
+    """Per-basis probabilities before sampling, readout included."""
+    n = 3
+    circ = jstates.prep_circuit("rqc", n, 5, np.random.default_rng(0))
+    ncfg = jnoise.get_noise_config(noise_type)
+    kind, state = jnoise.noisy_state(circ, ncfg)
+    labels = jpauli.all_basis_labels(n)
+    rots = from_complex(jmeasure.rotation_unitaries(labels))
+    fn = (jmeasure.batched_probs_pure if kind == "pure"
+          else jmeasure.batched_probs_mixed)
+    ref = jnoise.apply_readout_to_probs(fn(from_complex(state[None]), rots)[0],
+                                        n, ncfg.readout_p)
+    tcirc = tstates.prep_circuit("rqc", n, 5, np.random.default_rng(0))
+    out = tpipe.noisy_basis_probs(tcirc, tnoise.get_noise_config(noise_type),
+                                  labels, "cpu")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_sample_bits_follows_probs():
+    probs = torch.tensor([[0.7, 0.0, 0.3, 0.0], [0.0, 0.25, 0.25, 0.5]])
+    bits = tmeasure.sample_bits(torch.Generator().manual_seed(0), probs,
+                                20000, 2)
+    assert bits.shape == (2, 20000, 2) and bits.dtype == torch.int8
+    counts = tmle.bits_to_counts(bits) / 20000
+    np.testing.assert_allclose(counts.numpy(), probs.numpy(), atol=0.015)
+
+
+def _random_counts(rng, n, shots=500):
+    p = rng.dirichlet(np.ones(2**n), size=3**n)
+    return np.stack([rng.multinomial(shots, q) for q in p]).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("readout_p,psd", [(0.0, True), (0.015, True),
+                                           (0.0, False)])
+def test_counts_inverter_matches_jax(n, readout_p, psd):
+    counts = _random_counts(np.random.default_rng(n), n)
+    ref = to_complex(jpauli.make_counts_inverter(n, psd=psd,
+                                                 readout_p=readout_p)(
+        jnp.asarray(counts)))
+    out = tpauli.make_counts_inverter(n, psd=psd, readout_p=readout_p)(
+        torch.from_numpy(counts))
+    assert out.dtype == torch.complex64 and out.shape == (2**n, 2**n)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_counts_parity_means_matches_jax():
+    counts = _random_counts(np.random.default_rng(7), 4)
+    np.testing.assert_allclose(
+        tpauli.counts_parity_means(torch.from_numpy(counts), 4).numpy(),
+        np.asarray(jpauli.counts_parity_means(jnp.asarray(counts), 4)),
+        atol=1e-6)
+
+
+def test_non_canonical_basis_labels_raise():
+    labels = tpauli.all_basis_labels(2)[:5]
+    with pytest.raises(NotImplementedError):
+        tpauli.make_counts_inverter(2, labels)
+    with pytest.raises(NotImplementedError):
+        tpauli.make_counts_inverter(2, compat_mode="first")
+
+
+def _rho_pair(rng, n=3):
+    """A random full-rank state and a near-pure state (complex64)."""
+    d = 2**n
+    a = rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d))
+    rho = a @ a.conj().T
+    rho /= np.trace(rho)
+    psi = jstates.circuit_statevector(
+        jstates.prep_circuit("rqc", n, 5, np.random.default_rng(3)))
+    sigma = 0.9 * np.outer(psi, psi.conj()) + 0.1 * rho
+    return rho.astype(np.complex64), sigma.astype(np.complex64), psi
+
+
+def test_metrics_match_jax():
+    rho, sigma, psi = _rho_pair(np.random.default_rng(0))
+    t = torch.from_numpy
+    pairs = [
+        (tM.state_fidelity(t(psi), t(rho)), jM.state_fidelity(psi, rho)),
+        (tM.state_fidelity(t(rho), t(psi)), jM.state_fidelity(rho, psi)),
+        (tM.state_fidelity(t(psi), t(psi)), jM.state_fidelity(psi, psi)),
+        (tM.state_fidelity(t(rho), t(sigma)), jM.state_fidelity(rho, sigma)),
+        (tM.trace_distance(t(psi), t(rho)), jM.trace_distance(psi, rho)),
+        (tM.trace_distance(t(rho), t(sigma)), jM.trace_distance(rho, sigma)),
+        (tM.purity(t(rho)), jM.purity(rho)),
+        (tM.von_neumann_entropy(t(rho)), jM.von_neumann_entropy(rho)),
+        (tM.von_neumann_entropy(t(sigma)), jM.von_neumann_entropy(sigma)),
+        (tM.entanglement_entropy(t(sigma), 3), jM.entanglement_entropy(sigma, 3)),
+    ]
+    for out, ref in pairs:
+        np.testing.assert_allclose(float(out), float(ref), atol=1e-4)
+    for x in (rho, sigma):
+        got, want = tM.pauli_expectations(t(x)), jM.pauli_expectations(x)
+        assert got.keys() == want.keys()
+        np.testing.assert_allclose(list(got.values()), list(want.values()),
+                                   atol=1e-5)
+    z = np.random.default_rng(1).integers(0, 2, (500, 3)).astype(np.int8)
+    assert float(tM.z_bias(t(z))) == pytest.approx(float(jM.z_bias(jnp.asarray(z))))
+
+
+def test_fidelity_clamp_rule():
+    assert float(tM._clamp_fid(torch.tensor(1.0005))) == 1.0
+    assert float(tM._clamp_fid(torch.tensor(1.01))) == pytest.approx(1.01)
+    assert float(tM._clamp_fid(torch.tensor(0.97))) == pytest.approx(0.97)
+
+
+def test_bits_to_counts_matches_jax_exactly():
+    bits = np.random.default_rng(4).integers(0, 2, (9, 333, 3)).astype(np.int8)
+    out = tmle.bits_to_counts(torch.from_numpy(bits))
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jmle.bits_to_counts(jnp.asarray(bits))))
