@@ -8,7 +8,7 @@
 //     x  <- sum_q [u_q < p1_q] << q
 // starting from x = init[c, s]; out[c, s] is the final x.
 //
-// Randomness is counter-based Philox4x32-10 written out here (not curand),
+// Randomness is counter-based Philox4x32-10 from philox.cuh (not curand),
 // keyed by the 64-bit seed with counter (s, c, i, q / 4); bit q uses word
 // q % 4. The output therefore does not depend on the launch geometry, and
 // the plain PyTorch version (ops/cuda_kernels.py:fused_chain_walk_reference)
@@ -30,42 +30,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxG = 128;
 constexpr int kMaxN = 7;
-
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ void philox_round(uint4& ctr, uint32_t k0,
-                                             uint32_t k1) {
-  const uint32_t lo0 = kM0 * ctr.x;
-  const uint32_t hi0 = __umulhi(kM0, ctr.x);
-  const uint32_t lo1 = kM1 * ctr.z;
-  const uint32_t hi1 = __umulhi(kM1, ctr.z);
-  ctr = make_uint4(hi1 ^ ctr.y ^ k0, lo1, hi0 ^ ctr.w ^ k1, lo0);
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    philox_round(ctr, k0, k1);
-  }
-  return ctr;
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& w, int k) {
-  return k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
-}
 
 __global__ void __launch_bounds__(kThreads)
 chain_walk_kernel(const float* __restrict__ tables,
@@ -92,14 +63,13 @@ chain_walk_kernel(const float* __restrict__ tables,
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
       for (int q = 0; q < n; ++q) {
         if ((q & 3) == 0) {
-          w = philox4x32_10(
+          w = ddqst::philox4x32_10(
               make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(c),
                          static_cast<uint32_t>(i),
                          static_cast<uint32_t>(q >> 2)),
               k0, k1);
         }
-        const float u =
-            static_cast<float>(word_of(w, q & 3) >> 8) * (1.0f / 16777216.0f);
+        const float u = ddqst::philox_uniform(ddqst::philox_word(w, q & 3));
         nx |= (u < p1[q]) ? (1 << q) : 0;
       }
       x = nx;

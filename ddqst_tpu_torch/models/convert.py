@@ -25,7 +25,7 @@ def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
     """Flax ``ConditionalD3PM`` params -> ``ConditionalD3PM.state_dict()``."""
     sd: dict[str, torch.Tensor] = {}
     for name, p in params_np.items():
-        if name in ("x_emb", "time_emb", "basis_emb"):
+        if name in ("x_emb", "time_emb", "basis_emb", "circuit_emb"):
             sd[f"{name}.weight"] = torch.from_numpy(np.array(p["embedding"]))
         elif name in ("input_proj", "output_head"):
             sd.update(_linear(name, p))

@@ -10,7 +10,11 @@ encodings sit behind one ``input_encoding`` switch:
 Conditioning: time embedding ``Embedding(T+1, E)`` and basis embedding
 ``Embedding(3^N, E)`` concatenated into a ``2E`` vector feeding one FiLM
 layer per residual block: ``x * (1 + γ) + β`` (γ first, then β), then
-Linear→SiLU→Linear with ``silu(x + h)`` as the block output.
+Linear→SiLU→Linear with ``silu(x + h)`` as the block output. With
+``num_circuits > 0`` a circuit embedding ``Embedding(C, E)`` joins as
+``[t_emb, b_emb, circuit_emb]`` (a ``3E`` vector), for models trained on a
+multi-circuit dataset: the conditioning input is then a packed ``[B, 2]``
+of (basis, circuit), and a 1-D input takes circuit 0.
 
 Parameters start from flax's default initialisers, so a model trained from
 scratch starts from the same distribution as the JAX package's: Linear
@@ -70,8 +74,9 @@ class FiLMResBlock(nn.Module):
 class ConditionalD3PM(nn.Module):
     """Basis- and time-conditioned bitstring denoiser.
 
-    ``forward(x_t [B,N] int, t [B] int, basis_idx [B] int) -> logits
-    [B,N,2]`` float32.
+    ``forward(x_t [B,N] int, t [B] int, basis_idx [B] or [B, 2] int) ->
+    logits [B,N,2]`` float32; the ``[B, 2]`` form packs (basis, circuit)
+    for a model built with ``num_circuits > 0``.
     """
 
     def __init__(
@@ -83,9 +88,11 @@ class ConditionalD3PM(nn.Module):
         hidden_dim: int = 512,
         num_blocks: int = 4,
         input_encoding: str = "float",
+        num_circuits: int = 0,
     ):
         super().__init__()
         self.num_qubits = num_qubits
+        self.num_circuits = num_circuits
         self.input_encoding = input_encoding
         if input_encoding == "float":
             self.input_proj = nn.Linear(num_qubits, hidden_dim)
@@ -96,8 +103,13 @@ class ConditionalD3PM(nn.Module):
             raise ValueError(f"bad input_encoding {input_encoding!r}")
         self.time_emb = nn.Embedding(num_timesteps + 1, embed_dim)
         self.basis_emb = nn.Embedding(num_bases, embed_dim)
+        n_cond = 2
+        if num_circuits > 0:
+            self.circuit_emb = nn.Embedding(num_circuits, embed_dim)
+            n_cond = 3
         self.blocks = nn.ModuleList(
-            FiLMResBlock(2 * embed_dim, hidden_dim) for _ in range(num_blocks)
+            FiLMResBlock(n_cond * embed_dim, hidden_dim)
+            for _ in range(num_blocks)
         )
         self.output_head = nn.Linear(hidden_dim, num_qubits * 2)
         init_params_(self)
@@ -106,33 +118,35 @@ class ConditionalD3PM(nn.Module):
         self, x: torch.Tensor, t: torch.Tensor, basis_idx: torch.Tensor
     ) -> torch.Tensor:
         b = x.shape[0]
+        circuit_idx = None
+        if basis_idx.dim() == 2:
+            basis_idx, circuit_idx = basis_idx[:, 0], basis_idx[:, 1]
         if self.input_encoding == "float":
             h = self.input_proj(x.float())
         else:
             emb = self.x_emb(x.long())  # [B, N, E]
             h = self.input_proj(emb.reshape(b, -1))
-        cond = torch.cat(
-            [self.time_emb(t.long()), self.basis_emb(basis_idx.long())], dim=-1
-        )
+        parts = [self.time_emb(t.long()), self.basis_emb(basis_idx.long())]
+        if self.num_circuits > 0:
+            if circuit_idx is None:
+                circuit_idx = torch.zeros_like(basis_idx)
+            parts.append(self.circuit_emb(circuit_idx.long()))
+        cond = torch.cat(parts, dim=-1)
         for block in self.blocks:
             h = block(h, cond)
         return self.output_head(h).reshape(b, self.num_qubits, 2).float()
 
 
 def build_model(
-    cfg: ModelConfig, num_qubits: int, num_timesteps: int
+    cfg: ModelConfig, num_qubits: int, num_timesteps: int,
+    num_circuits: int = 0,
 ) -> ConditionalD3PM:
     """Instantiate a denoiser from a :class:`ModelConfig` (on the CPU; the
-    caller moves it)."""
+    caller moves it). ``num_circuits > 0`` adds the circuit embedding."""
     if cfg.arch != "film_mlp":
         raise NotImplementedError(
             f"arch={cfg.arch!r} is not ported yet (ROADMAP Queue 1 items 2 "
             "and 8: PlainMLP and the transformer); only 'film_mlp' runs"
-        )
-    if cfg.condition_on_circuit:
-        raise NotImplementedError(
-            "condition_on_circuit is not ported yet (ROADMAP Queue 1 item 9: "
-            "datasets and harness)"
         )
     if cfg.dtype != "float32":
         raise NotImplementedError(
@@ -147,4 +161,5 @@ def build_model(
         hidden_dim=cfg.hidden_dim,
         num_blocks=cfg.num_blocks,
         input_encoding=cfg.input_encoding,
+        num_circuits=num_circuits,
     )

@@ -1,2 +1,2 @@
-"""Compute-path ops: schedules, diffusion samplers, the CUDA chain walk,
-Pauli inversion, histograms and metrics."""
+"""Compute-path ops: schedules, diffusion samplers, the CUDA chain walk and
+chain step, Pauli inversion, histograms and metrics."""

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, under ``ddqst_tpu_torch/_build/`` (listed
-in ``.gitignore``). The file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. The
-compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+in ``.gitignore``). Sources include the shared headers ``csrc/*.cuh`` (the
+Philox generator). The file name carries a hash of the source, of every
+header and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused. The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``<lib>.log``.
 
 Nothing is built at import time; the wrappers in ``cuda_kernels.py`` call
@@ -14,6 +15,7 @@ Nothing is built at import time; the wrappers in ``cuda_kernels.py`` call
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -48,8 +50,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Path of the built library for ``csrc/<name>.cu`` (may not exist yet)."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -64,7 +69,8 @@ def build(name: str) -> tuple[str, float]:
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0

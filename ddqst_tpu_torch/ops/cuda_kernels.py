@@ -1,16 +1,21 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``fused_chain_walk`` replaces the TPU kernel
-``ddqst_tpu/ops/pallas_kernels.py::fused_chain_walk``: the whole T-step
-reverse table walk of the grid sampler in one launch
-(``csrc/chain_walk.cu``). Beside it, ``fused_chain_walk_reference`` is the
-same walk with the same Philox4x32-10 words, computed with tensor ops.
+- ``fused_chain_walk`` replaces the TPU kernel
+  ``ddqst_tpu/ops/pallas_kernels.py::fused_chain_walk``: the whole T-step
+  reverse table walk of the grid sampler in one launch
+  (``csrc/chain_walk.cu``).
+- ``fused_chain_step`` replaces ``pallas_kernels.py::fused_chain_step``: one
+  reverse step of the grid sampler, a table gather and one Bernoulli draw
+  per bit for every chain (``csrc/chain_step.cu``).
 
-The wrapper takes the plain version only for tensors that lie on the CPU
+Beside each, ``*_reference`` is the same function with the same
+Philox4x32-10 words (``csrc/philox.cuh``), computed with tensor ops.
+
+A wrapper takes the plain version only for tensors that lie on the CPU
 (that is what the CPU tests exercise). For CUDA tensors it launches the
-kernel or raises; nothing falls back. ``fused_chain_walk.launches`` counts
-kernel launches (never plain-version calls), so a run can show that its
-main path went through the kernel.
+kernel or raises; nothing falls back. ``<wrapper>.launches`` counts kernel
+launches (never plain-version calls), so a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -176,3 +181,124 @@ def fused_chain_walk(
 
 
 fused_chain_walk.launches = 0
+
+
+_MAX_STEP_N = 30  # the outcome index holds N bits in an int32
+
+
+def _check_step_args(seed, table, rows, num_qubits, step) -> None:
+    if not isinstance(seed, int) or not 0 <= seed < 2**64:
+        raise ValueError(f"seed must be an int in [0, 2^64), got {seed!r}")
+    if not isinstance(step, int) or not 0 <= step < 2**32:
+        raise ValueError(f"step must be an int in [0, 2^32), got {step!r}")
+    if not 1 <= num_qubits <= _MAX_STEP_N:
+        raise ValueError(f"need 1 <= N <= {_MAX_STEP_N}, got {num_qubits}")
+    if (table.dtype != torch.float32 or table.dim() != 2
+            or table.shape[1] != num_qubits):
+        raise ValueError(
+            f"table must be [G, N={num_qubits}] float32, got "
+            f"{tuple(table.shape)} {table.dtype}"
+        )
+    if not 1 <= table.shape[0] < 2**31:
+        raise ValueError(f"need 1 <= G < 2^31 table rows, got {table.shape[0]}")
+    if rows.dtype != torch.int32 or rows.dim() != 1:
+        raise ValueError(
+            f"rows must be [B] int32, got {tuple(rows.shape)} {rows.dtype}"
+        )
+    if not 1 <= rows.shape[0] <= 2**32:
+        raise ValueError(f"need 1 <= B <= 2^32 chains, got {rows.shape[0]}")
+    if rows.device != table.device:
+        raise ValueError(f"table on {table.device} but rows on {rows.device}")
+    if not (table.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("table and rows must be contiguous")
+
+
+def fused_chain_step_reference(
+    seed: int, table: torch.Tensor, rows: torch.Tensor, num_qubits: int,
+    step: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of the step kernel: the same gather, the same
+    bits.
+
+    ``table [G, N]`` float32, ``rows [B]`` int32 in ``[0, G)`` (raises
+    otherwise), 64-bit ``seed``; returns ``[B]`` int32. Chain b draws the
+    Philox4x32-10 block with counter (b, step, q // 4, 0) and key
+    (seed mod 2^32, seed >> 32); bit q uses word q % 4 and
+    ``u = (word >> 8) * 2^-24``.
+    """
+    _check_step_args(seed, table, rows, num_qubits, step)
+    g = table.shape[0]
+    if int(rows.min()) < 0 or int(rows.max()) >= g:
+        raise ValueError(f"row ids must lie in [0, {g})")
+    n = num_qubits
+    p1 = table[rows.long()]  # [B, N]
+    b_idx = torch.arange(rows.shape[0], device=rows.device, dtype=torch.int64)
+    key = (seed & _MASK32, seed >> 32)
+    x = torch.zeros_like(b_idx)
+    zero = torch.zeros_like(b_idx)
+    for qb in range((n + 3) // 4):
+        words = philox4x32_10(
+            (b_idx, torch.full_like(b_idx, step), torch.full_like(b_idx, qb),
+             zero),
+            key,
+        )
+        for k in range(min(4, n - 4 * qb)):
+            q = 4 * qb + k
+            u = (words[k] >> 8).to(torch.float32) * (1.0 / 16777216.0)
+            x |= (u < p1[:, q]).to(torch.int64) << q
+    return x.to(torch.int32)
+
+
+def _chain_step_fn():
+    fn = _build.load("chain_step").ddqst_fused_chain_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # table, rows, out
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # G, N, B
+        ctypes.c_uint,  # step
+        ctypes.c_uint64,  # seed
+        ctypes.c_void_p,  # stream
+    ]
+    return fn
+
+
+def fused_chain_step(
+    seed: int, table: torch.Tensor, rows: torch.Tensor, num_qubits: int,
+    step: int = 0,
+) -> torch.Tensor:
+    """One reverse-sampler chain update in one CUDA kernel launch.
+
+    Args:
+      seed: 64-bit int; the Philox key.
+      table: ``[G, N]`` float32 P(bit=1) per grid row.
+      rows: ``[B]`` int32 grid-row id per chain, in ``[0, G)`` (the kernel
+        does not check: that would need a synchronisation).
+      num_qubits: N, 1 <= N <= 30.
+      step: the step's index, in ``[0, 2^32)``; the Philox counter's second
+        word, so each step of one walk draws fresh bits under one seed.
+
+    Returns:
+      ``[B]`` int32 new outcome index per chain.
+
+    CPU tensors take :func:`fused_chain_step_reference`; CUDA tensors launch
+    the kernel on the current stream, or raise.
+    """
+    _check_step_args(seed, table, rows, num_qubits, step)
+    if table.device.type == "cpu":
+        return fused_chain_step_reference(seed, table, rows, num_qubits, step)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    out = torch.empty_like(rows)
+    fn = _chain_step_fn()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        err = fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                 table.shape[0], num_qubits, rows.shape[0], step, seed,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"chain_step kernel launch failed: cudaError {err}")
+    fused_chain_step.launches += 1
+    return out
+
+
+fused_chain_step.launches = 0

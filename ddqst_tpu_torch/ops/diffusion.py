@@ -9,11 +9,14 @@ route's generate mode:
 - ``p_sample`` — the per-chain reverse sampler (one denoiser call per step
   for every chain).
 - ``grid_p1_tables`` / ``p_sample_grid`` / ``sample_all_bases`` — the
-  exhaustive-grid sampler: at small N the denoiser's inputs (x_t, t, basis)
-  take only T·3^N·2^N values, so all per-step P(bit=1) tables come from a
-  few batched forwards and the reverse chain becomes a table walk. On a
-  CUDA device that walk is the hand-written kernel
-  (:func:`ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`).
+  exhaustive-grid sampler: at small N the denoiser's inputs (x_t, t, basis,
+  and the circuit for circuit-conditioned models) take only
+  T·C·3^N·2^N values, so all per-step P(bit=1) tables come from a few
+  batched forwards and the reverse chain becomes a table walk. On a CUDA
+  device the walk runs in the hand-written kernels: all T steps in one
+  launch (:func:`ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`), or
+  one launch per step in :func:`p_sample_grid`
+  (:func:`ddqst_tpu_torch.ops.cuda_kernels.fused_chain_step`).
 
 Randomness comes from an explicit ``torch.Generator`` on the working
 device. The streams differ from ``jax.random``'s, so the samplers match the
@@ -173,19 +176,29 @@ def _grid_p1_table(
     return p1_hat * (1.0 - f) + (1.0 - p1_hat) * f
 
 
-def _grid_enum(num_qubits: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The basis × bitstring conditioning grid, row ``basis_idx·2^N + x``.
+def _grid_enum(
+    num_qubits: int, device, num_circuits: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (circuit ×) basis × bitstring conditioning grid.
 
-    Returns ``(grid_x [3^N·2^N, N] int8, grid_basis [3^N·2^N] int64)``.
+    Row ``(circuit·3^N + basis_idx)·2^N + x``. Returns ``(grid_x [Gtot, N]
+    int8, grid_basis)`` with ``grid_basis`` ``[Gtot]`` int64, or ``[Gtot,
+    2]`` (basis, circuit) when ``num_circuits > 0``.
     """
     num_bases = 3**num_qubits
     g = 2**num_qubits
+    reps = max(num_circuits, 1)
     x_enum = (
         (torch.arange(g, device=device)[:, None]
          >> torch.arange(num_qubits, device=device)) & 1
     ).to(torch.int8)
-    grid_x = x_enum.repeat(num_bases, 1)
+    grid_x = x_enum.repeat(reps * num_bases, 1)
     grid_basis = torch.arange(num_bases, device=device).repeat_interleave(g)
+    grid_basis = grid_basis.repeat(reps)
+    if num_circuits > 0:
+        grid_circ = torch.arange(num_circuits, device=device
+                                 ).repeat_interleave(num_bases * g)
+        return grid_x, torch.stack([grid_basis, grid_circ], dim=-1)
     return grid_x, grid_basis
 
 
@@ -213,9 +226,10 @@ def _tables_for_ts(
     num_qubits: int,
     schedule: DiffusionSchedule,
     exact: bool,
+    num_circuits: int = 0,
     row_budget: int = _ROW_BUDGET,
 ) -> torch.Tensor:
-    """P(bit=1) tables ``[len(ts_c), 3^N·2^N, N]`` for the given timesteps.
+    """P(bit=1) tables ``[len(ts_c), Gtot, N]`` for the given timesteps.
 
     Every forward is bounded to ``row_budget`` rows: timesteps are grouped
     ``m`` at a time when the grid is small, and one timestep's grid is
@@ -223,7 +237,7 @@ def _tables_for_ts(
     not divide (a prime T) is padded with dummy t=1 rows, which are sliced
     off, so every group is a forward of the same size.
     """
-    grid_x, grid_basis = _grid_enum(num_qubits, ts_c.device)
+    grid_x, grid_basis = _grid_enum(num_qubits, ts_c.device, num_circuits)
     gtot = grid_x.shape[0]
     length = ts_c.shape[0]
     if gtot > row_budget:
@@ -239,7 +253,7 @@ def _tables_for_ts(
                           device=ts_c.device)]
     )
     big_x = grid_x.repeat(m, 1)
-    big_basis = grid_basis.repeat(m)
+    big_basis = grid_basis.repeat((m,) + (1,) * (grid_basis.dim() - 1))
     out = []
     for ts_g in ts_pad.reshape(n_chunks, m):
         big_t = ts_g.repeat_interleave(gtot)
@@ -255,18 +269,21 @@ def grid_p1_tables(
     num_qubits: int,
     schedule: DiffusionSchedule,
     exact: bool | None = None,
+    num_circuits: int = 0,
     row_budget: int = _ROW_BUDGET,
 ) -> torch.Tensor:
-    """P(bit=1) tables for EVERY (t, basis, x) in a few batched forwards.
+    """P(bit=1) tables for EVERY (t, (circuit,) basis, x) in a few batched
+    forwards.
 
-    Returns ``[T, 3^N·2^N, N]`` float32 on the schedule's device, index 0 =
+    Returns ``[T, Gtot, N]`` float32 on the schedule's device (Gtot =
+    max(C, 1)·3^N·2^N, rows laid out as in :func:`_grid_enum`), index 0 =
     the first reverse step (t = T).
     """
     exact = _resolve_exact(schedule, exact)
     ts = torch.arange(schedule.num_timesteps, 0, -1,
                       device=schedule.betas.device)
     return _tables_for_ts(denoise_fn, ts, num_qubits, schedule, exact,
-                          row_budget)
+                          num_circuits, row_budget)
 
 
 def _unpack(idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
@@ -282,31 +299,50 @@ def p_sample_grid(
     num_qubits: int,
     schedule: DiffusionSchedule,
     exact: bool | None = None,
+    num_circuits: int = 0,
+    precompute: bool = True,
 ) -> torch.Tensor:
     """Reverse diffusion via exhaustive-grid evaluation (small N).
 
-    Each step runs one grid forward for its table, then a gather +
-    Bernoulli per chain (the per-step path, cheaper than a full table
-    precompute when chains are few; many chains take the precomputed
-    tables and the fused walk in :func:`sample_all_bases`). Returns
-    ``[B, N]`` int8.
+    ``basis`` is ``[B]`` basis indices, or, with ``num_circuits > 0``
+    (circuit-conditioned models), a packed ``[B, 2]`` of (basis, circuit);
+    the grid then enumerates (circuit, basis, x).
+
+    ``precompute=True`` takes all T tables ``[T, Gtot, N]`` from one
+    :func:`grid_p1_tables` call; ``precompute=False`` runs one grid forward
+    per step instead (cheaper when chains are few). In both, each step's
+    chain update (gather the chain's table row, one Bernoulli per bit,
+    pack) is :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_step`,
+    called with one 64-bit seed drawn from ``generator`` per call and the
+    step's index: on a CUDA device that launches the hand-written kernel
+    once per step (or raises), and only CPU tensors take its plain version.
+    Returns ``[B, N]`` int8.
     """
     exact = _resolve_exact(schedule, exact)
     dev = basis.device
     g = 2**num_qubits
-    powers = 2 ** torch.arange(num_qubits, device=dev)
-    grid_x, grid_basis = _grid_enum(num_qubits, dev)
-    row_base = basis.long() * g
+    if num_circuits > 0:
+        row_base = (basis[:, 1].long() * 3**num_qubits + basis[:, 0].long()) * g
+    else:
+        row_base = basis.long() * g
     x_idx = torch.randint(0, g, (basis.shape[0],), generator=generator,
-                          device=dev)
-    for t in range(schedule.num_timesteps, 0, -1):
-        t_vec = torch.full((grid_x.shape[0],), t, dtype=torch.int64,
-                           device=dev)
-        logits = denoise_fn(grid_x, t_vec, grid_basis)
-        table = _grid_p1_table(logits, grid_x, t, schedule, exact)
-        p1 = table[row_base + x_idx]  # [B, N]
-        u = torch.rand(p1.shape, generator=generator, device=dev)
-        x_idx = ((u < p1).long() * powers).sum(-1)
+                          device=dev, dtype=torch.int32)
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=generator,
+                             device=dev))
+    if precompute:
+        tables = grid_p1_tables(denoise_fn, num_qubits, schedule, exact,
+                                num_circuits)
+    else:
+        grid_x, grid_basis = _grid_enum(num_qubits, dev, num_circuits)
+    for i, t in enumerate(range(schedule.num_timesteps, 0, -1)):
+        if precompute:
+            table = tables[i]
+        else:
+            table = _p1_rows_one_t(denoise_fn, t, grid_x, grid_basis,
+                                   schedule, exact, _ROW_BUDGET)
+        rows = (row_base + x_idx).to(torch.int32)
+        x_idx = cuda_kernels.fused_chain_step(seed, table.contiguous(), rows,
+                                              num_qubits, step=i)
     return _unpack(x_idx, num_qubits)
 
 
@@ -334,7 +370,11 @@ def sample_all_bases(
 
     ``walk`` selects the grid path's chain walk:
 
-    - ``'seq'`` — no table precompute: one grid forward per step.
+    - ``'seq'`` — no table precompute: :func:`p_sample_grid` with
+      ``precompute=False``, one grid forward per step, each step's chain
+      update through
+      :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_step` (on CUDA,
+      T launches of the hand-written step kernel).
     - ``'auto'`` — below 32·6^N chains ``'seq'`` (the JAX package's
       crossover, tuned on a TPU and kept for parity, not an H100 limit);
       otherwise all T tables in one precompute, then the whole walk through
@@ -349,7 +389,7 @@ def sample_all_bases(
     synchronised around each).
     """
     dev = resolve_device(device)
-    if generator.device != dev:
+    if resolve_device(generator.device) != dev:
         raise ValueError(f"generator on {generator.device}, expected {dev}")
     num_bases = 3**num_qubits
     g = 2**num_qubits
@@ -387,7 +427,7 @@ def sample_all_bases(
     basis = torch.arange(num_bases, device=dev).repeat_interleave(shots)
     if use_grid:
         out = p_sample_grid(generator, denoise_fn, basis, num_qubits,
-                            schedule, exact=exact)
+                            schedule, exact=exact, precompute=False)
     else:
         out = p_sample(generator, denoise_fn, basis, num_qubits, schedule,
                        exact=exact)

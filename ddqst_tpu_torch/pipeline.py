@@ -1,7 +1,7 @@
 """End-to-end tomography pipeline: generate → train → sample → reconstruct.
 
-The port's counterpart of ``ddqst_tpu/pipeline.py`` on the full route in
-generate mode:
+The port's counterpart of ``ddqst_tpu/pipeline.py``. ``run_experiment`` is
+the full route in generate mode:
 
 1. simulate shots in all 3^N bases (:func:`generate_training_data`);
 2. train the denoiser on the denoising cross-entropy (``train.fit``);
@@ -22,6 +22,12 @@ The data cache keeps the JAX package's npz schema, so each package reads
 the other's cache. ``params_load`` / ``params_save`` read and write a
 ``torch.save`` state dict (``models.convert.params_from_flax`` turns the JAX
 package's params into one).
+
+``train_on_dataset`` is the phase-4 dataset route's training step: it
+trains one denoiser on a prebuilt circuit dataset (``data.generate``),
+optionally conditioned on the circuit, and saves the eval subset and the
+params for ``evaluate.evaluate_dataset``. ``create_sanity_records`` is the
+memorisation check's synthetic dataset.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import torch
 
 from ddqst_tpu_torch import train as training
 from ddqst_tpu_torch.config import ExperimentConfig
+from ddqst_tpu_torch.data.loader import dataset_to_training_arrays
+from ddqst_tpu_torch.data.records import CircuitRecord, save_shard
 from ddqst_tpu_torch.device import resolve_device, synchronize
 from ddqst_tpu_torch.models import build_model
 from ddqst_tpu_torch.ops import diffusion as diff
@@ -44,6 +52,7 @@ from ddqst_tpu_torch.ops import pauli
 from ddqst_tpu_torch.ops.mle import bits_to_counts
 from ddqst_tpu_torch.ops.schedules import make_schedule
 from ddqst_tpu_torch.qsim import measure, noise, states
+from ddqst_tpu_torch.utils.checkpoint import restore_params, save_params
 
 # Max reverse-sampler chains (bases x shots) per sample_all_bases call: the
 # JAX package's TPU dispatch bound, kept for parity (not an H100 limit).
@@ -268,10 +277,7 @@ def run_experiment(
     t0 = time.perf_counter()
     train_steps = 0
     if params_load:
-        model.load_state_dict(
-            torch.load(params_load, map_location=dev, weights_only=True)
-        )
-        model.eval()
+        restore_params(params_load, model).eval()
         losses = torch.zeros(0)
         log_fn(f"[{cfg.name}] warm start: params from {params_load} "
                "(CE training skipped)")
@@ -287,7 +293,7 @@ def run_experiment(
     synchronize(dev)
     timings["train"] = time.perf_counter() - t0
     if params_save:
-        torch.save(model.state_dict(), params_save)
+        save_params(params_save, model)
         log_fn(f"[{cfg.name}] saved params to {params_save}")
 
     if diff._resolve_exact(schedule, cfg.diffusion.exact):
@@ -377,3 +383,90 @@ def run_experiment(
         f": fidelity {'>' if ok else '<='} {threshold}"
     )
     return results
+
+
+def create_sanity_records(num_qubits: int) -> list[CircuitRecord]:
+    """Synthetic Bell-correlation dataset for the memorisation check: 500 x
+    '00..0' and 500 x '11..1' counts in the Z basis only."""
+    d = 2**num_qubits
+    counts = np.zeros((1, d), np.int32)
+    counts[0, 0] = 500
+    counts[0, d - 1] = 500
+    target = np.zeros(d, np.complex64)
+    target[0] = target[-1] = 1 / np.sqrt(2)
+    return [
+        CircuitRecord(
+            id=0,
+            hash="sanity",
+            depth=0,
+            clean_state=target,
+            basis_labels=np.full((1, num_qubits), 2, np.int8),  # Z...Z
+            counts=counts,
+        )
+    ]
+
+
+def train_on_dataset(
+    cfg: ExperimentConfig,
+    records,
+    save_dir: str = "",
+    run_name: str = "model",
+    train_ratio: float = 1.0,
+    num_eval_circuits: int = 50,
+    seed: int = 0,
+    log_fn: Callable = print,
+    device: str | torch.device | None = None,
+) -> tuple[torch.nn.Module, list[CircuitRecord]]:
+    """Phase-4 style training on a prebuilt circuit dataset.
+
+    Shuffles the circuits with ``np.random.default_rng(seed).shuffle`` (as
+    the JAX package does, so the same circuits land in the same places),
+    keeps ``train_ratio`` of them, and evaluates on the first
+    ``num_eval_circuits`` *training* circuits (the reference's deliberate
+    memorisation protocol). With ``cfg.model.condition_on_circuit`` the
+    model gets one circuit embedding per training circuit and trains on
+    packed (basis, circuit) conditioning; the eval subset is a prefix of
+    the training circuits, so its circuit ids are the model's.
+
+    With ``save_dir`` it writes ``{run_name}_eval.npz`` (the eval subset, in
+    order) and ``{run_name}_params.pt`` (the state dict). Runs on
+    ``device`` (default CUDA; raises if CUDA is absent and ``device`` was
+    not given). Returns ``(model, eval_records)``.
+    """
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    records = list(records)
+    rng.shuffle(records)
+    num_train = max(int(len(records) * train_ratio), 1)
+    training_recs = records[:num_train]
+    eval_recs = training_recs[: max(1, num_eval_circuits)]
+    if save_dir:
+        os.makedirs(save_dir, exist_ok=True)
+        save_shard(os.path.join(save_dir, f"{run_name}_eval.npz"), eval_recs)
+
+    arrays = dataset_to_training_arrays(training_recs, mode="unroll")
+    eval_arrays = dataset_to_training_arrays(eval_recs, mode="unroll")
+    log_fn(f"training on {arrays['bits'].shape[0]} shots "
+           f"({len(training_recs)} circuits)")
+    schedule = make_schedule(cfg.diffusion.schedule,
+                             cfg.diffusion.num_timesteps, dev)
+    num_circuits = len(training_recs) if cfg.model.condition_on_circuit else 0
+    model = build_model(cfg.model, cfg.data.num_qubits,
+                        cfg.diffusion.num_timesteps, num_circuits).to(dev)
+
+    def cond(a):  # packed (basis, circuit) when circuit-conditioned
+        if num_circuits == 0:
+            return a["basis_idx"]
+        return torch.stack([a["basis_idx"], a["circuit_idx"]], dim=-1)
+
+    _, g_train, _ = _generators(seed, dev)
+    model, _ = training.fit(
+        g_train, model, arrays["bits"], cond(arrays), cfg.train, schedule,
+        eval_bits=eval_arrays["bits"], eval_basis=cond(eval_arrays),
+        log_fn=log_fn, device=dev,
+    )
+    if save_dir:
+        path = os.path.join(save_dir, f"{run_name}_params.pt")
+        save_params(path, model)
+        log_fn(f"saved params to {path}")
+    return model, eval_recs

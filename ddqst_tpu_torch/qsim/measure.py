@@ -1,8 +1,10 @@
 """Basis rotation + Born-rule sampling, batched on the caller's device.
 
 The port's counterpart of ``ddqst_tpu/qsim/measure.py``. The rotated
-probability vectors for every basis come from one complex64 einsum, and all
-shots from one ``torch.multinomial`` call with an explicit generator.
+probability vectors for every basis (and, for datasets, every circuit with
+its own basis set) come from one complex64 einsum (TF32 is off: see the
+package docstring), and all shots from one ``torch.multinomial`` call with
+an explicit generator.
 
 Measurement basis rotations: X → H, Y → S† then H (matrix H @ S†),
 Z → identity.
@@ -52,6 +54,58 @@ def batched_probs_mixed(rhos: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def batched_probs_pure_per_circuit(
+    psis: torch.Tensor, rots: torch.Tensor
+) -> torch.Tensor:
+    """``[C, d]`` states x per-circuit ``[C, B, d, d]`` rotations ->
+    ``[C, B, d]`` (each state rotated by its own basis stack)."""
+    phi = torch.einsum("cbij,cj->cbi", rots, psis)
+    p = phi.real.square() + phi.imag.square()
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def batched_probs_mixed_per_circuit(
+    rhos: torch.Tensor, rots: torch.Tensor
+) -> torch.Tensor:
+    """``[C, d, d]`` density matrices x ``[C, B, d, d]`` rotations ->
+    ``[C, B, d]``."""
+    t = torch.einsum("cbij,cjk->cbik", rots, rhos)
+    p = torch.einsum("cbik,cbik->cbi", t.real, rots.real) + torch.einsum(
+        "cbik,cbik->cbi", t.imag, rots.imag
+    )
+    p = p.clamp_min(0.0)
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def sample_outcomes(
+    generator: torch.Generator, probs: torch.Tensor, shots: int
+) -> torch.Tensor:
+    """probs ``[..., d]`` -> ``[..., shots]`` int64 categorical outcomes,
+    drawn with replacement per row from ``generator`` (on ``probs``'
+    device)."""
+    lead, d = probs.shape[:-1], probs.shape[-1]
+    outcomes = torch.multinomial(
+        probs.reshape(-1, d), shots, replacement=True, generator=generator
+    )
+    return outcomes.reshape(*lead, shots)
+
+
+def sample_counts(
+    generator: torch.Generator, probs: torch.Tensor, shots: int
+) -> torch.Tensor:
+    """probs ``[..., d]`` -> counts ``[..., d]`` int32 summing to ``shots``.
+
+    A scatter-add histogram of :func:`sample_outcomes`: O(rows·shots) work
+    and no ``[..., shots, d]`` one-hot.
+    """
+    d = probs.shape[-1]
+    outcomes = sample_outcomes(generator, probs, shots).reshape(-1, shots)
+    out = torch.zeros((outcomes.shape[0], d), dtype=torch.int32,
+                      device=probs.device)
+    out.scatter_add_(1, outcomes, torch.ones_like(outcomes, dtype=torch.int32))
+    return out.reshape(*probs.shape[:-1], d)
+
+
 def outcomes_to_bits(outcomes: torch.Tensor, num_qubits: int) -> torch.Tensor:
     """Unpack little-endian outcome indices into ``[..., N]`` bits (qubit 0 first)."""
     shifts = torch.arange(num_qubits, device=outcomes.device)
@@ -66,8 +120,5 @@ def sample_bits(
     ``generator`` lives on ``probs``' device. The draw is categorical, as
     the JAX package's ``jax.random.categorical``; the two streams differ.
     """
-    lead, d = probs.shape[:-1], probs.shape[-1]
-    outcomes = torch.multinomial(
-        probs.reshape(-1, d), shots, replacement=True, generator=generator
-    )
-    return outcomes_to_bits(outcomes.reshape(*lead, shots), num_qubits)
+    return outcomes_to_bits(sample_outcomes(generator, probs, shots),
+                            num_qubits)

@@ -1,10 +1,11 @@
 """Circuits, statevectors and random-circuit generation (host-side numpy).
 
 The port's copy of ``ddqst_tpu/qsim/states.py`` (state preparation for
-plus / bell / ghz / w / rqc). Circuit construction is tiny scalar work and
-stays on the host; ``prep_circuit`` draws from the caller's
-``np.random.Generator`` exactly as the JAX package does, so one seed gives
-the same circuit and target in both packages.
+plus / bell / ghz / w / rqc, the dataset builders' circuit hash, batched
+statevectors). Circuit construction is tiny scalar work and stays on the
+host; ``prep_circuit`` draws from the caller's ``np.random.Generator``
+exactly as the JAX package does, so one seed gives the same circuit and
+target in both packages.
 
 Tensor convention: a statevector of N qubits reshapes to ``[2]*N`` with axis
 ``N-1-q`` holding qubit q (qubit 0 = least-significant bit of the flat
@@ -14,6 +15,7 @@ index).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 
@@ -32,6 +34,18 @@ class Circuit:
     num_qubits: int
     gates: tuple[Gate, ...]
     depth: int = 0  # nominal layer depth (for RQC metadata)
+
+
+def circuit_hash(circuit: Circuit) -> str:
+    """MD5 of a canonical serialisation (params rounded to 10 decimals): the
+    dataset builders' dedup key, the same string as the JAX package's."""
+    parts = [str(circuit.num_qubits)]
+    for g in circuit.gates:
+        parts.append(
+            f"{g.name}:{','.join(map(str, g.qubits))}:"
+            + ",".join(f"{p:.10f}" for p in g.params)
+        )
+    return hashlib.md5("|".join(parts).encode()).hexdigest()
 
 
 def apply_gate_to(mat: np.ndarray, gate: np.ndarray, qubits, n: int) -> np.ndarray:
@@ -66,6 +80,12 @@ def circuit_statevector(circuit: Circuit) -> np.ndarray:
     for g in circuit.gates:
         psi = apply_gate_to(psi, G.gate_matrix(g.name, g.params), g.qubits, n)
     return psi
+
+
+def batch_statevectors(circuits: list[Circuit]) -> np.ndarray:
+    """Exact statevectors ``[C, 2^N]`` complex64 for a batch of circuits
+    (the numpy path; the JAX package's native C++ engine is not ported)."""
+    return np.stack([circuit_statevector(c) for c in circuits])
 
 
 def prep_circuit(state_type: str, num_qubits: int, depth: int = 4,

@@ -157,7 +157,7 @@ def fit(
         raise NotImplementedError(
             "training checkpoints are not ported yet (ROADMAP Queue 1 item 10)"
         )
-    if generator.device != dev:
+    if resolve_device(generator.device) != dev:
         raise ValueError(f"generator on {generator.device}, expected {dev}")
     model.to(dev)
     init_params_(model, generator)

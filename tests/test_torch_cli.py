@@ -1,0 +1,138 @@
+"""The port's CLI at tiny budgets, mirroring tests/test_cli.py (CPU)."""
+
+import csv
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ddqst_tpu_torch import cli
+from ddqst_tpu_torch.data import records
+
+# The suite runs in several xdist workers; one intra-op thread each keeps
+# torch from oversubscribing the cores.
+torch.set_num_threads(1)
+
+TINY = ["--num_qubits", "2", "--epochs", "2", "--batch_size", "64",
+        "--embed_dim", "8", "--hidden_dim", "32", "--num_blocks", "1",
+        "--timesteps", "8"]
+
+
+def _generate(tmp_path, samples=4):
+    ds = str(tmp_path / "ds")
+    rc = cli.main([
+        "generate", "--samples", str(samples), "--qubits", "2",
+        "--chunk_size", "2", "--shots", "64", "--noise", "readout",
+        "--max_bases", "9", "--out_dir", ds, "--device", "cpu",
+    ])
+    assert rc == 0
+    return ds
+
+
+def test_cli_generate_and_train_and_evaluate(tmp_path):
+    ds = _generate(tmp_path)
+    assert len([f for f in os.listdir(ds) if f.endswith(".npz")]) == 2
+
+    exp = str(tmp_path / "exp")
+    rc = cli.main(["train", "--preset", "rqc", "--data_path", ds,
+                   "--save_dir", exp, "--run_name", "m",
+                   "--num_eval_circuits", "2", "--device", "cpu", *TINY])
+    assert rc == 0
+    assert os.path.exists(f"{exp}/m_eval.npz")
+    assert os.path.exists(f"{exp}/m_params.pt")
+
+    out = str(tmp_path / "results")
+    rc = cli.main(["evaluate", "--preset", "rqc", "--params", f"{exp}/m_params.pt",
+                   "--eval_data", f"{exp}/m_eval.npz", "--shots_infer", "100",
+                   "--out_dir", out, "--device", "cpu", *TINY])
+    assert rc == 0
+    with open(f"{out}/metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2
+    assert all(0 <= float(r["raw_fidelity"]) <= 1.001 for r in rows)
+
+
+def test_cli_circuit_conditioned_route(tmp_path):
+    """Train with --condition_on_circuit on 4 circuits, evaluate with the
+    training circuit count; another count fails the strict params load."""
+    ds = _generate(tmp_path)
+    exp = str(tmp_path / "exp")
+    cond = ["--preset", "rqc", "--condition_on_circuit", "--device", "cpu",
+            *TINY]
+    assert cli.main(["train", "--data_path", ds, "--save_dir", exp,
+                     "--run_name", "c", "--num_eval_circuits", "4", *cond]) == 0
+    out = str(tmp_path / "res")
+    args = ["evaluate", "--params", f"{exp}/c_params.pt", "--eval_data",
+            f"{exp}/c_eval.npz", "--shots_infer", "50", "--out_dir", out, *cond]
+    assert cli.main([*args, "--num_circuits", "4"]) == 0
+    with open(f"{out}/metrics.csv") as f:
+        assert len(list(csv.DictReader(f))) == 4
+    with pytest.raises(RuntimeError):
+        cli.main([*args, "--num_circuits", "5"])
+
+
+def test_cli_sanity_check(tmp_path):
+    exp = str(tmp_path / "sanity")
+    rc = cli.main(["train", "--preset", "rqc", "--sanity_check",
+                   "--save_dir", exp, "--run_name", "s", "--device", "cpu",
+                   *TINY])
+    assert rc == 0
+    (rec,) = records.load_shard(f"{exp}/s_eval.npz")
+    assert rec.hash == "sanity"
+
+
+def test_cli_run_minimal(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main([
+        "run", "--preset", "special_states", "--epochs", "2",
+        "--embed_dim", "8", "--hidden_dim", "32", "--num_blocks", "1",
+        "--timesteps", "8", "--shots_train", "100", "--shots_infer", "100",
+        "--device", "cpu", "--plots",
+    ])
+    assert rc == 0
+    for suffix in ("city", "error_heatmap", "loss"):
+        assert (tmp_path / f"special_states_{suffix}.png").exists()
+
+
+def test_cli_convert(tmp_path):
+    entries = [{
+        "clean_state_vec": np.array([1, 0, 0, 0], np.complex64),
+        "measurements": [{"basis": "ZZ", "counts": {"00": 60, "11": 4}}],
+        "id": 0, "hash": "h", "depth": 2,
+    }]
+    src = str(tmp_path / "part_0.pt")
+    torch.save(entries, src)
+    out = str(tmp_path / "conv")
+    assert cli.main(["convert", "--src", src, "--out", out]) == 0
+    (rec,) = records.load_shard(os.path.join(out, "part_0.npz"))
+    np.testing.assert_array_equal(rec.counts, [[60, 0, 0, 4]])
+
+
+def test_cli_without_device_needs_cuda(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        cli.main(["generate", "--samples", "2", "--qubits", "2",
+                  "--out_dir", str(tmp_path / "ds")])
+    with pytest.raises(RuntimeError):
+        cli.main(["train", "--sanity_check", "--save_dir", str(tmp_path),
+                  *TINY])
+
+
+def test_cli_data_parallel_is_not_ported(tmp_path):
+    with pytest.raises(NotImplementedError):
+        cli.main(["train", "--sanity_check", "--save_dir", str(tmp_path),
+                  "--data_parallel", "8", "--device", "cpu", *TINY])
+
+
+def test_module_entry_point_runs():
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-m", "ddqst_tpu_torch.cli", "--help"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.returncode == 0
+    for sub in ("run", "generate", "train", "evaluate", "convert"):
+        assert sub in out.stdout

@@ -1,4 +1,5 @@
-"""The CUDA chain walk on the card (skipped where there is no card).
+"""The CUDA chain walk and chain step on the card (skipped where there is no
+card).
 
 Run on a GPU machine without JAX installed (this file imports no JAX, and
 ``--noconftest`` skips the JAX-only test configuration):
@@ -59,3 +60,48 @@ def test_sample_all_bases_auto_reaches_the_kernel(cuda):
     out = diff.sample_all_bases(gen, model, 3, 5000, sched)
     assert ck.fused_chain_walk.launches == before + 1
     assert out.shape == (27, 5000, 3) and out.is_cuda
+
+
+@pytest.mark.parametrize("g,n,b", [(50 * 27 * 8, 3, 200_000), (216, 3, 1237),
+                                   (3**7 * 2**7, 7, 5000), (2, 1, 33)])
+def test_step_kernel_equals_plain_version(cuda, g, n, b):
+    rng = np.random.default_rng(g)
+    table = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (g, n)).astype(np.float32)).to(cuda)
+    rows = torch.from_numpy(rng.integers(0, g, b).astype(np.int32)).to(cuda)
+    before = ck.fused_chain_step.launches
+    out = ck.fused_chain_step(2**50 + 1, table, rows, n, step=17)
+    torch.cuda.synchronize()
+    assert ck.fused_chain_step.launches == before + 1
+    assert torch.equal(out, ck.fused_chain_step_reference(2**50 + 1, table,
+                                                          rows, n, step=17))
+
+
+def test_step_kernel_rejects_what_it_cannot_take(cuda):
+    table = torch.zeros((8, 3), device=cuda)
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table, rows.cpu(), 3)  # mixed devices
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table, rows.long(), 3)  # int64 rows
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table[:, :2], rows, 2)  # not contiguous
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, torch.zeros((8, 31), device=cuda), rows, 31)
+
+
+@pytest.mark.parametrize("precompute", [True, False])
+def test_p_sample_grid_runs_the_step_kernel_per_step(cuda, precompute):
+    model = d3pm.ConditionalD3PM(2, 9, 20, embed_dim=16, hidden_dim=32,
+                                 num_blocks=2, input_encoding="token",
+                                 num_circuits=3).to(cuda)
+    sched = schedules.cosine_schedule(20, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    packed = torch.stack([torch.arange(9, device=cuda).repeat(30),
+                          torch.arange(3, device=cuda).repeat_interleave(90)],
+                         -1)
+    before = ck.fused_chain_step.launches
+    out = diff.p_sample_grid(gen, model, packed, 2, sched, num_circuits=3,
+                             precompute=precompute)
+    assert ck.fused_chain_step.launches == before + 20
+    assert out.shape == (270, 2) and out.is_cuda

@@ -83,8 +83,7 @@ def test_init_follows_flax_defaults():
 
 @pytest.mark.parametrize("field,value", [("arch", "transformer"),
                                          ("arch", "plain_mlp"),
-                                         ("dtype", "bfloat16"),
-                                         ("condition_on_circuit", True)])
+                                         ("dtype", "bfloat16")])
 def test_unported_model_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         build_model(ModelConfig(**{field: value}), N, T)
