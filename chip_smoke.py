@@ -6,17 +6,25 @@
 Phases, each of which must pass (any failure exits non-zero before the
 result line is printed; nothing falls back to the CPU):
 
-1. build  — compile ``ddqst_tpu_torch/csrc/chain_walk.cu`` and
-   ``chain_step.cu`` with nvcc for sm_90a from the sources in this
-   checkout, both at once, and print the build times and the compiler's
-   register / shared-memory report;
+1. build  — compile ``ddqst_tpu_torch/csrc/chain_walk.cu``,
+   ``chain_step.cu`` and the measuring tool ``int_rate.cu`` with nvcc for
+   sm_90a from the sources in this checkout, all at once, and print the
+   build times and the compiler's register / shared-memory report;
+   rate   — measure the lane instructions a second the card issues for
+   integer multiply-add, wide multiply-add, three-input logic, add, float32
+   FMA and a multiply/logic mix (``int_rate.cu``), and hold them against
+   the documented integer rate the bounds use; disassemble the built
+   libraries with ``cuobjdump -sass`` and count, by pipe, the instructions
+   one chain and step issues in each kernel;
 2. kernel — hold the CUDA ``fused_chain_walk`` against its plain PyTorch
    version on the card, bit for bit, at the main-path shape (T=100, C=27,
-   N=3, S=5,000), at a ragged S (1,237) and at N=7 (2^N = 128); check that
-   the same seed repeats; check the walk's distribution against the exact
-   propagation of its tables (TV within 4 shot-noise scales) at N=3 and
-   N=7; time kernel and plain version with CUDA events at 135,000 and at
-   27 x 37,037 (about 10^6) chains;
+   N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128) and at N = 1, 5
+   and 6 (with N=3 and N=7 the kernel's three ways of staging its tables),
+   and at every block size it can choose; check that the same seed repeats;
+   check the walk's distribution against the exact propagation of its
+   tables (TV within 4 shot-noise scales) at N=3 and N=7; time kernel and
+   plain version with CUDA events at 135,000 and at 27 x 37,037 (about
+   10^6) chains, the kernel also at each block size;
 3. main path — ``run_experiment(get_preset("rqc"), seed=0)`` at full width
    on the default (CUDA) device, with the kernel's launch count set to 0
    just before and read just after; print each stage's time and the
@@ -28,9 +36,13 @@ result line is printed; nothing falls back to the CPU):
 4. step   — hold the CUDA ``fused_chain_step`` against its plain version,
    bit for bit, at the circuit-conditioned evaluation shape (table
    [10,800, 3], 6,750,000 chains), at a ragged 1,237 chains on [216, 3]
-   and at N=7 ([279,936, 7], 10^6 chains); check that a rerun repeats and
-   another step differs; check one row's histogram against the product
-   Bernoulli at N=3 and N=7; time kernel and plain version; then run
+   and at N=7 ([279,936, 7], 10^6 chains and 999,999, not a multiple of
+   4), each also in the ``row_base`` form (the chain state and a per-chain
+   row offset, as ``p_sample_grid`` calls it) and at N=11 (the runtime-N
+   body); check that a rerun repeats and another step differs; check one
+   row's histogram against the product Bernoulli at N=3 and N=7; time
+   kernel and plain version, the kernel in both forms and on rows laid out
+   as the route lays them out; then run
    ``sample_all_bases`` at 200 shots (the 'seq' walk), which must launch
    the step kernel once per step;
 5. route  — the phase-4 dataset route on the card at the ``rqc`` width with
@@ -38,7 +50,8 @@ result line is printed; nothing falls back to the CPU):
    shards; a second call adds none), ``train_on_dataset`` (1 epoch), then
    ``evaluate_dataset(circuit_conditioned=True)`` with the launch counts
    set to 0 just before and read just after (100 step launches, no walk);
-   check every (circuit, basis) row of the samples against the exact
+   time ``p_sample_grid``'s T chain updates on the route's inputs (ms per
+   step on the path, beside the kernel's own ms); check every (circuit, basis) row of the samples against the exact
    propagation of the model's own tables, the D3PM fidelities against the
    exact-chain inversion, the raw fidelities against the CPU's inversion,
    and every ρ for trace 1, Hermiticity and PSD.
@@ -46,6 +59,11 @@ result line is printed; nothing falls back to the CPU):
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
 ``{"ok": true, "device": {...}}``.
+
+To compare two checkouts' kernels on one card, ``python3 chip_smoke.py
+--time-kernels [DIR]`` builds and times only the kernels of the checkout at
+DIR (default: this one), with this script's timer and inputs, and prints one
+JSON line; run it in turns (old, new, new, old) on one card.
 """
 
 from __future__ import annotations
@@ -53,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,14 +82,29 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's data sheet (SXM)
-# Scalar instruction issue: the data sheet's 67 TFLOP/s float32 rate counts
-# an FMA as 2 operations, so the card issues at most 33.5e12 32-bit lane
-# instructions a second (132 SMs x 128 float32 lanes x ~1.98 GHz). The walk's
-# integer work (IMAD.HI, XOR, shifts) issues on the 32-bit integer pipe,
-# which has no more lanes than that, so bound_ms stays a lower bound.
-H100_SCALAR_OPS_PER_S = 33.5e12
-PHILOX_OPS = 100  # 10 rounds x (2 mul-hi + 2 mul-lo + 4 xor + 2 key adds)
-BIT_OPS = 6       # shift, int->float, scale, compare, select/or, table load
+# 32-bit integer add, multiply-add, logic and shift each issue at 64 results
+# per clock per SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic-instruction throughput table): half the 128 float32 lanes. 132
+# SMs at the 1.98 GHz boost clock. The rate phase measures it on the card and
+# finds three things the bounds below rely on. Multiplies issue on one pipe
+# and add/logic/shift on another, side by side, each at this rate, so the
+# least time for integer work is the busier pipe's, not the sum's. A
+# product's high half, alone (IMAD.HI.U32) or with the low half
+# (IMAD.WIDE.U32), issues at half this rate: it takes two of the multiplier's
+# slots. The float32 rate stays out of the bounds.
+H100_INT_OPS_PER_S = 132 * 64 * 1.98e9
+PRODUCT_MUL_SLOTS = 2
+# The least integer work that computes the functions, whatever the source
+# does. Rounds 2 to 10 of a Philox4x32-10 call each need two products and two
+# three-input XORs per chain, except that the last round needs only one
+# product when the call supplies one or two bits. Round 1 works on the
+# counter alone, which is a constant, the same for a warp, or made once per
+# chain, and the round keys depend on the seed alone: neither is counted per
+# call. A bit: a shift, a compare, a select/or.
+PHILOX_MUL_SLOTS = (8 * 2 + 1) * PRODUCT_MUL_SLOTS
+PHILOX_ALU_OPS = 9 * 2
+BIT_ALU_OPS = 3
+PHILOX_MUL_OPS_SOURCE = 10 * 2  # products a call as the source writes it
 
 
 def check(cond: bool, what: str) -> None:
@@ -82,39 +116,240 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def _bound_ms(nbytes: int, mul_slots: int, alu_ops: int) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and the busier integer pipe's
+    instructions (multiplier slots, add/logic instructions) over the
+    integer rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = max(mul_slots, alu_ops) / H100_INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def walk_bound_ms(t_steps: int, c: int, n: int, s: int) -> tuple[float, str]:
-    """Least time for the walk: bytes (tables, init and out, each once) over
-    the memory rate vs integer instructions over the scalar issue rate."""
-    g = 2**n
-    nbytes = 4 * (t_steps * c * g * n + 2 * c * s)
-    ops = c * s * t_steps * (math.ceil(n / 4) * PHILOX_OPS + n * BIT_OPS)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Least time for the walk: tables, init and out, each moved once; one
+    Philox call per 4 bits and the bit work, per chain and step."""
+    nbytes = 4 * (t_steps * c * 2**n * n + 2 * c * s)
+    calls = c * s * t_steps * math.ceil(n / 4)
+    bits = c * s * t_steps * n
+    return _bound_ms(nbytes, calls * PHILOX_MUL_SLOTS,
+                     calls * PHILOX_ALU_OPS + bits * BIT_ALU_OPS)
 
 
-def step_bound_ms(b: int, n: int, g: int) -> tuple[float, str]:
-    """Least time for one chain step: bytes (table, rows and out, each once)
-    over the memory rate vs integer instructions over the scalar issue
-    rate, with the walk's constants."""
-    nbytes = 4 * (g * n + 2 * b)
-    ops = b * (math.ceil(n / 4) * PHILOX_OPS + n * BIT_OPS)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_SCALAR_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def step_bound_ms(b: int, n: int, g: int,
+                  row_base: bool = False) -> tuple[float, str]:
+    """Least time for one chain step: the table, the rows (or the state and
+    the row offsets) and the outcomes, each moved once; per chain one Philox
+    call per 4 bits, the bit work, and round 1's one product of the chain's
+    index (shared by its calls) with one XOR a call."""
+    nbytes = 4 * (g * n + (3 if row_base else 2) * b)
+    calls = b * math.ceil(n / 4)
+    return _bound_ms(nbytes, calls * PHILOX_MUL_SLOTS + b * PRODUCT_MUL_SLOTS,
+                     calls * (PHILOX_ALU_OPS + 1) + b * n * BIT_ALU_OPS)
 
 
 def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events. The
+    card first spins for a few ms, so the host has the calls queued before
+    the first one starts and the events time the card, not Python."""
     fn()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# Measuring modes of csrc/int_rate.cu and the SASS opcode each should become.
+# (mode, name, SASS opcode, multiplier slots an instruction takes)
+RATE_MODES = (
+    (0, "int_mad", "IMAD", 1),
+    (1, "int_mul_wide", "IMAD.WIDE.U32", PRODUCT_MUL_SLOTS),
+    (6, "int_mul_hi", "IMAD.HI.U32", PRODUCT_MUL_SLOTS),
+    (2, "logic3", "LOP3.LUT", 1),
+    # the assembler spreads plain adds over both pipes (IADD3, IMAD.IADD)
+    (3, "int_add", "", 0.5),
+    (4, "float_fma", "FFMA", 0.5),
+    # a product and an XOR in turns: the multiplier's two slots hide the XOR
+    (5, "mul_wide_and_logic3", "", PRODUCT_MUL_SLOTS / 2),
+)
+_SASS_INSTR = re.compile(
+    r"^\s*/\*([0-9a-f]{4,6})\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+_CONVERT = ("F2I", "I2F", "F2F", "I2I", "F2FP", "I2FP", "FRND")
+_MEMORY = ("LD", "ST", "ATOM", "RED", "ULDC", "UBLKCP", "SYNCS")
+_CONTROL = ("BRA", "BRX", "EXIT", "BAR", "BSSY", "BSYNC", "WARPSYNC", "NOP",
+            "CALL", "RET", "YIELD", "DEPBAR", "MEMBAR", "FENCE", "ERRBAR",
+            "NANOSLEEP", "BPT", "ELECT", "BREAK", "BMOV", "ACQBULK")
+_INT_ALU = ("IADD", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "ICMP", "SEL",
+            "PRMT", "IABS", "IMNMX", "VIMNMX", "MOV", "POPC", "FLO", "BREV",
+            "SGXT", "BMSK", "PLOP3", "P2R", "R2P", "VOTE", "SHFL")
+
+
+def sass_pipe(op: str) -> str:
+    """The pipe an SASS opcode issues on, coarsely."""
+    base = op.split(".")[0]
+    if base.startswith(("IMAD", "IMUL")):
+        return "int_multiply"  # IMAD.MOV / .IADD / .SHL take that pipe too
+    if base.startswith(_CONVERT):
+        return "convert"
+    if base.startswith(_MEMORY):
+        return "load_store"
+    if base.startswith(_CONTROL):
+        return "control"
+    if base.startswith(_INT_ALU):
+        return "int_alu"
+    if base.startswith("F") or base == "MUFU":
+        return "float"
+    return "other"  # S2R, CS2R, the uniform datapath (U...)
+
+
+def disassemble(_build, name: str) -> dict[str, list[tuple[int, str, str]]]:
+    """``cuobjdump -sass`` of the built ``csrc/<name>.cu``: function name ->
+    [(address, opcode, operands)]."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    check(os.path.exists(cuobjdump), f"{cuobjdump} exists (it ships with nvcc)")
+    text = subprocess.run(
+        [cuobjdump, "-sass", _build.library_path(name)], capture_output=True,
+        text=True, check=True, timeout=300).stdout
+    return parse_sass(text)
+
+
+def parse_sass(text: str) -> dict[str, list[tuple[int, str, str]]]:
+    funcs: dict[str, list] = {}
+    labels: dict[str, dict[str, int]] = {}
+    name, pending = None, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name, pending = m.group(1), []
+            funcs.setdefault(name, [])
+            labels.setdefault(name, {})
+            continue
+        m = re.match(r"\s*(\.L_\w+):", line)
+        if m:
+            pending.append(m.group(1))  # names the next instruction
+            continue
+        m = _SASS_INSTR.match(line)
+        if m and name is not None:
+            addr = int(m.group(1), 16)
+            labels[name].update((lab, addr) for lab in pending)
+            pending = []
+            funcs[name].append((addr, m.group(2), m.group(3)))
+    # a branch to a label becomes a branch to the label's address
+    for name, instrs in funcs.items():
+        for i, (addr, op, args) in enumerate(instrs):
+            m = re.search(r"\.L_\w+", args)
+            if op.startswith("BRA") and m and m.group(0) in labels[name]:
+                instrs[i] = (addr, op, f" {labels[name][m.group(0)]:#x} ")
+    return funcs
+
+
+def hot_loop(instrs: list) -> list:
+    """The innermost loop (a backward branch and what it jumps over) that
+    holds the most multiplies; the whole function if it has no loop."""
+    loops = []
+    for addr, op, args in instrs:
+        m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any((lo2, hi2) != (lo, hi) and lo <= lo2 and hi2 <= hi
+                        for lo2, hi2 in loops)]
+    bodies = [[i for i in instrs if lo <= i[0] <= hi] for lo, hi in inner]
+    return max(bodies, default=instrs, key=lambda b: sum(
+        1 for _, op, _ in b if op.startswith("IMAD")))
+
+
+def count_by_pipe(instrs: list) -> dict:
+    counts: dict[str, int] = {}
+    for _, op, _ in instrs:
+        counts[sass_pipe(op)] = counts.get(sass_pipe(op), 0) + 1
+    for key, prefix in (("wide_multiplies", "IMAD.WIDE.U32"),
+                        ("multiply_highs", "IMAD.HI")):
+        counts[key] = sum(1 for _, op, _ in instrs if op.startswith(prefix))
+    counts["total"] = len(instrs)
+    return counts
+
+
+def phase_rate(_build) -> dict:
+    """The card's lane-instruction rates by kind, and what each kernel
+    issues per chain and step (from the SASS)."""
+    import ctypes
+
+    fn = _build.load("int_rate").ddqst_int_rate
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 4 * sms, 256, 4096
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sass = disassemble(_build, "int_rate")
+    rates = {}
+    for mode, label, opcode, slots in RATE_MODES:
+        def launch():
+            err = fn(mode, out.data_ptr(), blocks, threads, iters, stream)
+            check(err == 0, f"int_rate mode {mode} launched (cudaError {err})")
+        ms = min(cuda_ms(launch, 5) for _ in range(3))
+        rates[label] = blocks * threads * iters * 32 / (ms * 1e-3)
+        body = hot_loop(next(v for k, v in sass.items()
+                             if f"int_rate_kernelILi{mode}E" in k))
+        ops = [op for _, op, _ in body]
+        kinds = ", ".join(f"{ops.count(o)} {o}" for o in sorted(set(ops)))
+        peak = H100_INT_OPS_PER_S / slots
+        log("rate", f"{label}: {rates[label]:.4e} lane instructions/s "
+            f"({rates[label] / H100_INT_OPS_PER_S:.3f} of the documented "
+            f"integer rate, {rates[label] / peak:.3f} of the {peak:.4e} the "
+            f"bounds allow this kind); loop body: {kinds}")
+        if opcode:
+            n_op = sum(1 for o in ops if o.startswith(opcode))
+            check(n_op >= 32 and n_op % 32 == 0 and n_op >= 0.8 * len(ops),
+                  f"the {label} loop is {opcode} ({n_op} of {len(ops)})")
+        # a reading over the peak means the tool or the constant is wrong
+        check(rates[label] <= 1.05 * peak,
+              f"measured {label} rate {rates[label]:.4e} does not exceed "
+              f"{peak:.4e} by more than 5%")
+    log("rate", f"documented integer rate {H100_INT_OPS_PER_S:.4e}/s "
+        f"({sms} SMs x 64 lanes x 1.98 GHz); SM clock now / max: {clocks}")
+    check(sms == 132, "the bounds' constants are an H100 SXM's (132 SMs)")
+
+    # Instructions per chain and step, from the SASS of the built kernels.
+    counts = {}
+    step_sass = disassemble(_build, "chain_step")
+    for key, tag in (("step_n3_rows", "chain_step_kernelILi3ELb0E"),
+                     ("step_n3_row_base", "chain_step_kernelILi3ELb1E"),
+                     ("step_n7_rows", "chain_step_kernelILi7ELb0E")):
+        body = next(v for k, v in step_sass.items() if tag in k)
+        c = count_by_pipe(body)
+        # the whole kernel, both its 16-byte and its 4-byte accesses, serves
+        # 4 chains
+        counts[key] = {k: v / 4 for k, v in c.items()}
+    walk_sass = disassemble(_build, "chain_walk")
+    for key, tag, n in (("walk_n3", "chain_walk_kernelILi3E", 3),
+                        ("walk_n7", "chain_walk_kernelILi7E", 7)):
+        body = hot_loop(next(v for k, v in walk_sass.items() if tag in k))
+        c = count_by_pipe(body)
+        # a step reads one threshold a bit from shared memory
+        steps = max(1, sum(1 for _, op, _ in body if op.startswith("LDS")) // n)
+        counts[key] = {k: v / steps for k, v in c.items()}
+        counts[key]["steps_in_loop_body"] = steps
+    for key, c in counts.items():
+        log("rate", f"SASS per chain and step, {key}: " + ", ".join(
+            f"{k} {v:g}" for k, v in c.items()))
+        calls = 2 if key.endswith("n7") or "n7" in key else 1
+        check(c["multiply_highs"] <= 2 * calls and 0 < c["wide_multiplies"]
+              <= PHILOX_MUL_OPS_SOURCE * calls,
+              f"{key}: a Philox round's products are IMAD.WIDE.U32 (both "
+              f"halves from one instruction), not an IMAD and an IMAD.HI")
+    return {"rates": rates, "sass": counts}
 
 
 def exact_walk(tables: torch.Tensor, init_dist: torch.Tensor) -> torch.Tensor:
@@ -148,12 +383,16 @@ def random_walk_inputs(t_steps, c, n, s, seed):
 
 def phase_kernel(ck) -> dict:
     """Kernel vs plain version on the card; returns the timing record."""
-    shapes = [(100, 27, 3, 5000), (100, 27, 3, 1237), (100, 27, 7, 5000)]
+    # (T, C, N, S): the main shape, a ragged S, and N = 1 (plain loads),
+    # 5 (all T slices at once, 64 KB), 6 and 7 (a ring of chunks).
+    shapes = [(100, 27, 3, 5000), (100, 27, 3, 1237), (100, 27, 7, 5000),
+              (100, 27, 1, 5000), (100, 27, 5, 1237), (100, 27, 6, 1237)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
         seed = 0x1234_5678_9ABC + i
         out_k = ck.fused_chain_walk(seed, tables, init, n)
+        plan = ck.fused_chain_walk.last_plan
         out_r = ck.fused_chain_walk_reference(seed, tables, init, n)
         again = ck.fused_chain_walk(seed, tables, init, n)
         torch.cuda.synchronize()
@@ -164,8 +403,14 @@ def phase_kernel(ck) -> dict:
         check(torch.equal(out_k, again), f"same seed repeats at N={n} S={s}")
         check(not torch.equal(ck.fused_chain_walk(seed + 1, tables, init, n),
                               out_k), f"another seed differs at N={n} S={s}")
+        for threads in (64, 128, 256, 512):
+            check(torch.equal(ck.fused_chain_walk(seed, tables, init, n,
+                                                  threads=threads), out_r),
+                  f"blocks of {threads} give the same bits at N={n} S={s}")
         log("kernel", f"T={t_steps} C={c} N={n} S={s}: kernel == plain "
-            f"(bit for bit), repeatable")
+            f"(bit for bit) at the chosen and at every block size, "
+            f"repeatable; chose {plan[0]} threads, {plan[1]} steps a buffer, "
+            f"{plan[2]} B of shared memory")
 
     for n in (3, 7):
         t_steps, c, s = 20, 4, 200_000
@@ -182,15 +427,24 @@ def phase_kernel(ck) -> dict:
             f" < bound {bound:.5f}")
 
     rec = {}
-    for label, s, it_k, it_r in (("main", 5000, 50, 3), ("1e6", 37037, 20, 2)):
-        tables, init = random_walk_inputs(100, 27, 3, s, seed=20)
-        ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, 3), it_k)
-        ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(5, tables, init, 3),
-                       it_r)
-        bound, by = walk_bound_ms(100, 27, 3, s)
-        log("kernel", f"{label}: {27 * s} chains x 100 steps: kernel "
-            f"{ms_k:.4f} ms, plain {ms_r:.3f} ms, bound {bound:.4f} ms ({by})")
-        rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by)
+    for label, n, s, it_k, it_r in (("main", 3, 5000, 50, 3),
+                                    ("1e6", 3, 37037, 20, 2),
+                                    ("n7", 7, 5000, 20, 0)):
+        tables, init = random_walk_inputs(100, 27, n, s, seed=20)
+        ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
+        plan = ck.fused_chain_walk.last_plan
+        sweep = {t: cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n,
+                                                        threads=t), it_k)
+                 for t in (64, 128, 256, 512)}
+        ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(
+            5, tables, init, n), it_r) if it_r else float("nan")
+        bound, by = walk_bound_ms(100, 27, n, s)
+        log("kernel", f"{label}: N={n}, {27 * s} chains x 100 steps: kernel "
+            f"{ms_k:.4f} ms ({plan[0]} threads chosen), plain {ms_r:.3f} ms, "
+            f"bound {bound:.4f} ms ({by}); by block size: " + ", ".join(
+                f"{t}: {ms:.4f}" for t, ms in sweep.items()))
+        rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by,
+                          threads=plan[0], ms_by_threads=sweep)
     rec["max_abs_err"] = max_err
     return rec
 
@@ -202,10 +456,24 @@ def random_step_inputs(g, n, b, seed):
     return torch.from_numpy(table).cuda(), torch.from_numpy(rows).cuda()
 
 
+def route_like_step_inputs(c, n, shots, seed):
+    """The step kernel's inputs as the dataset route makes them: the grid of
+    c circuits, `shots` chains per (circuit, basis) in a row, a random state
+    per chain. Returns (table, x, row_base)."""
+    rng = np.random.default_rng(seed)
+    g = 2**n
+    table = rng.uniform(0.05, 0.95, (c * 3**n * g, n)).astype(np.float32)
+    x = rng.integers(0, g, c * 3**n * shots).astype(np.int32)
+    row_base = np.repeat(np.arange(c * 3**n, dtype=np.int32) * g, shots)
+    return (torch.from_numpy(table).cuda(), torch.from_numpy(x).cuda(),
+            torch.from_numpy(row_base).cuda())
+
+
 def phase_step(ck) -> dict:
     """Step kernel vs plain version on the card; returns the timing record."""
     shapes = [(50 * 27 * 8, 3, 6_750_000), (216, 3, 1237),
-              (3**7 * 2**7, 7, 1_000_000)]
+              (3**7 * 2**7, 7, 1_000_000), (3**7 * 2**7, 7, 999_999),
+              (40 * 16, 11, 100_003)]
     max_err = 0.0
     for i, (g, n, b) in enumerate(shapes):
         table, rows = random_step_inputs(g, n, b, seed=30 + i)
@@ -214,14 +482,21 @@ def phase_step(ck) -> dict:
         out_r = ck.fused_chain_step_reference(seed, table, rows, n, step=7)
         again = ck.fused_chain_step(seed, table, rows, n, step=7)
         other = ck.fused_chain_step(seed, table, rows, n, step=8)
+        # the row_base form on the same rows, split into an offset and a state
+        span = min(2**n, g)
+        x, base = rows % span, rows - rows % span
+        out_b = ck.fused_chain_step(seed, table, x, n, step=7, row_base=base)
         torch.cuda.synchronize()
-        max_err = max(max_err, float((out_k - out_r).abs().max()))
+        max_err = max(max_err, float((out_k - out_r).abs().max()),
+                      float((out_b - out_r).abs().max()))
         check(torch.equal(out_k, out_r),
               f"step kernel == plain bit for bit at G={g} N={n} B={b}")
+        check(torch.equal(out_b, out_r), f"step kernel with row_base == plain "
+              f"bit for bit at G={g} N={n} B={b}")
         check(torch.equal(out_k, again), f"same seed and step repeat at B={b}")
         check(not torch.equal(out_k, other), f"another step differs at B={b}")
-        log("step", f"G={g} N={n} B={b}: kernel == plain (bit for bit), "
-            "repeatable, another step differs")
+        log("step", f"G={g} N={n} B={b}: kernel == plain (bit for bit) with "
+            "rows and with row_base, repeatable, another step differs")
 
     b = 100_000
     for n in (3, 7):
@@ -244,13 +519,30 @@ def phase_step(ck) -> dict:
     for label, (g, n, b), it_k, it_r in (("eval", shapes[0], 50, 3),
                                          ("n7", shapes[2], 50, 3)):
         table, rows = random_step_inputs(g, n, b, seed=50)
-        ms_k = cuda_ms(lambda: ck.fused_chain_step(5, table, rows, n, 1), it_k)
-        ms_r = cuda_ms(
-            lambda: ck.fused_chain_step_reference(5, table, rows, n, 1), it_r)
-        bound, by = step_bound_ms(b, n, g)
-        log("step", f"{label}: G={g} N={n} B={b}: kernel {ms_k:.4f} ms, "
-            f"plain {ms_r:.3f} ms, bound {bound:.4f} ms ({by})")
-        rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by)
+        span = 2**n
+        x, base = rows % span, rows - rows % span
+        ms_rows = cuda_ms(lambda: ck.fused_chain_step(5, table, rows, n, 1),
+                          it_k)
+        ms_k = cuda_ms(lambda: ck.fused_chain_step(5, table, x, n, 1,
+                                                   row_base=base), it_k)
+        ms_r = cuda_ms(lambda: ck.fused_chain_step_reference(
+            5, table, x, n, 1, row_base=base), it_r)
+        bound_rows, by_rows = step_bound_ms(b, n, g)
+        bound, by = step_bound_ms(b, n, g, row_base=True)
+        log("step", f"{label}: G={g} N={n} B={b}, random rows: with row_base "
+            f"(as the path calls it) kernel {ms_k:.4f} ms, plain {ms_r:.3f} "
+            f"ms, bound {bound:.4f} ms ({by}); with rows {ms_rows:.4f} ms, "
+            f"bound {bound_rows:.4f} ms ({by_rows})")
+        rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by,
+                          ms_rows_form=ms_rows, bound_ms_rows_form=bound_rows)
+    # Where the table lives: the same table and chain count with the rows as
+    # the route lays them out (5,000 neighbouring chains share 8 table rows),
+    # against the uniformly random rows above.
+    table, x, base = route_like_step_inputs(50, 3, 5000, seed=51)
+    rec["eval"]["ms_route_rows"] = cuda_ms(
+        lambda: ck.fused_chain_step(5, table, x, 3, 1, row_base=base), 50)
+    log("step", f"eval, rows laid out as on the route, with row_base: kernel "
+        f"{rec['eval']['ms_route_rows']:.4f} ms")
     rec["max_abs_err"] = max_err
     return rec
 
@@ -352,9 +644,10 @@ def check_rho(rho: torch.Tensor, what: str) -> None:
     check(np.linalg.eigvalsh(rho).min() > -1e-5, f"{what}: PSD within 1e-5")
 
 
-def phase_route(ck) -> int:
+def phase_route(ck) -> tuple[int, float]:
     """The phase-4 dataset route on the card; returns the step launches of
-    the circuit-conditioned evaluation."""
+    the circuit-conditioned evaluation and the ms one chain update takes in
+    ``p_sample_grid``'s loop on the route's inputs."""
     import dataclasses
 
     from ddqst_tpu_torch import evaluate as ev
@@ -445,14 +738,24 @@ def phase_route(ck) -> int:
     packed = torch.stack([
         torch.arange(27, device="cuda").repeat_interleave(shots).repeat(c),
         torch.arange(c, device="cuda").repeat_interleave(27 * shots)], -1)
-    t0 = time.perf_counter()
-    diff.p_sample_grid(torch.Generator(device="cuda").manual_seed(1), model,
-                       packed, n, sched, num_circuits=c)
-    torch.cuda.synchronize()
-    t_sample = time.perf_counter() - t0
-    log("route", f"evaluate's sampling alone: {t_sample:.4f} s, of which the "
-        f"table precompute {t_tables:.4f} s; reconstruction and metrics of "
-        f"{c} circuits take the rest of {tm['evaluate']:.4f} s")
+    # evaluate's sampling again on the same inputs, split into the table
+    # precompute and the T chain updates (twice: the second run is warm).
+    splits = []
+    for rep in range(2):
+        split: dict = {}
+        diff.p_sample_grid(torch.Generator(device="cuda").manual_seed(1 + rep),
+                           model, packed, n, sched, num_circuits=c,
+                           timings=split)
+        splits.append(split)
+    split = splits[-1]
+    path_ms = split["steps"] * 1e3 / t_steps
+    rest = tm["evaluate"] - split["tables"] - split["steps"]
+    log("route", f"evaluate's sampling alone: tables {split['tables']:.4f} s "
+        f"(grid_p1_tables on its own {t_tables:.4f} s), the {t_steps} chain "
+        f"updates {split['steps']:.4f} s = {path_ms:.4f} ms a step on the "
+        f"path (first run {splits[0]['steps'] * 1e3 / t_steps:.4f}); "
+        f"reconstruction and metrics of {c} circuits take the rest of "
+        f"{tm['evaluate']:.4f} s, about {rest:.4f} s")
     tables = tables.reshape(t_steps, c * 27, 2**n, n)
     exact = exact_walk(tables, torch.full((c * 27, 2**n), 1 / 2**n,
                                           device="cuda"))
@@ -488,12 +791,38 @@ def phase_route(ck) -> int:
         check_rho(extras["rho_raw"][i], f"raw rho {i}")
         check_rho(extras["rho_d3pm"][i], f"D3PM rho {i}")
     log("route", f"all {2 * c} rho: trace 1, Hermitian, PSD")
-    return step_launches
+    return step_launches, path_ms
+
+
+def time_kernels(ck) -> dict:
+    """Both kernels' ms at their four shapes, in the forms every version of
+    the port has (the step kernel with ``rows``), for comparing two
+    checkouts on one card. The ``row_base`` form is timed where the package
+    has it."""
+    import inspect
+
+    out = {}
+    for label, s, iters in (("walk_main", 5000, 50), ("walk_1e6", 37037, 20)):
+        tables, init = random_walk_inputs(100, 27, 3, s, seed=20)
+        out[label] = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, 3),
+                             iters)
+    has_base = "row_base" in inspect.signature(ck.fused_chain_step).parameters
+    for label, (g, n, b) in (("step_eval", (50 * 27 * 8, 3, 6_750_000)),
+                             ("step_n7", (3**7 * 2**7, 7, 1_000_000))):
+        table, rows = random_step_inputs(g, n, b, seed=50)
+        out[label + "_rows"] = cuda_ms(
+            lambda: ck.fused_chain_step(5, table, rows, n, 1), 50)
+        if has_base:
+            x, base = rows % 2**n, rows - rows % 2**n
+            out[label + "_row_base"] = cuda_ms(
+                lambda: ck.fused_chain_step(5, table, x, n, 1, row_base=base),
+                50)
+    return out
 
 
 def build_all(_build) -> None:
-    """Build both kernels at once, one nvcc each."""
-    names = ("chain_walk", "chain_step")
+    """Build every source at once, one nvcc each."""
+    names = ("chain_walk", "chain_step", "int_rate")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds) in zip(names, built):
@@ -509,6 +838,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs the port "
               "on a GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--time-kernels"]:
+        # python3 chip_smoke.py --time-kernels [DIR]: only time the kernels
+        # of the checkout at DIR (default: this one) and print one JSON line.
+        sys.path.insert(0, os.path.abspath(sys.argv[2] if sys.argv[2:] else
+                                           os.path.dirname(__file__)))
+        from ddqst_tpu_torch.ops import cuda_kernels as ck
+        print(json.dumps({"time_kernels_ms": time_kernels(ck),
+                          "package": os.path.dirname(ck.__file__)}), flush=True)
+        return 0
     try:
         from ddqst_tpu_torch.ops import _build
         from ddqst_tpu_torch.ops import cuda_kernels as ck
@@ -525,14 +863,16 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} ({smi})")
 
     build_all(_build)
+    rate = phase_rate(_build)
     kernel = phase_kernel(ck)
     launches, res = phase_main_path(ck)
     step = phase_step(ck)
     phase_seq_walk(ck, res["state"])
-    step_launches = phase_route(ck)
+    step_launches, path_ms = phase_route(ck)
 
     main_rec = kernel["main"]
     eval_rec = step["eval"]
+    int_rate = rate["rates"]["logic3"]
     print(json.dumps({"kernels": [{
         "name": "fused_chain_walk",
         "route": "cuda",
@@ -548,6 +888,10 @@ def main() -> int:
         "ms_1e6_chains": kernel["1e6"]["ms"],
         "plain_ms_1e6_chains": kernel["1e6"]["plain_ms"],
         "bound_ms_1e6_chains": kernel["1e6"]["bound_ms"],
+        "threads": main_rec["threads"],
+        "ms_by_threads": main_rec["ms_by_threads"],
+        "int_ops_per_s_measured": int_rate,
+        "sass_instructions": rate["sass"]["walk_n3"],
     }, {
         "name": "fused_chain_step",
         "route": "cuda",
@@ -563,7 +907,14 @@ def main() -> int:
         "ms_n7": step["n7"]["ms"],
         "plain_ms_n7": step["n7"]["plain_ms"],
         "bound_ms_n7": step["n7"]["bound_ms"],
-    }]}), flush=True)
+        "ms_rows_form": eval_rec["ms_rows_form"],
+        "bound_ms_rows_form": eval_rec["bound_ms_rows_form"],
+        "ms_n7_rows_form": step["n7"]["ms_rows_form"],
+        "ms_route_rows": eval_rec["ms_route_rows"],
+        "path_ms_per_step": path_ms,
+        "int_ops_per_s_measured": int_rate,
+        "sass_instructions": rate["sass"]["step_n3_row_base"],
+    }], "lane_instructions_per_s": rate["rates"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,7 +6,9 @@
   (``csrc/chain_walk.cu``).
 - ``fused_chain_step`` replaces ``pallas_kernels.py::fused_chain_step``: one
   reverse step of the grid sampler, a table gather and one Bernoulli draw
-  per bit for every chain (``csrc/chain_step.cu``).
+  per bit for every chain (``csrc/chain_step.cu``). With ``row_base`` it
+  takes the chain state and adds each chain's row offset itself, so a walk
+  of T steps makes no pass over the chains between its launches.
 
 Beside each, ``*_reference`` is the same function with the same
 Philox4x32-10 words (``csrc/philox.cuh``), computed with tensor ops.
@@ -21,6 +23,7 @@ went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -124,6 +127,7 @@ def fused_chain_walk_reference(
     return x.to(torch.int32)
 
 
+@functools.cache
 def _chain_walk_fn():
     fn = _build.load("chain_walk").ddqst_fused_chain_walk
     fn.restype = ctypes.c_int
@@ -132,13 +136,16 @@ def _chain_walk_fn():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # T, C, g, N
         ctypes.c_int,  # S
         ctypes.c_uint64,  # seed
+        ctypes.c_int,  # threads (0 = chosen from the shape)
+        ctypes.c_void_p,  # plan_out: int[3] or null
         ctypes.c_void_p,  # stream
     ]
     return fn
 
 
 def fused_chain_walk(
-    seed: int, tables: torch.Tensor, init: torch.Tensor, num_qubits: int
+    seed: int, tables: torch.Tensor, init: torch.Tensor, num_qubits: int,
+    *, threads: int = 0,
 ) -> torch.Tensor:
     """Run the whole T-step reverse chain walk in one CUDA kernel launch.
 
@@ -148,14 +155,22 @@ def fused_chain_walk(
         row, current outcome); index 0 = the first reverse step (t = T).
       init: ``[C, S]`` int32 initial outcome indices.
       num_qubits: N, with 2^N <= 128.
+      threads: the kernel's block size: 0 (chosen from the shape) or 64,
+        128, 256 or 512, for measurements. The result does not depend on it
+        (the Philox counter is the chain's index), and the plain version
+        ignores it.
 
     Returns:
       ``[C, S]`` int32 final outcome indices (samples of x_0).
 
     CPU tensors take :func:`fused_chain_walk_reference`; CUDA tensors launch
-    the kernel on the current stream, or raise.
+    the kernel on the current stream, or raise. After a launch,
+    ``fused_chain_walk.last_plan`` holds what the kernel chose: ``(threads a
+    block, steps a shared-memory buffer, shared-memory bytes)``.
     """
     _check_walk_args(seed, tables, init, num_qubits)
+    if threads not in (0, 64, 128, 256, 512):
+        raise ValueError(f"threads must be 0, 64, 128, 256 or 512, got {threads}")
     if tables.device.type == "cpu":
         return fused_chain_walk_reference(seed, tables, init, num_qubits)
     if tables.device.type != "cuda":
@@ -170,23 +185,28 @@ def fused_chain_walk(
     s = init.shape[1]
     out = torch.empty_like(init)
     fn = _chain_walk_fn()
+    plan = (ctypes.c_int * 3)()
     stream = torch.cuda.current_stream(tables.device).cuda_stream
     with torch.cuda.device(tables.device):
         err = fn(tables.data_ptr(), init.data_ptr(), out.data_ptr(),
-                 t_steps, c, g, n, s, seed, stream)
+                 t_steps, c, g, n, s, seed, threads,
+                 ctypes.addressof(plan), stream)
     if err != 0:
         raise RuntimeError(f"chain_walk kernel launch failed: cudaError {err}")
     fused_chain_walk.launches += 1
+    fused_chain_walk.last_plan = tuple(plan)
     return out
 
 
 fused_chain_walk.launches = 0
+fused_chain_walk.last_plan = None
 
 
 _MAX_STEP_N = 30  # the outcome index holds N bits in an int32
 
 
-def _check_step_args(seed, table, rows, num_qubits, step) -> None:
+def _check_step_args(seed, table, rows, num_qubits, step,
+                     row_base=None) -> None:
     if not isinstance(seed, int) or not 0 <= seed < 2**64:
         raise ValueError(f"seed must be an int in [0, 2^64), got {seed!r}")
     if not isinstance(step, int) or not 0 <= step < 2**32:
@@ -211,27 +231,42 @@ def _check_step_args(seed, table, rows, num_qubits, step) -> None:
         raise ValueError(f"table on {table.device} but rows on {rows.device}")
     if not (table.is_contiguous() and rows.is_contiguous()):
         raise ValueError("table and rows must be contiguous")
+    if row_base is None:
+        return
+    if row_base.dtype != torch.int32 or row_base.shape != rows.shape:
+        raise ValueError(
+            f"row_base must be [B={rows.shape[0]}] int32, got "
+            f"{tuple(row_base.shape)} {row_base.dtype}"
+        )
+    if row_base.device != table.device:
+        raise ValueError(
+            f"table on {table.device} but row_base on {row_base.device}"
+        )
+    if not row_base.is_contiguous():
+        raise ValueError("row_base must be contiguous")
 
 
 def fused_chain_step_reference(
     seed: int, table: torch.Tensor, rows: torch.Tensor, num_qubits: int,
-    step: int = 0,
+    step: int = 0, *, row_base: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the step kernel: the same gather, the same
     bits.
 
-    ``table [G, N]`` float32, ``rows [B]`` int32 in ``[0, G)`` (raises
-    otherwise), 64-bit ``seed``; returns ``[B]`` int32. Chain b draws the
-    Philox4x32-10 block with counter (b, step, q // 4, 0) and key
-    (seed mod 2^32, seed >> 32); bit q uses word q % 4 and
-    ``u = (word >> 8) * 2^-24``.
+    ``table [G, N]`` float32, ``rows [B]`` int32 row ids (or, with
+    ``row_base [B]`` int32, the chain state x: the row id is then
+    ``row_base + x``), all row ids in ``[0, G)`` (raises otherwise), 64-bit
+    ``seed``; returns ``[B]`` int32. Chain b draws the Philox4x32-10 block
+    with counter (b, step, q // 4, 0) and key (seed mod 2^32, seed >> 32);
+    bit q uses word q % 4 and ``u = (word >> 8) * 2^-24``.
     """
-    _check_step_args(seed, table, rows, num_qubits, step)
+    _check_step_args(seed, table, rows, num_qubits, step, row_base)
     g = table.shape[0]
-    if int(rows.min()) < 0 or int(rows.max()) >= g:
+    ids = rows.long() if row_base is None else row_base.long() + rows.long()
+    if int(ids.min()) < 0 or int(ids.max()) >= g:
         raise ValueError(f"row ids must lie in [0, {g})")
     n = num_qubits
-    p1 = table[rows.long()]  # [B, N]
+    p1 = table[ids]  # [B, N]
     b_idx = torch.arange(rows.shape[0], device=rows.device, dtype=torch.int64)
     key = (seed & _MASK32, seed >> 32)
     x = torch.zeros_like(b_idx)
@@ -249,11 +284,13 @@ def fused_chain_step_reference(
     return x.to(torch.int32)
 
 
+@functools.cache
 def _chain_step_fn():
     fn = _build.load("chain_step").ddqst_fused_chain_step
     fn.restype = ctypes.c_int
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # table, rows, out
+        ctypes.c_void_p, ctypes.c_void_p,  # table, rows (or x)
+        ctypes.c_void_p, ctypes.c_void_p,  # row_base (or null), out
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,  # G, N, B
         ctypes.c_uint,  # step
         ctypes.c_uint64,  # seed
@@ -264,18 +301,22 @@ def _chain_step_fn():
 
 def fused_chain_step(
     seed: int, table: torch.Tensor, rows: torch.Tensor, num_qubits: int,
-    step: int = 0,
+    step: int = 0, *, row_base: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One reverse-sampler chain update in one CUDA kernel launch.
 
     Args:
       seed: 64-bit int; the Philox key.
-      table: ``[G, N]`` float32 P(bit=1) per grid row.
+      table: ``[G, N]`` float32 P(bit=1) per grid row, G < 2^31.
       rows: ``[B]`` int32 grid-row id per chain, in ``[0, G)`` (the kernel
-        does not check: that would need a synchronisation).
+        does not check: that would need a synchronisation). With
+        ``row_base``, the chain state x instead.
       num_qubits: N, 1 <= N <= 30.
       step: the step's index, in ``[0, 2^32)``; the Philox counter's second
         word, so each step of one walk draws fresh bits under one seed.
+      row_base: optional ``[B]`` int32 row offset per chain. The kernel then
+        reads row ``row_base[b] + rows[b]``, so a walk passes its state
+        straight from one step to the next and computes the offsets once.
 
     Returns:
       ``[B]`` int32 new outcome index per chain.
@@ -283,18 +324,20 @@ def fused_chain_step(
     CPU tensors take :func:`fused_chain_step_reference`; CUDA tensors launch
     the kernel on the current stream, or raise.
     """
-    _check_step_args(seed, table, rows, num_qubits, step)
+    _check_step_args(seed, table, rows, num_qubits, step, row_base)
     if table.device.type == "cpu":
-        return fused_chain_step_reference(seed, table, rows, num_qubits, step)
+        return fused_chain_step_reference(seed, table, rows, num_qubits, step,
+                                          row_base=row_base)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     out = torch.empty_like(rows)
     fn = _chain_step_fn()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
-        err = fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                 table.shape[0], num_qubits, rows.shape[0], step, seed,
-                 stream)
+        err = fn(table.data_ptr(), rows.data_ptr(),
+                 None if row_base is None else row_base.data_ptr(),
+                 out.data_ptr(), table.shape[0], num_qubits, rows.shape[0],
+                 step, seed, stream)
     if err != 0:
         raise RuntimeError(f"chain_step kernel launch failed: cudaError {err}")
     fused_chain_step.launches += 1

@@ -301,6 +301,7 @@ def p_sample_grid(
     exact: bool | None = None,
     num_circuits: int = 0,
     precompute: bool = True,
+    timings: dict | None = None,
 ) -> torch.Tensor:
     """Reverse diffusion via exhaustive-grid evaluation (small N).
 
@@ -316,33 +317,52 @@ def p_sample_grid(
     called with one 64-bit seed drawn from ``generator`` per call and the
     step's index: on a CUDA device that launches the hand-written kernel
     once per step (or raises), and only CPU tensors take its plain version.
+    Each chain's row offset ``((circuit·3^N +) basis)·2^N`` is computed once,
+    as int32, and handed to every step as its ``row_base``; the chain state
+    goes from one launch straight into the next.
+
+    ``timings``: if given, the seconds spent on the table precompute
+    (``precompute=True`` only) and on the T chain updates are stored under
+    ``'tables'`` and ``'steps'`` (the device is synchronised around each).
     Returns ``[B, N]`` int8.
     """
     exact = _resolve_exact(schedule, exact)
     dev = basis.device
     g = 2**num_qubits
+    gtot = max(num_circuits, 1) * 3**num_qubits * g
+    if gtot >= 2**31:
+        raise ValueError(f"the grid's {gtot} rows do not fit an int32 row id")
     if num_circuits > 0:
         row_base = (basis[:, 1].long() * 3**num_qubits + basis[:, 0].long()) * g
     else:
         row_base = basis.long() * g
+    row_base = row_base.to(torch.int32).contiguous()
     x_idx = torch.randint(0, g, (basis.shape[0],), generator=generator,
                           device=dev, dtype=torch.int32)
     seed = int(torch.randint(0, 2**63 - 1, (), generator=generator,
                              device=dev))
+    t0 = time.perf_counter()
     if precompute:
         tables = grid_p1_tables(denoise_fn, num_qubits, schedule, exact,
                                 num_circuits)
+        if timings is not None:
+            synchronize(dev)
+            timings["tables"] = time.perf_counter() - t0
     else:
         grid_x, grid_basis = _grid_enum(num_qubits, dev, num_circuits)
+    t0 = time.perf_counter()
     for i, t in enumerate(range(schedule.num_timesteps, 0, -1)):
         if precompute:
             table = tables[i]
         else:
             table = _p1_rows_one_t(denoise_fn, t, grid_x, grid_basis,
                                    schedule, exact, _ROW_BUDGET)
-        rows = (row_base + x_idx).to(torch.int32)
-        x_idx = cuda_kernels.fused_chain_step(seed, table.contiguous(), rows,
-                                              num_qubits, step=i)
+        x_idx = cuda_kernels.fused_chain_step(seed, table.contiguous(), x_idx,
+                                              num_qubits, step=i,
+                                              row_base=row_base)
+    if timings is not None:
+        synchronize(dev)
+        timings["steps"] = time.perf_counter() - t0
     return _unpack(x_idx, num_qubits)
 
 

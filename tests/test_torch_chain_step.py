@@ -118,3 +118,73 @@ def test_step_rejects_what_it_cannot_take(bad):
     with pytest.raises(ValueError):
         ck.fused_chain_step(args["seed"], args["table"], args["rows"],
                             args["n"], step=args["step"])
+
+
+@pytest.mark.parametrize("n,g,b", [(1, 6, 33), (3, 27 * 8, 1237),
+                                   (7, 9 * 128, 301)])
+def test_row_base_form_equals_rows_form(n, g, b):
+    """With row_base the second tensor is the chain state x and the row read
+    is row_base + x: bit for bit the old form on rows = row_base + x. The
+    chain counts are multiples of neither 4 nor a block."""
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.uniform(0.05, 0.95, (g, n)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(0, 2**n, b).astype(np.int32))
+    rb = torch.from_numpy(
+        (rng.integers(0, g // 2**n, b) * 2**n).astype(np.int32))
+    want = ck.fused_chain_step_reference(77, table, rb + x, n, step=9)
+    for fn in (ck.fused_chain_step, ck.fused_chain_step_reference):
+        out = fn(77, table, x, n, step=9, row_base=rb)
+        assert out.dtype == torch.int32 and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("bad", [
+    lambda rb: rb.long(),                                  # not int32
+    lambda rb: rb[:-1],                                    # another length
+    lambda rb: rb[None],                                   # not 1-D
+    lambda rb: rb.to("meta"),                              # another device
+    lambda rb: rb.repeat_interleave(2)[::2],               # not contiguous
+    lambda rb: rb + 24,                                    # row id >= G
+])
+def test_step_rejects_a_bad_row_base(bad):
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.uniform(0, 1, (24, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(0, 8, 50).astype(np.int32))
+    rb = torch.from_numpy((rng.integers(0, 3, 50) * 8).astype(np.int32))
+    ck.fused_chain_step(1, table, x, 3, row_base=rb)  # the good one passes
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(1, table, x, 3, row_base=bad(rb))
+
+
+def _threshold(p):
+    """ceil(p * 2^24) saturated to uint32, 0 for NaN: what the kernels'
+    float -> uint32 round-up conversion gives, computed exactly."""
+    y = np.float64(p) * 2.0**24  # exact: float32 times a power of two
+    if np.isnan(y):
+        return 0
+    return int(min(max(np.ceil(y), 0.0), 2.0**32 - 1))
+
+
+def test_integer_threshold_equals_the_float_compare():
+    """(k * 2^-24 < p) == (k < ceil(p * 2^24)) for every float32 p and every
+    24-bit k: the kernels compare integers, the plain versions floats."""
+    rng = np.random.default_rng(6)
+    tiny = np.float32(2.0**-149)  # the smallest subnormal
+    ps = np.concatenate([
+        rng.uniform(0, 1, 2000).astype(np.float32),
+        rng.integers(0, 2**24, 500).astype(np.float32) * np.float32(2.0**-24),
+        np.array([0.0, -0.0, 1.0, tiny, 1 - 2.0**-24, 2.0**-24, 0.5, -0.25,
+                  1.5, 300.0, np.inf, -np.inf, np.nan, 2.0**-30],
+                 dtype=np.float32),
+    ])
+    for p in ps:
+        thr = _threshold(p)
+        ks = {0, 1, 2**23, 2**24 - 2, 2**24 - 1, int(rng.integers(0, 2**24))}
+        ks |= {k for k in (thr - 1, thr, thr + 1) if 0 <= k < 2**24}
+        for k in ks:
+            u = np.float32(k) * np.float32(2.0**-24)  # exact in float32
+            assert bool(u < p) == (k < thr), (p, k, thr)
+    assert _threshold(np.float32(0.0)) == 0             # never
+    assert _threshold(np.float32(np.nan)) == 0          # never
+    assert _threshold(tiny) == 1                        # only k = 0
+    assert _threshold(np.float32(1.0)) == 2**24         # always
+    assert _threshold(np.float32(1 - 2.0**-24)) == 2**24 - 1

@@ -105,3 +105,86 @@ def test_p_sample_grid_runs_the_step_kernel_per_step(cuda, precompute):
                              precompute=precompute)
     assert ck.fused_chain_step.launches == before + 20
     assert out.shape == (270, 2) and out.is_cuda
+
+
+def _offset_by_one_word(t):
+    """The same values at an address that is 4 bytes off 16-byte alignment
+    (contiguous still): the kernels then take their 4-byte accesses."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("n,t_steps,s,regime", [
+    (1, 30, 33, "slices of 8 bytes: plain loads"),
+    (5, 100, 700, "all T slices at once, 64 KB of dynamic shared memory"),
+    (6, 100, 301, "a ring of two chunks"),
+    (3, 1000, 130, "small slices, too many steps to hold: a ring"),
+])
+def test_walk_kernel_staging_regimes(cuda, n, t_steps, s, regime):
+    rng = np.random.default_rng(10 * n)
+    g = 2**n
+    tables = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (t_steps, 3, g, n)).astype(np.float32)).to(cuda)
+    init = torch.from_numpy(rng.integers(0, g, (3, s)).astype(np.int32)).to(cuda)
+    want = ck.fused_chain_walk_reference(99, tables, init, n)
+    out = ck.fused_chain_walk(99, tables, init, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), regime
+    shifted = ck.fused_chain_walk(99, _offset_by_one_word(tables), init, n)
+    assert torch.equal(shifted, want), "a table that is not 16-byte aligned"
+
+
+@pytest.mark.parametrize("n", [3, 7])
+def test_walk_kernel_result_does_not_depend_on_the_block_size(cuda, n):
+    rng = np.random.default_rng(n)
+    g = 2**n
+    tables = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (40, 4, g, n)).astype(np.float32)).to(cuda)
+    init = torch.from_numpy(rng.integers(0, g, (4, 1237)).astype(np.int32)
+                            ).to(cuda)
+    want = ck.fused_chain_walk(5, tables, init, n)
+    assert ck.fused_chain_walk.last_plan[0] in (64, 128, 256, 512)
+    for threads in (64, 128, 256, 512):
+        out = ck.fused_chain_walk(5, tables, init, n, threads=threads)
+        assert ck.fused_chain_walk.last_plan[0] == threads
+        assert torch.equal(out, want), threads
+
+
+@pytest.mark.parametrize("g,n,b", [
+    (50 * 27 * 8, 3, 200_000),   # the evaluation table, B a multiple of 4
+    (216, 3, 1237),              # B mod 4 = 1
+    (3**7 * 2**7, 7, 5003),      # N = 7, B mod 4 = 3
+    (2, 1, 33),
+    (40 * 16, 11, 3001),         # N above 8: the runtime-N body
+])
+def test_step_kernel_row_base_form_and_ragged_ends(cuda, g, n, b):
+    rng = np.random.default_rng(g + n)
+    table = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (g, n)).astype(np.float32)).to(cuda)
+    span = min(2**n, g)
+    x = torch.from_numpy(rng.integers(0, span, b).astype(np.int32)).to(cuda)
+    rb = torch.from_numpy(
+        (rng.integers(0, g // span, b) * span).astype(np.int32)).to(cuda)
+    want = ck.fused_chain_step_reference(2**45 + 7, table, rb + x, n, step=3)
+    before = ck.fused_chain_step.launches
+    out = ck.fused_chain_step(2**45 + 7, table, x, n, step=3, row_base=rb)
+    rows_form = ck.fused_chain_step(2**45 + 7, table, rb + x, n, step=3)
+    shifted = ck.fused_chain_step(2**45 + 7, table, _offset_by_one_word(x), n,
+                                  step=3, row_base=rb)
+    torch.cuda.synchronize()
+    assert ck.fused_chain_step.launches == before + 3
+    assert torch.equal(out, want)
+    assert torch.equal(rows_form, want)
+    assert torch.equal(shifted, want), "a state that is not 16-byte aligned"
+
+
+def test_step_kernel_rejects_a_bad_row_base(cuda):
+    table = torch.zeros((8, 3), device=cuda)
+    x = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table, x, 3, row_base=x.cpu())  # mixed devices
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table, x, 3, row_base=x.long())  # int64
+    with pytest.raises(ValueError):
+        ck.fused_chain_step(0, table, x, 3, row_base=x[:3])  # another length

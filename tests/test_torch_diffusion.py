@@ -256,3 +256,58 @@ def test_sample_all_bases_matches_exact_chain_distribution(shots, grid_mode,
     for b in range(3**N):
         emp = np.bincount(idx[b], minlength=2**N) / shots
         assert 0.5 * np.abs(emp - exact[b]).sum() < bound, b
+
+
+@pytest.mark.parametrize("precompute", [True, False])
+@pytest.mark.parametrize("num_circuits", [0, 3])
+def test_p_sample_grid_equals_the_walk_with_explicit_rows(precompute,
+                                                          num_circuits):
+    """p_sample_grid hands each step the chain state and a row_base made
+    once. For a fixed generator seed it returns exactly what a walk returns
+    that recomputes rows = row_base + x every step and calls the plain step
+    on them: the generator's draws are consumed in the same order."""
+    n, t_steps, b = 2, 12, 333
+    torch.manual_seed(3)
+    tm = td3pm.ConditionalD3PM(n, 3**n, t_steps, embed_dim=16, hidden_dim=32,
+                               num_blocks=2, input_encoding="token",
+                               num_circuits=num_circuits).eval()
+    ts = tsched.cosine_schedule(t_steps)
+    rng = np.random.default_rng(8)
+    basis = torch.from_numpy(rng.integers(0, 3**n, b))
+    row_base = basis * 2**n
+    if num_circuits:
+        circ = torch.from_numpy(rng.integers(0, num_circuits, b))
+        row_base = (circ * 3**n + basis) * 2**n
+        basis = torch.stack([basis, circ], -1)
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randint(0, 2**n, (b,), generator=gen, dtype=torch.int32)
+    seed = int(torch.randint(0, 2**63 - 1, (), generator=gen))
+    if precompute:
+        tables = tdiff.grid_p1_tables(tm, n, ts, num_circuits=num_circuits)
+    else:  # the same forwards as the sampler's, so the tables agree exactly
+        grid = tdiff._grid_enum(n, torch.device("cpu"), num_circuits)
+        with torch.no_grad():
+            tables = [tdiff._p1_rows_one_t(tm, t, *grid, ts, True, 1 << 17)
+                      for t in range(t_steps, 0, -1)]
+    for i in range(t_steps):
+        rows = (row_base + x).to(torch.int32)
+        x = ck.fused_chain_step_reference(seed, tables[i].contiguous(), rows,
+                                          n, step=i)
+    want = ((x[:, None] >> torch.arange(n)) & 1).to(torch.int8)
+
+    timings = {}
+    out = tdiff.p_sample_grid(torch.Generator().manual_seed(21), tm, basis, n,
+                              ts, num_circuits=num_circuits,
+                              precompute=precompute, timings=timings)
+    assert out.dtype == torch.int8 and torch.equal(out, want)
+    assert set(timings) == ({"tables", "steps"} if precompute else {"steps"})
+
+
+def test_walk_wrapper_rejects_an_unknown_block_size():
+    tables = torch.zeros((2, 1, 8, 3))
+    init = torch.zeros((1, 4), dtype=torch.int32)
+    assert torch.equal(ck.fused_chain_walk(0, tables, init, 3, threads=128),
+                       ck.fused_chain_walk(0, tables, init, 3))
+    with pytest.raises(ValueError):
+        ck.fused_chain_walk(0, tables, init, 3, threads=96)
