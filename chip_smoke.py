@@ -56,6 +56,26 @@ result line is printed; nothing falls back to the CPU):
    exact-chain inversion, the raw fidelities against the CPU's inversion,
    and every ρ for trace 1, Hermiticity and PSD.
 
+6. distill — the bench recipe on the card at full width, through
+   ``run_experiment``: GHZ-3 (renoise sampler, readout noise, readout
+   mitigation of reconstruction and training data, MLE reconstruction,
+   exact-chain distillation with a 15% held-out split, 5,000 training and
+   50,000 generated shots per basis), then RQC-3 (20,000 training shots,
+   distilled against the Born probabilities of the counts' MLE). Width, T,
+   bases, shots, split, learning rates and patience are the recipe's; the
+   depth is cut (``DISTILL_DEPTH``: epochs and distillation steps) and each
+   cut is printed. Before: ``chain_distribution`` of a seeded full-width
+   model equals the exact propagation of its tables within 1e-5. Per
+   recipe, with the launch counts set to 0 just before and read just after:
+   one walk launch and no step launch; the chain CE fell and the held-out
+   best is no worse than step 0; the distilled model's chain distribution
+   equals the propagation of its tables; the samples follow it (TV within
+   4 shot-noise scales per basis) and the fidelity is within 0.02 of the
+   MLE of that distribution; ρ is a state; GHZ-3's MLE on the raw shots
+   scores at least 0.995. It prints the fidelities beside the reference's,
+   the stage seconds, the ms per distillation step and the MLE solves'
+   iterations and seconds.
+
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +84,16 @@ To compare two checkouts' kernels on one card, ``python3 chip_smoke.py
 --time-kernels [DIR]`` builds and times only the kernels of the checkout at
 DIR (default: this one), with this script's timer and inputs, and prints one
 JSON line; run it in turns (old, new, new, old) on one card.
+
+``python3 chip_smoke.py --full-depth [SEEDS]`` runs only the distill phase,
+uncut (300 epochs, up to 800 distillation steps): GHZ-3 and RQC-3 at seed
+0, then GHZ-3 at seeds 1 to SEEDS-1 (default: none), with the same checks;
+it prints each run's result as it ends and all of them as one JSON line.
+
+``python3 chip_smoke.py --profile-distill`` times one distillation step at
+full width (with and without the per-step checkpoint, and a forward alone)
+and counts its device kernels and the device's busy time with
+``torch.profiler``; one JSON line.
 """
 
 from __future__ import annotations
@@ -383,10 +413,12 @@ def random_walk_inputs(t_steps, c, n, s, seed):
 
 def phase_kernel(ck) -> dict:
     """Kernel vs plain version on the card; returns the timing record."""
-    # (T, C, N, S): the main shape, a ragged S, and N = 1 (plain loads),
-    # 5 (all T slices at once, 64 KB), 6 and 7 (a ring of chunks).
-    shapes = [(100, 27, 3, 5000), (100, 27, 3, 1237), (100, 27, 7, 5000),
-              (100, 27, 1, 5000), (100, 27, 5, 1237), (100, 27, 6, 1237)]
+    # (T, C, N, S): the rqc preset's shape, the bench recipe's (50,000 shots
+    # a basis), a ragged S, and N = 1 (plain loads), 5 (all T slices at
+    # once, 64 KB), 6 and 7 (a ring of chunks).
+    shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
+              (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
+              (100, 27, 6, 1237)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -429,6 +461,7 @@ def phase_kernel(ck) -> dict:
     rec = {}
     for label, n, s, it_k, it_r in (("main", 3, 5000, 50, 3),
                                     ("1e6", 3, 37037, 20, 2),
+                                    ("bench", 3, 50000, 20, 2),
                                     ("n7", 7, 5000, 20, 0)):
         tables, init = random_walk_inputs(100, 27, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
@@ -781,7 +814,8 @@ def phase_route(ck) -> tuple[int, float]:
     raw_cpu = np.array([
         float(M.state_fidelity(
             r.clean_state,
-            ev._reconstruct_counts(n, r.basis_labels, r.counts, 0.0)))
+            ev._reconstruct_counts(n, r.basis_labels, r.counts, "linear",
+                                   0.0)))
         for r in eval_recs
     ])
     err = float(np.abs(raw - raw_cpu).max())
@@ -792,6 +826,251 @@ def phase_route(ck) -> tuple[int, float]:
         check_rho(extras["rho_d3pm"][i], f"D3PM rho {i}")
     log("route", f"all {2 * c} rho: trace 1, Hermitian, PSD")
     return step_launches, path_ms
+
+
+# The reference's seed-0 scores for the two recipes (its round-5 bench on a
+# TPU; fidelities only, no time of that run is used anywhere).
+REFERENCE_FIDELITY = {
+    "ghz": dict(fidelity=0.99638, raw_fidelity=0.95785,
+                raw_fidelity_mitigated=0.99986),
+    "rqc": dict(fidelity=0.99811),
+}
+# (CE epochs, distillation steps) of the default run; the recipe's own depth
+# is 300 epochs and up to 800 steps (--full-depth).
+FULL_DEPTH = (300, 800)
+# Sized for a slow host: a distillation step is bound by the host's launches
+# and took 0.67 to 1.46 s on the machines it was measured on.
+DISTILL_DEPTH = {"ghz": (20, 50), "rqc": (5, 25)}
+
+
+def bench_recipe(kind: str, epochs: int, chain_steps: int):
+    """The reference bench's GHZ-3 (``kind='ghz'``) or RQC-3 (``'rqc'``)
+    end-to-end recipe on the ``rqc`` preset's model, at the given depth."""
+    from ddqst_tpu_torch.config import get_preset
+
+    base = get_preset("rqc")
+    return base.replace(
+        name=f"bench_{kind}3",
+        diffusion=type(base.diffusion)(
+            num_timesteps=100, schedule="cosine", sampler="renoise"),
+        train=type(base.train)(
+            batch_size=1024, learning_rate=1e-3, optimizer="adam",
+            num_epochs=epochs, lr_schedule="cosine", log_every=0,
+            eval_every=0, chain_finetune_steps=chain_steps, chain_lr=3e-4,
+            chain_val_fraction=0.15,
+            chain_target="mle" if kind == "rqc" else "counts"),
+        data=type(base.data)(
+            num_qubits=3, state_type=kind, noise_type="readout",
+            shots_train=20000 if kind == "rqc" else 5000, shots_infer=50000,
+            mitigate_readout=True, mitigate_train_data=True,
+            reconstruction="mle"),
+    )
+
+
+def check_chain_equals_tables(model, sched, exact, what: str) -> torch.Tensor:
+    """``chain_distribution`` of ``model`` against the float64 propagation of
+    its own grid tables, within 1e-5 per entry; returns it ``[27, 8]``."""
+    from ddqst_tpu_torch.ops import diffusion as diff
+
+    dist = diff.sampler_distribution(model, 3, sched, exact=exact)
+    tables = diff.grid_p1_tables(model, 3, sched, exact=exact)
+    ref = exact_walk(tables.reshape(sched.num_timesteps, 27, 8, 3),
+                     torch.full((27, 8), 1 / 8, device="cuda"))
+    err = float((dist.double() - ref).abs().max())
+    log("distill", f"{what}: chain_distribution vs the propagation of "
+        f"grid_p1_tables: max abs err {err:.2e}")
+    check(tuple(dist.shape) == (27, 8) and dist.is_cuda and err < 1e-5,
+          f"{what}: chain_distribution equals the table propagation in 1e-5")
+    return dist
+
+
+def run_recipe(ck, kind: str, seed: int, depth: tuple[int, int]) -> dict:
+    """One recipe through ``run_experiment`` on the card, with its checks."""
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import mle
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import run_experiment
+
+    tag = f"{kind}3 seed {seed}"
+    cfg = bench_recipe(kind, *depth)
+    for what, got, full in (("num_epochs", depth[0], FULL_DEPTH[0]),
+                            ("chain_finetune_steps", depth[1], FULL_DEPTH[1])):
+        if got != full:
+            log("distill", f"{tag}: CUT {what} {full} -> {got}")
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, seed=seed, log_fn=lambda m: log("distill", m))
+    wall = time.perf_counter() - t0
+    walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+    check(walks == 1 and steps == 0,
+          f"{tag}: one walk launch and no step launch ({walks}, {steps})")
+    plan = ck.fused_chain_walk.last_plan
+
+    info, tm = res["chain_info"], res["timings"]
+    steps_run = len(res["ft_losses"])
+    ms_step = tm["distill"] * 1e3 / steps_run
+    log("distill", f"{tag}: wall {wall:.2f} s; stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tm.items()))
+    log("distill", f"{tag}: train {res['train_steps']} steps, "
+        f"{res['train_steps'] / tm['train']:.1f} steps/s; distillation ran "
+        f"{steps_run} of {depth[1]} steps, {ms_step:.2f} ms a step (its "
+        f"{len(info['val_history'])} held-out and 2 full-grid evaluations "
+        f"included); chain CE {info['train_ce_before']:.5f} -> "
+        f"{info['train_ce_after']:.5f}; held-out "
+        f"{info['val_history'][0][1]:.5f} at step 0, best "
+        f"{info['best_val_ce']:.5f} at step {info['best_step']}")
+    check(info["train_ce_after"] < info["train_ce_before"],
+          f"{tag}: distillation lowered the full-grid chain CE")
+    check(info["best_val_ce"] <= info["val_history"][0][1],
+          f"{tag}: the held-out best is no worse than step 0")
+    check(np.isfinite(res["ft_losses"]).all(), f"{tag}: finite losses")
+
+    rho = res["rho"]
+    check(rho.shape == (8, 8), f"{tag}: rho is 8x8")
+    check_rho(torch.from_numpy(rho), f"{tag}: rho")
+    samples, shots = res["samples"], cfg.data.shots_infer
+    check(tuple(samples.shape) == (27, shots, 3) and samples.is_cuda,
+          f"{tag}: samples [27, {shots}, 3] on the card")
+    sched = make_schedule("cosine", 100, "cuda")
+    dist = check_chain_equals_tables(res["state"], sched, cfg.diffusion.exact,
+                                     f"{tag}, distilled model")
+    idx = (samples.long() * (1 << torch.arange(3, device="cuda"))).sum(-1)
+    tv = tv_rows(idx, dist.double())
+    bound = 4 * math.sqrt(8 / (2 * math.pi * shots))
+    check(bool((tv < bound).all()), f"{tag}: samples TV {float(tv.max())} < "
+          f"{bound}")
+    target = torch.from_numpy(res["target"]).cuda()
+    rec = mle.make_mle(3)
+    fid_exact = float(M.state_fidelity(target, rec(dist * shots)))
+    log("distill", f"{tag}: samples vs exact chain: max TV "
+        f"{float(tv.max()):.5f} < {bound:.5f}; fidelity {res['fidelity']:.5f} "
+        f"vs MLE of the exact chain distribution {fid_exact:.5f}")
+    check(abs(res["fidelity"] - fid_exact) < 0.02,
+          f"{tag}: fidelity within 0.02 of the exact chain's MLE")
+
+    # One MLE solve's time: the generated samples' again, warm.
+    counts = mle.bits_to_counts(samples)
+    solve: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec(counts, solve)
+    torch.cuda.synchronize()
+    mle_s = time.perf_counter() - t0
+    log("distill", f"{tag}: MLE iterations {res['mle_iterations']}; the "
+        f"samples' solve again: {solve['iterations']} iterations in "
+        f"{mle_s:.4f} s ({mle_s * 1e3 / solve['iterations']:.4f} ms each)")
+    check(solve["iterations"] == res["mle_iterations"]["samples"],
+          f"{tag}: the MLE solve repeats its iteration count")
+
+    ref = REFERENCE_FIDELITY[kind]
+    log("distill", f"{tag}: " + ", ".join(
+        f"{k} {res[k]:.5f} (reference, uncut: {v:.5f})"
+        for k, v in ref.items()))
+    for k in ("fidelity", "raw_fidelity", "raw_fidelity_mitigated"):
+        check(math.isfinite(res[k]), f"{tag}: {k} finite")
+    if kind == "ghz":
+        check(res["raw_fidelity_mitigated"] >= 0.995,
+              f"{tag}: MLE on the raw shots scores at least 0.995")
+    return dict(
+        kind=kind, seed=seed, epochs=depth[0], chain_steps=depth[1],
+        fidelity=res["fidelity"], raw_fidelity=res["raw_fidelity"],
+        raw_fidelity_mitigated=res["raw_fidelity_mitigated"],
+        fidelity_exact_chain=fid_exact, steps_run=steps_run,
+        best_step=info["best_step"], ce_before=info["train_ce_before"],
+        ce_after=info["train_ce_after"], ms_per_distill_step=ms_step,
+        mle_iterations=res["mle_iterations"], mle_solve_s=mle_s,
+        timings=tm, wall_s=wall, walk_launches=walks,
+        walk_threads=plan[0])
+
+
+def phase_distill(ck, depth: dict, ghz_seeds: int = 1) -> list[dict]:
+    """The bench recipes at full width; ``depth`` maps the recipe to its
+    (CE epochs, distillation steps)."""
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.models.d3pm import init_params_
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    cfg = bench_recipe("ghz", *depth["ghz"])
+    model = build_model(cfg.model, 3, 100).cuda()
+    init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    sched = make_schedule("cosine", 100, "cuda")
+    for exact in (False, True):
+        check_chain_equals_tables(
+            model.eval(), sched, exact, "seeded model before distillation, "
+            f"{'exact posterior' if exact else 'renoise'}")
+    # Seed 0 of both recipes first, then GHZ-3's further seeds.
+    order = [("ghz", 0), ("rqc", 0)] + [("ghz", s)
+                                        for s in range(1, ghz_seeds)]
+    runs = []
+    for kind, seed in order:
+        runs.append(run_recipe(ck, kind, seed, depth[kind]))
+        log("distill", "result " + json.dumps(runs[-1]))
+    return runs
+
+
+def profile_distill() -> dict:
+    """Where one distillation step's time goes, at full width (27·8 grid
+    rows, T = 100, seeded weights, random targets): the host-clock time of a
+    step (forward, backward, Adam) with and without the per-step checkpoint
+    and of a forward alone, and from ``torch.profiler`` over two steps the
+    count of device kernels launched and the time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.models.d3pm import init_params_
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    cfg = bench_recipe("ghz", *FULL_DEPTH)
+    model = build_model(cfg.model, 3, 100).cuda()
+    init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+    sched = make_schedule("cosine", 100, "cuda")
+    tgt = torch.rand((27, 8), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(1))
+    tgt = tgt / tgt.sum(-1, keepdim=True)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-4)
+
+    def step(checkpoint=True):
+        opt.zero_grad(set_to_none=True)
+        dist = diff.chain_distribution(model, 3, sched, False,
+                                       checkpoint=checkpoint)
+        (-(tgt * dist.clamp_min(1e-12).log()).sum(-1).mean()).backward()
+        opt.step()
+
+    @torch.no_grad()
+    def forward():
+        diff.chain_distribution(model, 3, sched, False)
+
+    def host_ms(fn, iters=3):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    out = dict(step_ms=host_ms(step),
+               step_no_checkpoint_ms=host_ms(lambda: step(False)),
+               forward_ms=host_ms(forward))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_us = sum(getattr(e, "device_time_total", 0)
+                  or getattr(e, "cuda_time_total", 0) for e in kernels)
+    out.update(device_kernels_per_step=len(kernels) / 2,
+               device_busy_ms_per_step=busy_us / 2e3)
+    log("profile", json.dumps(out))
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -(getattr(e, "self_device_time_total", 0)
+                                 or getattr(e, "self_cuda_time_total", 0)))[:8]
+    for e in top:
+        log("profile", f"{e.key[:60]}: {e.count} calls, device "
+            f"{(getattr(e, 'self_device_time_total', 0) or getattr(e, 'self_cuda_time_total', 0)) / 1e3:.2f} ms")
+    return out
 
 
 def time_kernels(ck) -> dict:
@@ -862,6 +1141,19 @@ def main() -> int:
     log("setup", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} ({smi})")
 
+    if sys.argv[1:2] == ["--profile-distill"]:
+        print(json.dumps({"profile_distill": profile_distill(), "card": smi}),
+              flush=True)
+        return 0
+    if sys.argv[1:2] == ["--full-depth"]:
+        # python3 chip_smoke.py --full-depth [SEEDS]: only the bench
+        # recipes, uncut, and one JSON line of their results.
+        runs = phase_distill(ck, dict.fromkeys(("ghz", "rqc"), FULL_DEPTH),
+                             ghz_seeds=int(sys.argv[2]) if sys.argv[2:] else 1)
+        print(json.dumps({"full_depth": runs,
+                          "card": smi}), flush=True)
+        return 0
+
     build_all(_build)
     rate = phase_rate(_build)
     kernel = phase_kernel(ck)
@@ -869,8 +1161,10 @@ def main() -> int:
     step = phase_step(ck)
     phase_seq_walk(ck, res["state"])
     step_launches, path_ms = phase_route(ck)
+    distill = phase_distill(ck, DISTILL_DEPTH)
 
     main_rec = kernel["main"]
+    bench_rec = kernel["bench"]
     eval_rec = step["eval"]
     int_rate = rate["rates"]["logic3"]
     print(json.dumps({"kernels": [{
@@ -890,6 +1184,12 @@ def main() -> int:
         "bound_ms_1e6_chains": kernel["1e6"]["bound_ms"],
         "threads": main_rec["threads"],
         "ms_by_threads": main_rec["ms_by_threads"],
+        "launches_bench_recipes": [r["walk_launches"] for r in distill],
+        "ms_bench_shape": bench_rec["ms"],
+        "plain_ms_bench_shape": bench_rec["plain_ms"],
+        "bound_ms_bench_shape": bench_rec["bound_ms"],
+        "threads_bench_shape": bench_rec["threads"],
+        "ms_by_threads_bench_shape": bench_rec["ms_by_threads"],
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["walk_n3"],
     }, {
@@ -914,7 +1214,8 @@ def main() -> int:
         "path_ms_per_step": path_ms,
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["step_n3_row_base"],
-    }], "lane_instructions_per_s": rate["rates"]}), flush=True)
+    }], "lane_instructions_per_s": rate["rates"],
+        "bench_recipes": distill}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -69,8 +69,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lr_schedule", choices=["constant", "cosine"])
     p.add_argument("--ema_decay", type=float)
     p.add_argument("--chain_finetune_steps", type=int,
-                   help="exact-chain distillation steps (not ported yet; "
-                        "0 = off)")
+                   help="exact-chain distillation steps after CE training "
+                        "(0 = off)")
     p.add_argument("--chain_lr", type=float)
     p.add_argument("--chain_val_fraction", type=float)
     p.add_argument("--chain_val_patience", type=int)

@@ -19,9 +19,10 @@ Two branches, as in the JAX package:
   :func:`~ddqst_tpu_torch.ops.diffusion.sample_all_bases` (on CUDA, the
   walk kernel from 32·6^N chains up) and inverted once.
 
-Linear inversion only: ``reconstruction='mle'`` is not ported (ROADMAP
-Queue 1 item 5) and raises, as do records measured on a subset of the 3^N
-bases, which need the dense inverter.
+``reconstruction`` is ``'linear'`` (``ops.pauli.make_counts_inverter``) or
+``'mle'`` (``ops.mle.make_mle``), for the raw counts and the generated
+samples alike. A record measured on a subset of the 3^N bases is
+reconstructed from those bases (the dense inverter, or the MLE over them).
 """
 
 from __future__ import annotations
@@ -36,22 +37,25 @@ from ddqst_tpu_torch.data.records import CircuitRecord
 from ddqst_tpu_torch.device import resolve_device
 from ddqst_tpu_torch.ops import diffusion as diff
 from ddqst_tpu_torch.ops import metrics as M
-from ddqst_tpu_torch.ops import pauli
+from ddqst_tpu_torch.ops import mle, pauli
 from ddqst_tpu_torch.ops.mle import bits_to_counts
 from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
 from ddqst_tpu_torch.utils.logging import write_metrics_csv
 
 
 def _reconstruct_counts(
-    num_qubits: int, basis_labels: np.ndarray, counts, readout_p: float,
-    device="cpu",
+    num_qubits: int, basis_labels: np.ndarray | None, counts, method: str,
+    readout_p: float, device="cpu",
 ) -> torch.Tensor:
-    """Linear inversion of ``counts [B, 2^N]`` measured in ``basis_labels``
-    (the canonical 3^N grid; other basis sets raise until the dense
-    inverter is ported)."""
-    inv = pauli.make_counts_inverter(num_qubits, basis_labels,
-                                     readout_p=readout_p)
-    return inv(torch.as_tensor(np.asarray(counts, np.float32), device=device))
+    """ρ from ``counts [B, 2^N]`` measured in ``basis_labels`` (None: the
+    canonical 3^N grid), by ``method`` 'linear' or 'mle'."""
+    if method not in ("linear", "mle"):
+        raise ValueError(f"unknown reconstruction {method!r}")
+    make = mle.make_mle if method == "mle" else pauli.make_counts_inverter
+    rec = make(num_qubits, basis_labels, readout_p=readout_p)
+    if not torch.is_tensor(counts):
+        counts = np.asarray(counts, np.float32)
+    return rec(torch.as_tensor(counts, dtype=torch.float32, device=device))
 
 
 def evaluate_dataset(
@@ -85,11 +89,6 @@ def evaluate_dataset(
     lists ``rho_raw`` and ``rho_d3pm`` of per-record density matrices.
     """
     dev = resolve_device(device)
-    if reconstruction != "linear":
-        raise NotImplementedError(
-            f"reconstruction={reconstruction!r} is not ported yet (ROADMAP "
-            "Queue 1 item 5); only 'linear' runs"
-        )
     num_bases = 3**num_qubits
     if circuit_conditioned:
         c = len(records)
@@ -111,10 +110,9 @@ def evaluate_dataset(
         )
         zb = float(M.z_bias(samples[-1]))  # canonical last basis = Z...Z
 
-    inv = pauli.make_counts_inverter(num_qubits, readout_p=readout_p)
-
     def gen_rho(bits):
-        return inv(bits_to_counts(bits))
+        return _reconstruct_counts(num_qubits, None, bits_to_counts(bits),
+                                   reconstruction, readout_p, dev)
 
     rho_gen = None if circuit_conditioned else gen_rho(samples)
     if extras is not None:
@@ -124,7 +122,8 @@ def evaluate_dataset(
     for i, rec in enumerate(records):
         target = torch.from_numpy(np.asarray(rec.clean_state)).to(dev)
         rho_raw = _reconstruct_counts(
-            num_qubits, rec.basis_labels, rec.counts, readout_p, dev
+            num_qubits, rec.basis_labels, rec.counts, reconstruction,
+            readout_p, dev
         )
         rho_i = gen_rho(samples[i]) if circuit_conditioned else rho_gen
         fid_raw = float(M.state_fidelity(target, rho_raw))

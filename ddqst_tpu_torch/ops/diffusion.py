@@ -23,9 +23,18 @@ device. The streams differ from ``jax.random``'s, so the samplers match the
 JAX package in distribution, and the deterministic parts (posterior,
 tables) to float tolerance.
 
-Not ported yet (ROADMAP Queue 1): ``chain_distribution`` and its
-distillation use, ``p_denoise`` (denoise mode), the shadow-route samplers,
-and ``sample_all_bases_chunked`` (``gen_tables_once``).
+- ``chain_distribution`` / ``sampler_distribution`` /
+  ``chain_distribution_all_bases`` — the sampler's EXACT output
+  distribution: the reverse chain is a Markov chain on 2^N states per
+  basis, so its distribution is propagated through the per-step transition
+  matrices. Differentiable with respect to the denoiser's parameters (the
+  lever of ``train.finetune_chain``), and built from the same
+  ``_grid_p1_table`` as the samplers, so chain and sampler share one
+  posterior.
+
+Not ported yet (ROADMAP Queue 1): ``p_denoise`` (denoise mode), the
+shadow-route samplers, and ``sample_all_bases_chunked``
+(``gen_tables_once``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import time
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from ddqst_tpu_torch.device import resolve_device, synchronize
 from ddqst_tpu_torch.ops import cuda_kernels
@@ -364,6 +374,131 @@ def p_sample_grid(
         synchronize(dev)
         timings["steps"] = time.perf_counter() - t0
     return _unpack(x_idx, num_qubits)
+
+
+def chain_distribution(
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    basis_idx: torch.Tensor | None = None,
+    basis_labels: torch.Tensor | None = None,
+    checkpoint: bool = True,
+) -> torch.Tensor:
+    """EXACT output distribution of the reverse sampler, per basis.
+
+    At small N the reverse chain is a Markov chain on 2^N states whose
+    per-step transition factorises over bits given (x_t, basis):
+    ``T[b, x, y] = Π_q p1[b,x,q]^{y_q} (1-p1[b,x,q])^{1-y_q}``. Propagating
+    the uniform start through the T transitions gives the infinite-shot
+    limit of :func:`sample_all_bases`, with no generation shot noise.
+
+    Everything is smooth in the denoiser's outputs, so the result is
+    differentiable with respect to the parameters behind ``denoise_fn``.
+    With ``checkpoint`` (and gradients enabled) each step is wrapped in
+    ``torch.utils.checkpoint``: only the ``[B, 2^N]`` carry is kept per
+    step and the backward pass recomputes the step's forward, instead of
+    keeping every denoiser activation of all T steps.
+
+    ``basis_idx`` (1-D int tensor) restricts the chain to those canonical
+    bases; every basis' chain is independent, so this is exact restriction.
+    ``basis_labels`` (``[B, N]`` per-qubit labels, mutually exclusive with
+    ``basis_idx``) conditions the denoiser on label rows instead, for a
+    denoiser that takes them. ``exact`` resolves as at generation.
+
+    Runs on the schedule's device. Returns ``[B or 3^N, 2^N]`` float32
+    outcome probabilities.
+    """
+    if basis_idx is not None and basis_labels is not None:
+        raise ValueError("basis_idx and basis_labels are mutually exclusive")
+    exact = _resolve_exact(schedule, exact)
+    dev = schedule.betas.device
+    g = 2**num_qubits
+    if basis_labels is not None:
+        cond = torch.as_tensor(basis_labels, device=dev).long()
+        num_bases = cond.shape[0]
+        grid_cond = cond.repeat_interleave(g, dim=0)
+    else:
+        if basis_idx is None:
+            basis_idx = torch.arange(3**num_qubits, device=dev)
+        basis_idx = torch.as_tensor(basis_idx, device=dev).long()
+        num_bases = basis_idx.shape[0]
+        grid_cond = basis_idx.repeat_interleave(g)
+    x_enum = _unpack(torch.arange(g, device=dev), num_qubits)
+    grid_x = x_enum.repeat(num_bases, 1)
+    y_bits = x_enum.float()  # [2^N, N]
+
+    def step(dist: torch.Tensor, t: int) -> torch.Tensor:
+        t_vec = torch.full((grid_x.shape[0],), t, dtype=torch.int64,
+                           device=dev)
+        logits = denoise_fn(grid_x, t_vec, grid_cond)
+        p1 = _grid_p1_table(logits, grid_x, t, schedule, exact).reshape(
+            num_bases, g, num_qubits)
+        # Accumulated qubit by qubit, so the [B, x, y, N] intermediate is
+        # never built; out of place, for autograd.
+        trans = None
+        for q in range(num_qubits):
+            pq = p1[:, :, None, q]
+            yq = y_bits[None, None, :, q]
+            f = pq * yq + (1.0 - pq) * (1.0 - yq)
+            trans = f if trans is None else trans * f
+        new = torch.einsum("bx,bxy->by", dist, trans)
+        return new / new.sum(dim=-1, keepdim=True)
+
+    remat = checkpoint and torch.is_grad_enabled()
+    dist = torch.full((num_bases, g), 1.0 / g, dtype=torch.float32, device=dev)
+    for t in range(schedule.num_timesteps, 0, -1):
+        if remat:
+            dist = _checkpoint(step, dist, t, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            dist = step(dist, t)
+    return dist
+
+
+@torch.no_grad()
+def sampler_distribution(
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+) -> torch.Tensor:
+    """:func:`chain_distribution` over all 3^N bases without gradients:
+    ``[3^N, 2^N]``, to feed straight into MLE or linear inversion."""
+    return chain_distribution(denoise_fn, num_qubits, schedule, exact)
+
+
+@torch.no_grad()
+def chain_distribution_all_bases(
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    basis_labels: torch.Tensor | None = None,
+    max_rows: int = 1 << 14,
+) -> torch.Tensor:
+    """Exact sampler distribution over EVERY basis, chunked over bases so no
+    forward exceeds ``max_rows`` grid rows (the JAX package's bound, kept
+    for parity). ``basis_labels`` switches to label conditioning (``[B, N]``
+    rows) instead of the canonical 3^N enumeration. Returns ``[3^N or B,
+    2^N]`` float32 probabilities.
+    """
+    g = 2**num_qubits
+    num_bases = (3**num_qubits if basis_labels is None
+                 else basis_labels.shape[0])
+    chunk_b = max(1, min(num_bases, max_rows // g))
+    rows = []
+    for lo in range(0, num_bases, chunk_b):
+        hi = min(lo + chunk_b, num_bases)
+        if basis_labels is None:
+            rows.append(chain_distribution(
+                denoise_fn, num_qubits, schedule, exact,
+                basis_idx=torch.arange(lo, hi)))
+        else:
+            rows.append(chain_distribution(
+                denoise_fn, num_qubits, schedule, exact,
+                basis_labels=basis_labels[lo:hi]))
+    return torch.cat(rows)
 
 
 @torch.no_grad()

@@ -5,17 +5,20 @@ the full route in generate mode:
 
 1. simulate shots in all 3^N bases (:func:`generate_training_data`);
 2. train the denoiser on the denoising cross-entropy (``train.fit``);
-3. build the grid probability tables in one batched forward, and
-4. walk the chains (on CUDA, the hand-written kernel) —
+3. optionally distil the sampler's exact output distribution onto the
+   training counts, or onto the Born probabilities of their MLE
+   (``train.finetune_chain``), with a held-out split choosing the step;
+4. build the grid probability tables in one batched forward, and
+5. walk the chains (on CUDA, the hand-written kernel) —
    ``ops.diffusion.sample_all_bases``;
-5. histogram the samples (``ops.mle.bits_to_counts``);
-6. invert linearly (``ops.pauli.make_counts_inverter``);
-7. compute the metrics (``ops.metrics``), plus the reference's control:
+6. histogram the samples (``ops.mle.bits_to_counts``);
+7. reconstruct by linear inversion (``ops.pauli.make_counts_inverter``) or
+   maximum likelihood (``ops.mle.make_mle``);
+8. compute the metrics (``ops.metrics``), plus the reference's control:
    linear inversion of the raw training shots.
 
-Options this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP item, before any work is done: exact-chain distillation, denoise
-mode, MLE reconstruction, the shadow route, basis subsets,
+Options not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item, before any work is done: denoise mode, the shadow route,
 ``gen_tables_once``, checkpoints and meshes.
 
 The data cache keeps the JAX package's npz schema, so each package reads
@@ -48,11 +51,17 @@ from ddqst_tpu_torch.device import resolve_device, synchronize
 from ddqst_tpu_torch.models import build_model
 from ddqst_tpu_torch.ops import diffusion as diff
 from ddqst_tpu_torch.ops import metrics as M
+from ddqst_tpu_torch.ops import mle
 from ddqst_tpu_torch.ops import pauli
 from ddqst_tpu_torch.ops.mle import bits_to_counts
 from ddqst_tpu_torch.ops.schedules import make_schedule
 from ddqst_tpu_torch.qsim import measure, noise, states
-from ddqst_tpu_torch.utils.checkpoint import restore_params, save_params
+from ddqst_tpu_torch.utils.checkpoint import (
+    restore_chain_opt,
+    restore_params,
+    save_chain_opt,
+    save_params,
+)
 
 # Max reverse-sampler chains (bases x shots) per sample_all_bases call: the
 # JAX package's TPU dispatch bound, kept for parity (not an H100 limit).
@@ -188,19 +197,11 @@ def _check_ported(cfg: ExperimentConfig, mesh) -> None:
     """Raise for every option this slice does not run (never skip one)."""
     n = cfg.data.num_qubits
     unported = [
-        (cfg.train.chain_finetune_steps > 0,
-         "exact-chain distillation (chain_finetune_steps > 0): ROADMAP "
-         "Queue 1 items 3-4"),
         (cfg.diffusion.infer_mode == "denoise",
          "infer_mode='denoise': ROADMAP Queue 1 item 7"),
-        (cfg.data.reconstruction == "mle",
-         "reconstruction='mle': ROADMAP Queue 1 item 5"),
         (use_shadow_route(n, cfg.data.max_bases),
          "the shadow route (N > 8, or N >= 7 with max_bases): ROADMAP "
          "Queue 1 item 8"),
-        (bool(cfg.data.max_bases) and cfg.data.max_bases < 3**n,
-         "basis subsets (max_bases < 3^N) need the dense inverter: ROADMAP "
-         "Queue 1 item 5"),
         (cfg.diffusion.gen_tables_once,
          "gen_tables_once (sample_all_bases_chunked): ROADMAP Queue 1 item 7"),
         (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
@@ -212,14 +213,114 @@ def _check_ported(cfg: ExperimentConfig, mesh) -> None:
             raise NotImplementedError(f"not ported yet: {what}")
 
 
+def _generator(ss: np.random.SeedSequence, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(
+        int(ss.generate_state(1, np.uint64)[0]))
+
+
 def _generators(seed: int, device: torch.device) -> list[torch.Generator]:
     """Independent data / train / sample generators derived from ``seed``."""
-    return [
-        torch.Generator(device=device).manual_seed(
-            int(ss.generate_state(1, np.uint64)[0])
-        )
-        for ss in np.random.SeedSequence(seed).spawn(3)
-    ]
+    return [_generator(ss, device)
+            for ss in np.random.SeedSequence(seed).spawn(3)]
+
+
+# Entropy word that separates the distillation minibatch stream from the
+# other streams of a seed (the JAX package folds the same constant in).
+_DISTILL_STREAM = 0xD157
+
+
+def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
+             model: torch.nn.Module, schedule, dev: torch.device,
+             target_cache: str, opt_load: str, opt_save: str,
+             timings: dict, mle_iterations: dict, log_fn: Callable):
+    """Exact-chain distillation of ``model`` against the training counts
+    (see ``train.finetune_chain``). Returns ``(losses, info)``."""
+    n = cfg.data.num_qubits
+    tc = cfg.train
+    log_fn(f"[{cfg.name}] exact-chain distillation: "
+           f"{tc.chain_finetune_steps} steps")
+    t0 = time.perf_counter()
+    val_counts = None
+    if tc.chain_val_fraction > 0:
+        # Held-out split at the shot level (shots are iid per basis): the
+        # last round(vf·S) shots per basis choose the distillation step,
+        # the rest form the target.
+        s = data.bits.shape[1]
+        s_val = min(max(int(round(tc.chain_val_fraction * s)), 1), s - 1)
+        tgt_counts = bits_to_counts(data.bits[:, :s - s_val])
+        val_counts = bits_to_counts(data.bits[:, s - s_val:])
+    else:
+        tgt_counts = bits_to_counts(data.bits)
+    if tc.chain_target == "mle":
+        # Physics-constrained target: project the training counts through
+        # the (PSD, trace-1) MLE manifold and distil against the Born
+        # distribution of the estimate, which carries the cross-basis
+        # positivity constraint the per-basis counts cannot express.
+        # readout_p = 0: the target lives in the domain the chain is
+        # matched in. Held-out selection still scores against the actual
+        # held-out counts.
+        if target_cache and os.path.exists(target_cache):
+            with np.load(target_cache) as z:
+                tgt_counts = torch.from_numpy(
+                    z["target"].astype(np.float32)).to(dev)
+            log_fn(f"[{cfg.name}] distillation target: MLE Born probs "
+                   f"(cached, {target_cache})")
+        else:
+            solve: dict = {}
+            rho_t = mle.make_mle(n, data.basis_labels)(tgt_counts, solve)
+            mle_iterations["target"] = solve["iterations"]
+            d = 2**n
+            if data.basis_labels.shape[0] * d * d > mle._FACTORED_BLOCK_ELEMS:
+                tgt_counts = mle.factored_born_probs(rho_t, data.basis_labels)
+            else:
+                rots = torch.from_numpy(
+                    measure.rotation_unitaries(data.basis_labels)).to(dev)
+                tgt_counts = measure.batched_probs_mixed(rho_t[None], rots)[0]
+            if target_cache:
+                with open(target_cache, "wb") as f:  # exact name
+                    np.savez_compressed(f, target=tgt_counts.cpu().numpy())
+            log_fn(f"[{cfg.name}] distillation target: MLE Born probs")
+    synchronize(dev)
+    timings["target"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    init_opt = None
+    if opt_load:
+        init_opt = restore_chain_opt(opt_load,
+                                     training.chain_opt_template(model))
+        log_fn(f"chained distillation Adam state from {opt_load}")
+    model, ft_losses, info = training.finetune_chain(
+        model, tgt_counts, schedule, n,
+        steps=tc.chain_finetune_steps,
+        learning_rate=tc.chain_lr,
+        exact=cfg.diffusion.exact,
+        basis_batch=tc.chain_basis_batch,
+        generator=_generator(
+            np.random.SeedSequence(
+                [seed, _DISTILL_STREAM + tc.chain_key_salt]), dev),
+        steps_per_call=tc.chain_steps_per_call,
+        val_counts=val_counts,
+        val_patience=tc.chain_val_patience,
+        accum=tc.chain_accum,
+        hard_frac=tc.chain_hard_frac,
+        init_opt_state=init_opt,
+        device=dev,
+    )
+    # The params-sized moments never reach a results dict.
+    final_opt = info.pop("final_opt_state")
+    if opt_save:
+        save_chain_opt(opt_save, final_opt)
+        log_fn(f"saved distillation Adam state to {opt_save}")
+    synchronize(dev)
+    timings["distill"] = time.perf_counter() - t0
+    msg = (f"[{cfg.name}] chain CE (full grid) "
+           f"{info['train_ce_before']:.5f} -> {info['train_ce_after']:.5f}")
+    if val_counts is not None:
+        msg += (f"; held-out best {info['best_val_ce']:.5f} at step "
+                f"{info['best_step']} (ran {ft_losses.shape[0]} of "
+                f"{tc.chain_finetune_steps})")
+    log_fn(msg)
+    return ft_losses, info
 
 
 def run_experiment(
@@ -229,6 +330,10 @@ def run_experiment(
     log_fn: Callable = print,
     params_load: str = "",
     params_save: str = "",
+    target_cache: str = "",
+    stop_after: str = "",
+    opt_load: str = "",
+    opt_save: str = "",
     data_cache: str = "",
     device: str | torch.device | None = None,
 ) -> dict:
@@ -238,15 +343,30 @@ def run_experiment(
     raw_fidelity_mitigated, trace_distance, trace_distance_raw,
     expectations, expectations_raw, purity, vn_entropy, ent_entropy, z_bias,
     losses, rho, rho_raw, target, state (the trained model), samples; plus
-    ``timings`` (seconds per stage: datagen, train, tables, walk, inversion,
-    metrics; the device is synchronised at each boundary) and
-    ``train_steps``.
+    ``timings`` (seconds per stage: datagen, train, with distillation target
+    and distill, then tables, walk, inversion, metrics; the device is
+    synchronised at each boundary), ``train_steps``, ``mle_iterations``
+    (updates applied by each MLE solve that ran: ``target``, ``samples``,
+    ``raw``) and, after distillation, ``chain_info`` (``train_ce_before`` /
+    ``train_ce_after``, and with a held-out split ``val_history``,
+    ``best_step``, ``best_val_ce``) and ``ft_losses``.
 
     Runs on ``device`` (default CUDA; raises if CUDA is absent and
     ``device`` was not given). ``params_load`` skips CE training and loads a
-    ``torch.save`` state dict; ``params_save`` writes one. ``data_cache`` is
-    an npz path in the JAX package's schema, read if it exists and written
-    otherwise.
+    ``torch.save`` state dict; ``params_save`` writes one, after
+    distillation. ``data_cache`` is an npz path in the JAX package's schema,
+    read if it exists and written otherwise.
+
+    ``cfg.train.chain_finetune_steps > 0`` runs exact-chain distillation
+    (it needs all 3^N bases; otherwise it is skipped with a warning).
+    ``target_cache`` (``chain_target='mle'``): npz path of the MLE-projected
+    Born-probabilities target, read if it exists and written otherwise.
+    ``opt_load`` / ``opt_save``: ``torch.save`` paths of the distillation
+    Adam moments, to chain them across warm-started segments.
+    ``stop_after='distill'`` returns right after distillation and
+    ``params_save`` with ``{'losses', 'ft_losses', 'ft_info'}``: a later
+    ``params_load`` run with ``chain_finetune_steps=0`` does the generation
+    and estimator tail.
     """
     dev = resolve_device(device)
     _check_ported(cfg, mesh)
@@ -292,9 +412,27 @@ def run_experiment(
                        * cfg.train.num_epochs)
     synchronize(dev)
     timings["train"] = time.perf_counter() - t0
+
+    ft_info = ft_losses = None
+    mle_iterations: dict[str, int] = {}
+    if cfg.train.chain_finetune_steps > 0:
+        if len(data.basis_idx) == 3**n:
+            ft_losses, ft_info = _distill(
+                cfg, seed, data, model, schedule, dev, target_cache,
+                opt_load, opt_save, timings, mle_iterations, log_fn)
+        else:
+            log_fn(f"[{cfg.name}] WARNING: chain distillation skipped (needs "
+                   "the full canonical basis set)")
     if params_save:
         save_params(params_save, model)
         log_fn(f"[{cfg.name}] saved params to {params_save}")
+    if stop_after == "distill":
+        return {
+            "losses": losses.detach().cpu().numpy(),
+            "ft_losses": (None if ft_info is None
+                          else ft_losses.cpu().numpy()),
+            "ft_info": ft_info,
+        }
 
     if diff._resolve_exact(schedule, cfg.diffusion.exact):
         log_fn(
@@ -327,17 +465,26 @@ def run_experiment(
     # Samples of a model trained on mitigated data are already clean;
     # mitigating them again would over-correct.
     sample_p = 0.0 if cfg.data.mitigate_train_data else mit_p
-    # Counts-native both ways: scatter-add histogram then WHT parities.
-    rho = pauli.make_counts_inverter(n, readout_p=sample_p)(
-        bits_to_counts(samples)
-    )
+    use_mle = cfg.data.reconstruction == "mle"
+
+    def reconstruct(counts, labels, p, what):
+        # Counts-native both ways: scatter-add histogram, then the MLE
+        # iteration or the WHT parities.
+        if use_mle:
+            solve: dict = {}
+            rho = mle.make_mle(n, labels, readout_p=p)(counts, solve)
+            mle_iterations[what] = solve["iterations"]
+            return rho
+        return pauli.make_counts_inverter(n, labels, readout_p=p)(counts)
+
+    rho = reconstruct(bits_to_counts(samples), None, sample_p, "samples")
+    # Baseline: unmitigated linear inversion of the raw training shots,
+    # plus the configured estimator where it differs.
     raw_counts = bits_to_counts(data.bits)
     rho_raw = pauli.make_counts_inverter(n, data.basis_labels)(raw_counts)
     rho_raw_mit = None
-    if mit_p > 0:
-        rho_raw_mit = pauli.make_counts_inverter(
-            n, data.basis_labels, readout_p=mit_p
-        )(raw_counts)
+    if mit_p > 0 or use_mle:
+        rho_raw_mit = reconstruct(raw_counts, data.basis_labels, mit_p, "raw")
     synchronize(dev)
     timings["inversion"] = time.perf_counter() - t0
 
@@ -368,7 +515,11 @@ def run_experiment(
         "samples": samples,
         "train_steps": train_steps,
         "timings": timings,
+        "mle_iterations": mle_iterations,
     }
+    if ft_info is not None:
+        results["chain_info"] = ft_info
+        results["ft_losses"] = ft_losses.cpu().numpy()
     timings["metrics"] = time.perf_counter() - t0
     log_fn(
         f"[{cfg.name}] fidelity={results['fidelity']:.5f} "

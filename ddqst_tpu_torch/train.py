@@ -14,9 +14,13 @@ optimizers are torch's with optax's hyper-parameters:
 linear warmup from 0 over ``total//20`` steps, then a cosine decay to
 ``0.02·lr`` at ``total``. Update k (from 0) uses the rate at step k.
 
-Not ported yet: exact-chain distillation (``finetune_chain``, ROADMAP
-Queue 1 item 4), checkpoints and resume (item 10), and data/model-parallel
-meshes (item 10); each raises ``NotImplementedError``.
+``finetune_chain`` is exact-chain distillation: Adam (as ``optax.adam``:
+no weight decay, eps outside the root) on the cross-entropy between the
+sampler's exact output distribution
+(``ops.diffusion.chain_distribution``) and the training counts.
+
+Not ported yet: checkpoints and resume, and data/model-parallel meshes
+(ROADMAP Queue 1 item 10); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,12 +29,13 @@ import math
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ddqst_tpu_torch.config import TrainConfig
 from ddqst_tpu_torch.device import resolve_device
 from ddqst_tpu_torch.models.d3pm import init_params_
-from ddqst_tpu_torch.ops.diffusion import denoising_loss
+from ddqst_tpu_torch.ops.diffusion import chain_distribution, denoising_loss
 from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
 
 _ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
@@ -209,3 +214,269 @@ def fit(
                 p.copy_(e * debias)
     model.eval()
     return model, torch.stack(losses) if losses else torch.zeros(0)
+
+
+# Grid rows per forward of the full-grid CE at label-conditioned (shadow)
+# scale: the JAX package's bound, kept for parity (not an H100 limit).
+_LABEL_GRID_ROWS = 8192
+
+
+def chain_opt_template(model: torch.nn.Module) -> dict:
+    """Zero-valued portable Adam state for :func:`finetune_chain`: the
+    structure of ``info['final_opt_state']``, ``{'count', 'mu', 'nu'}`` with
+    ``mu`` / ``nu`` keyed by parameter name, built from the model alone."""
+    def zeros():
+        return {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+
+    return {"count": torch.zeros((), dtype=torch.int32), "mu": zeros(),
+            "nu": zeros()}
+
+
+def finetune_chain(
+    model: torch.nn.Module,
+    target_counts,
+    schedule: DiffusionSchedule,
+    num_qubits: int,
+    steps: int = 300,
+    learning_rate: float = 1e-4,
+    exact: bool | None = None,
+    confusion=None,
+    basis_batch: int = 0,
+    generator: torch.Generator | None = None,
+    steps_per_call: int = 25,
+    val_counts=None,
+    val_patience: int = 4,
+    basis_labels=None,
+    val_every_equiv: float = 2.0,
+    accum: int = 1,
+    init_opt_state: dict | None = None,
+    hard_frac: float = 0.0,
+    device: str | torch.device | None = None,
+) -> tuple[torch.nn.Module, torch.Tensor, dict]:
+    """Exact-chain distillation: fine-tune the denoiser on the SAMPLER.
+
+    CE training minimises a per-step denoising loss, a surrogate for what
+    inference does (run the T-step reverse chain and histogram its
+    outputs). At tomography scales the chain is a differentiable Markov
+    chain on 2^N states per basis
+    (:func:`~ddqst_tpu_torch.ops.diffusion.chain_distribution`), so after CE
+    training the true objective can be descended directly: the
+    cross-entropy between the chain's exact per-basis output distribution
+    and the empirical training-count frequencies. There is no sampling
+    noise in the loss; full-batch runs draw nothing at all.
+
+    Args:
+      model: the CE-trained denoiser; updated in place on ``device``
+        (default CUDA; raises if CUDA is absent and ``device`` was not
+        given) and returned.
+      target_counts: ``[3^N, 2^N]`` per-canonical-basis outcome counts or
+        frequencies (normalised internally).
+      steps: Adam steps (a cap when ``val_counts`` stops early).
+      exact: reverse rule, resolved as at generation: the distilled
+        objective must match the sampler that will be used.
+      confusion: optional ``[2^N, 2^N]`` readout confusion matrix
+        (``M[i, j] = P(measure i | true j)``). When given, the chain's clean
+        distribution is pushed through the channel inside the loss and
+        matched against raw noisy counts.
+      basis_batch: when > 0 and < 3^N, each step descends the CE over that
+        many bases drawn without replacement instead of the full set (the
+        chain is independent per basis, so the minibatch gradient is
+        unbiased).
+      generator: draws the basis minibatches, on ``device`` (default: a new
+        one seeded 0). Full-batch runs never use it.
+      steps_per_call: the JAX package's steps per device dispatch. The
+        port needs no chunks for the device's sake, but the held-out CE is
+        evaluated only at these chunk boundaries, so the value decides at
+        which steps ``val_counts`` is looked at.
+      val_counts: optional held-out ``[3^N, 2^N]`` counts (shots not in
+        ``target_counts``). When given, after a chunk the full-grid chain
+        CE against them is evaluated, the parameters with the best held-out
+        CE are kept (step 0, the undistilled model, is a candidate), and
+        the loop stops after ``val_patience`` evaluations without an
+        improvement of more than 1e-5.
+      val_every_equiv: held-out evaluations are spaced by this many
+        full-grid-equivalent steps (a minibatched step counts as
+        ``accum·basis_batch / B`` of one), and one is always made at the
+        last step.
+      accum: for minibatched runs, each step averages the gradient over
+        ``accum`` disjoint ``basis_batch``-sized minibatches (one
+        ``accum·basis_batch`` draw without replacement); clamped so the
+        draw fits the basis set.
+      init_opt_state: optional portable Adam state (the dict returned in
+        ``info['final_opt_state']``) to resume the optimiser from. Only
+        meaningful without ``val_counts``.
+      hard_frac: hard-basis mining for minibatched runs: with m > 0 the
+        draw has probabilities ``(1-m)/B + m·excess_b / Σ excess``, where
+        ``excess_b`` is the per-basis KL(target || chain) at entry (from
+        the forward pass that gives ``train_ce_before``).
+      basis_labels: optional ``[B, N]`` per-qubit basis labels, for a
+        denoiser conditioned on label rows. The chain is then distilled
+        over exactly those bases, ``target_counts`` / ``val_counts`` are
+        ``[B, 2^N]`` rows aligned with them, and ``basis_batch`` draws rows
+        of the label array.
+
+    Returns ``(model, losses [steps_run], info)``: the model carries the
+    selected parameters. ``info`` holds ``train_ce_before`` /
+    ``train_ce_after`` (full-grid CE against the target, also for
+    minibatched runs) and ``final_opt_state`` (the Adam state after the
+    last step, which with held-out selection belongs to the last
+    parameters, not the selected ones); with ``val_counts`` also
+    ``val_history`` [(step, ce)], ``best_step`` and ``best_val_ce``; with
+    mining, ``hard_draw_p``.
+    """
+    dev = resolve_device(device)
+    model.to(dev)
+    schedule = schedule.to(dev)
+
+    def normalised(counts):
+        c = torch.as_tensor(counts, dtype=torch.float32, device=dev)
+        return c / c.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    target = normalised(target_counts)
+    val = None if val_counts is None else normalised(val_counts)
+    conf_t = None if confusion is None else torch.as_tensor(
+        confusion, dtype=torch.float32, device=dev).T
+    labels = None if basis_labels is None else torch.as_tensor(
+        basis_labels, device=dev).long()
+    num_bases = 3**num_qubits if labels is None else labels.shape[0]
+    minibatched = 0 < basis_batch < num_bases
+
+    def ce_per_basis(bidx, tgt):
+        if labels is None:
+            dist = chain_distribution(model, num_qubits, schedule, exact,
+                                      basis_idx=bidx)
+        else:
+            dist = chain_distribution(
+                model, num_qubits, schedule, exact,
+                basis_labels=labels if bidx is None else labels[bidx])
+        if conf_t is not None:
+            dist = dist @ conf_t  # p_meas(i) = Σ_j M[i,j] p_clean(j)
+        return -(tgt * torch.log(dist.clamp_min(1e-12))).sum(-1)
+
+    # Full-grid CE (forward only), chunked over bases; the chain is
+    # independent per basis, so chunking is exact.
+    if labels is None:
+        chunk_b = 3 ** min(num_qubits, 5)
+    else:
+        chunk_b = max(1, min(num_bases, _LABEL_GRID_ROWS // 2**num_qubits))
+
+    @torch.no_grad()
+    def grid_ce_per_basis(tgt) -> np.ndarray:
+        rows = [
+            ce_per_basis(torch.arange(lo, min(lo + chunk_b, num_bases),
+                                      device=dev), tgt[lo:lo + chunk_b])
+            for lo in range(0, num_bases, chunk_b)
+        ]
+        return torch.cat(rows).cpu().numpy()
+
+    def full_grid_ce(tgt) -> float:
+        return float(np.mean(grid_ce_per_basis(tgt)))
+
+    accum = max(int(accum), 1)
+    if minibatched and accum * basis_batch > num_bases:
+        # The draw without replacement must fit the basis set.
+        accum = max(num_bases // basis_batch, 1)
+
+    ce_before = grid_ce_per_basis(target)
+    info: dict = {"train_ce_before": float(np.mean(ce_before))}
+    draw_p = torch.ones(num_bases, device=dev)
+    if hard_frac > 0 and minibatched:
+        tgt_np = target.cpu().numpy().astype(np.float64)
+        ent = -np.sum(tgt_np * np.log(np.maximum(tgt_np, 1e-12)), axis=-1)
+        excess = np.maximum(ce_before - ent, 0.0)
+        tot = float(excess.sum())
+        if tot > 0:
+            w = (1.0 - hard_frac) / num_bases + hard_frac * excess / tot
+            hard_p = (w / w.sum()).astype(np.float32)
+            info["hard_draw_p"] = hard_p
+            draw_p = torch.from_numpy(hard_p).to(dev)
+
+    named = dict(model.named_parameters())
+    params = list(named.values())
+    opt = torch.optim.Adam(params, lr=learning_rate)
+    if init_opt_state is not None:
+        for key in ("mu", "nu"):
+            if init_opt_state[key].keys() != named.keys():
+                raise ValueError(
+                    f"init_opt_state[{key!r}] names differ from the model's")
+        for name, p in named.items():
+            mu, nu = (torch.as_tensor(init_opt_state[key][name],
+                                      device=dev).clone()
+                      for key in ("mu", "nu"))
+            if mu.shape != p.shape or nu.shape != p.shape:
+                raise ValueError(
+                    f"init_opt_state moments of {name!r} have shapes "
+                    f"{tuple(mu.shape)} and {tuple(nu.shape)}, expected "
+                    f"{tuple(p.shape)}")
+            opt.state[p] = {
+                "step": torch.as_tensor(float(init_opt_state["count"])),
+                "exp_avg": mu, "exp_avg_sq": nu,
+            }
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def one_step() -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        if not minibatched:
+            loss = ce_per_basis(None, target).mean()
+            loss.backward()
+        else:
+            sel = torch.multinomial(draw_p, accum * basis_batch,
+                                    replacement=False, generator=generator)
+            loss = torch.zeros((), device=dev)
+            for bidx in sel.reshape(accum, basis_batch):
+                part = ce_per_basis(bidx, target[bidx]).mean() / accum
+                part.backward()  # gradients add up to the mean's
+                loss = loss + part.detach()
+        opt.step()
+        return loss.detach()
+
+    def snapshot():
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    losses = []
+    done = 0
+    best_ce = best_step = None
+    bad = 0
+    val_history = []
+    if val is not None:
+        best_ce = full_grid_ce(val)
+        best_step = 0
+        best_params = snapshot()
+        val_history.append((0, best_ce))
+    equiv_per_step = (accum * basis_batch / num_bases) if minibatched else 1.0
+    since_eval = 0.0
+    while done < steps:
+        length = min(steps_per_call, steps - done)
+        losses += [one_step() for _ in range(length)]
+        done += length
+        since_eval += length * equiv_per_step
+        if val is not None and (since_eval >= val_every_equiv
+                                or done >= steps):
+            since_eval = 0.0
+            ce = full_grid_ce(val)
+            val_history.append((done, ce))
+            if ce < best_ce - 1e-5:
+                best_ce, best_params, best_step = ce, snapshot(), done
+                bad = 0
+            else:
+                bad += 1
+                if bad >= val_patience:
+                    break
+    adam = [opt.state.get(p, {}) for p in params]
+    info["final_opt_state"] = {
+        "count": torch.as_tensor(
+            int(adam[0]["step"]) if adam[0] else 0, dtype=torch.int32),
+        "mu": {k: st["exp_avg"].detach().clone() if st else torch.zeros_like(p)
+               for (k, p), st in zip(named.items(), adam)},
+        "nu": {k: st["exp_avg_sq"].detach().clone() if st
+               else torch.zeros_like(p)
+               for (k, p), st in zip(named.items(), adam)},
+    }
+    if val is not None:
+        model.load_state_dict(best_params)
+        info.update(val_history=val_history, best_step=best_step,
+                    best_val_ce=best_ce)
+    info["train_ce_after"] = full_grid_ce(target)
+    model.eval()
+    return model, (torch.stack(losses) if losses else torch.zeros(0)), info

@@ -95,6 +95,82 @@ def test_cli_run_minimal(tmp_path, monkeypatch):
         assert (tmp_path / f"special_states_{suffix}.png").exists()
 
 
+def _run_and_capture(args, capsys):
+    assert cli.main(args) == 0
+    return capsys.readouterr().out
+
+
+def test_cli_run_bench_recipe_tiny(capsys):
+    """The bench recipe through ``run`` at a tiny budget: renoise sampler,
+    readout noise with both mitigations, MLE, distillation with a held-out
+    split against the MLE-projected target."""
+    out = _run_and_capture([
+        "run", "--preset", "rqc", "--state_type", "ghz", "--noise_type",
+        "readout", "--mitigate_readout", "--mitigate_train_data",
+        "--shots_train", "200", "--shots_infer", "500", "--epochs", "2",
+        "--timesteps", "8", "--embed_dim", "8", "--hidden_dim", "32",
+        "--num_blocks", "1", "--sampler", "renoise", "--reconstruction", "mle",
+        "--chain_finetune_steps", "6", "--chain_lr", "1e-3",
+        "--chain_val_fraction", "0.15", "--chain_val_patience", "2",
+        "--chain_steps_per_call", "2", "--chain_target", "mle",
+        "--device", "cpu"], capsys)
+    assert "exact-chain distillation: 6 steps" in out
+    assert "distillation target: MLE Born probs" in out
+    assert "chain CE (full grid)" in out and "held-out best" in out
+    assert "exact factorised posterior" not in out  # renoise
+    assert "fidelity=" in out
+
+
+def test_cli_run_chain_basis_batch_and_counts_target(capsys):
+    out = _run_and_capture([
+        "run", "--preset", "rqc", "--shots_train", "100", "--shots_infer",
+        "200", "--epochs", "1", "--timesteps", "8", "--embed_dim", "8",
+        "--hidden_dim", "32", "--num_blocks", "1", "--chain_finetune_steps",
+        "3", "--chain_basis_batch", "9", "--chain_target", "counts",
+        "--device", "cpu"], capsys)
+    assert "exact-chain distillation: 3 steps" in out
+    assert "MLE Born probs" not in out and "held-out" not in out
+
+
+def test_cli_run_on_a_basis_subset(capsys):
+    """--max_bases below 3^N: the dense inverter reconstructs the raw shots,
+    and distillation (which needs every basis) is skipped with a warning."""
+    out = _run_and_capture([
+        "run", "--preset", "rqc", "--max_bases", "6", "--shots_train", "100",
+        "--shots_infer", "200", "--epochs", "1", "--timesteps", "8",
+        "--embed_dim", "8", "--hidden_dim", "32", "--num_blocks", "1",
+        "--chain_finetune_steps", "3", "--reconstruction", "mle",
+        "--device", "cpu"], capsys)
+    assert "WARNING: chain distillation skipped" in out
+    assert "fidelity=" in out
+
+
+def test_cli_evaluate_mle_on_records_with_a_basis_subset(tmp_path):
+    """generate --max_bases 5 (of 9), train, evaluate --reconstruction mle
+    with readout mitigation."""
+    ds = str(tmp_path / "ds")
+    assert cli.main(["generate", "--samples", "3", "--qubits", "2",
+                     "--chunk_size", "3", "--shots", "64", "--noise",
+                     "readout", "--max_bases", "5", "--out_dir", ds,
+                     "--device", "cpu"]) == 0
+    assert records.load_dataset(ds)[0].counts.shape == (5, 4)
+    exp = str(tmp_path / "exp")
+    assert cli.main(["train", "--preset", "rqc", "--data_path", ds,
+                     "--save_dir", exp, "--run_name", "m",
+                     "--num_eval_circuits", "2", "--device", "cpu",
+                     *TINY]) == 0
+    out = str(tmp_path / "res")
+    assert cli.main(["evaluate", "--preset", "rqc", "--params",
+                     f"{exp}/m_params.pt", "--eval_data", f"{exp}/m_eval.npz",
+                     "--shots_infer", "100", "--reconstruction", "mle",
+                     "--noise_type", "readout", "--mitigate_readout",
+                     "--out_dir", out, "--device", "cpu", *TINY]) == 0
+    with open(f"{out}/metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2
+    assert all(0 <= float(r["raw_fidelity"]) <= 1.001 for r in rows)
+
+
 def test_cli_convert(tmp_path):
     entries = [{
         "clean_state_vec": np.array([1, 0, 0, 0], np.complex64),

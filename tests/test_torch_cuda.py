@@ -1,5 +1,6 @@
-"""The CUDA chain walk and chain step on the card (skipped where there is no
-card).
+"""The CUDA chain walk and chain step on the card, and the exact chain
+distribution, the MLE and distillation there against the CPU (skipped where
+there is no card).
 
 Run on a GPU machine without JAX installed (this file imports no JAX, and
 ``--noconftest`` skips the JAX-only test configuration):
@@ -188,3 +189,70 @@ def test_step_kernel_rejects_a_bad_row_base(cuda):
         ck.fused_chain_step(0, table, x, 3, row_base=x.long())  # int64
     with pytest.raises(ValueError):
         ck.fused_chain_step(0, table, x, 3, row_base=x[:3])  # another length
+
+
+def _small_model(device):
+    model = d3pm.ConditionalD3PM(3, 27, 10, embed_dim=16, hidden_dim=32,
+                                 num_blocks=2, input_encoding="token")
+    d3pm.init_params_(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():  # the zero-initialised head would hide the network
+        for p in model.parameters():
+            p.add_(0.1 * torch.randn(p.shape,
+                                     generator=torch.Generator().manual_seed(1)))
+    return model.to(device)
+
+
+def test_chain_distribution_on_the_card_equals_the_cpu(cuda):
+    """The exact chain distribution and its gradient, card against CPU
+    (float32, TF32 off): 1e-5 per entry, 1e-4 relative per gradient."""
+    out = []
+    for dev in ("cpu", cuda):
+        model = _small_model(dev)
+        dist = diff.chain_distribution(model, 3, schedules.cosine_schedule(10, dev),
+                                       exact=False)
+        dist[:, 0].log().sum().backward()
+        out.append((dist.detach().cpu(),
+                    [p.grad.cpu() for p in model.parameters()]))
+    (d0, g0), (d1, g1) = out
+    assert d1.shape == (27, 8)
+    torch.testing.assert_close(d1, d0, rtol=0, atol=1e-5)
+    for a, b in zip(g1, g0):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("impl,readout_p", [("dense", 0.0), ("dense", 0.02),
+                                            ("factored", 0.02)])
+def test_mle_on_the_card_equals_the_cpu(cuda, impl, readout_p):
+    from ddqst_tpu_torch.ops import mle
+
+    rng = np.random.default_rng(3)
+    counts = torch.from_numpy(np.stack(
+        [rng.multinomial(2000, q) for q in rng.dirichlet(np.ones(8), size=27)]
+    ).astype(np.float32))
+    rec = mle.make_mle(3, readout_p=readout_p, impl=impl)
+    info = {}
+    rho = rec(counts.to(cuda), info)
+    assert rho.is_cuda and 1 < info["iterations"] <= 4000
+    # 2e-4 per entry: the tolerance two float32 solves are held to.
+    torch.testing.assert_close(rho.cpu(), rec(counts), rtol=0, atol=2e-4)
+
+
+def test_finetune_chain_on_the_card_follows_the_cpu(cuda):
+    """Full-batch distillation draws nothing: the card's losses follow the
+    CPU's within 1e-4 relative, and the walk is not launched."""
+    from ddqst_tpu_torch import train
+
+    rng = np.random.default_rng(5)
+    tgt = np.stack([rng.multinomial(300, q)
+                    for q in rng.dirichlet(np.ones(8), size=27)])
+    before = ck.fused_chain_walk.launches
+    runs = [train.finetune_chain(_small_model("cpu"), tgt,
+                                 schedules.cosine_schedule(10), 3, steps=5,
+                                 learning_rate=1e-3, exact=False, device=dev)
+            for dev in ("cpu", cuda)]
+    assert ck.fused_chain_walk.launches == before
+    (_, l0, i0), (m1, l1, i1) = runs
+    assert l1.is_cuda and next(m1.parameters()).is_cuda
+    np.testing.assert_allclose(l1.cpu().numpy(), l0.numpy(), rtol=1e-4)
+    assert i1["train_ce_after"] == pytest.approx(i0["train_ce_after"],
+                                                 rel=1e-4)

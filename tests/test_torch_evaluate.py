@@ -19,6 +19,7 @@ from ddqst_tpu.data import generate as jgen
 from ddqst_tpu.models import d3pm as jd3pm
 from ddqst_tpu.ops import diffusion as jdiff
 from ddqst_tpu.ops import metrics as jM
+from ddqst_tpu.ops import mle as jmle
 from ddqst_tpu.ops import pauli as jpauli
 from ddqst_tpu.ops import schedules as jsched
 from ddqst_tpu.ops.complexlib import from_complex
@@ -232,19 +233,69 @@ def test_evaluate_dataset_matches_jax(conditioned, tmp_path):
     assert os.path.exists(tmp_path / "port" / "universality.png")
 
 
+def _capped(rec, rows):
+    return dataclasses.replace(rec, basis_labels=rec.basis_labels[rows],
+                               counts=rec.counts[rows])
+
+
 def test_evaluate_dataset_unported_options_raise():
+    """MLE reconstruction and records with fewer than 3^N bases run (they
+    raised until the estimators were ported); an unknown method raises."""
     recs = _port_records(_dataset()[:1])
     model = td3pm.ConditionalD3PM(2, 9, T, input_encoding="token", **WIDTH)
     sched = tsched.cosine_schedule(T)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
+    quiet = dict(device="cpu", log_fn=lambda *a: None)
+    (row,) = tev.evaluate_dataset(gen, recs, model, 2, sched, shots_infer=50,
+                                  reconstruction="mle", **quiet)
+    assert 0 < row["raw_fidelity"] <= 1.001
+    (row,) = tev.evaluate_dataset(gen, [_capped(recs[0], slice(0, 4))], model,
+                                  2, sched, shots_infer=50, **quiet)
+    assert 0 <= row["raw_fidelity"] <= 1.001
+    with pytest.raises(ValueError):
         tev.evaluate_dataset(gen, recs, model, 2, sched, shots_infer=50,
-                             reconstruction="mle", device="cpu")
-    capped = [dataclasses.replace(recs[0], basis_labels=recs[0].basis_labels[:4],
-                                  counts=recs[0].counts[:4])]
-    with pytest.raises(NotImplementedError):
-        tev.evaluate_dataset(gen, capped, model, 2, sched, shots_infer=50,
-                             device="cpu", log_fn=lambda *a: None)
+                             reconstruction="bayes", **quiet)
+
+
+@pytest.mark.parametrize("reconstruction,rows,readout_p", [
+    ("mle", None, 0.0),
+    ("mle", None, 0.01),
+    ("mle", [0, 2, 4, 5, 8], 0.01),
+    ("linear", [0, 2, 4, 5, 8], 0.01),
+])
+def test_evaluate_dataset_estimators_match_jax(reconstruction, rows,
+                                               readout_p):
+    """Raw metrics equal JAX's harness with the same estimator on the same
+    records (1e-4: the MLE fidelity tolerance; 1e-5 for the dense linear
+    inverter), also for records measured on five of the nine bases; the
+    D3PM fidelity lies within 0.02 of the same estimator on JAX's exact
+    chain distribution."""
+    trained = _trained(False)
+    shots = 4000
+    jrecs = trained["eval_recs"]
+    if rows is not None:
+        jrecs = [_capped(r, rows) for r in jrecs]
+    kw = dict(exact=False, reconstruction=reconstruction, readout_p=readout_p,
+              log_fn=lambda *a: None)
+    jout = jev.evaluate_dataset(
+        jax.random.key(0), jrecs, trained["state"].apply_fn,
+        {"params": trained["state"].params}, 2,
+        jsched.make_schedule("cosine", T), shots_infer=100, **kw)
+    out = tev.evaluate_dataset(
+        torch.Generator().manual_seed(4), _port_records(jrecs),
+        trained["model"], 2, tsched.cosine_schedule(T), shots_infer=shots,
+        device="cpu", **kw)
+    tol = 1e-4 if reconstruction == "mle" else 1e-5
+    dist = _jax_exact_dist(trained["state"], False, 0)
+    make = (jmle.make_mle if reconstruction == "mle"
+            else jpauli.make_counts_inverter)
+    rho = make(2, readout_p=readout_p)(jnp.asarray(dist * shots))
+    for a, r, rec in zip(out, jout, jrecs):
+        assert a["raw_fidelity"] == pytest.approx(r["raw_fidelity"], abs=tol)
+        assert a["raw_trace_distance"] == pytest.approx(
+            r["raw_trace_distance"], abs=10 * tol)
+        fid = float(jM.state_fidelity(from_complex(rec.clean_state), rho))
+        assert abs(a["d3pm_fidelity"] - fid) < 0.02
 
 
 def test_train_on_dataset_matches_jax_eval_subset(tmp_path):

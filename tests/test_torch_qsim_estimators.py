@@ -95,11 +95,131 @@ def test_counts_parity_means_matches_jax():
 
 
 def test_non_canonical_basis_labels_raise():
+    """A basis subset and "first" mode take the dense compatibility weights
+    (they raised while only the factored inverter was ported); what still
+    raises is an unknown mode."""
     labels = tpauli.all_basis_labels(2)[:5]
-    with pytest.raises(NotImplementedError):
-        tpauli.make_counts_inverter(2, labels)
-    with pytest.raises(NotImplementedError):
-        tpauli.make_counts_inverter(2, compat_mode="first")
+    counts = torch.from_numpy(_random_counts(np.random.default_rng(0), 2))
+    for rho in (tpauli.make_counts_inverter(2, labels)(counts[:5]),
+                tpauli.make_counts_inverter(2, compat_mode="first")(counts)):
+        assert rho.shape == (4, 4) and abs(complex(rho.trace()) - 1) < 1e-5
+    with pytest.raises(ValueError):
+        tpauli.make_counts_inverter(2, labels, compat_mode="median")
+
+
+_SUBSETS = {2: [0, 2, 4, 5, 8], 3: [26, 0, 13, 4, 9, 21, 22, 17, 1, 14, 8]}
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("mode", ["mean", "first"])
+@pytest.mark.parametrize("readout_p,psd", [(0.0, True), (0.02, True),
+                                           (0.02, False)])
+def test_dense_inverter_on_a_basis_subset_matches_jax(n, mode, readout_p, psd):
+    """The dense [4^N, B] path, rows in the caller's order: within 1e-5 per
+    entry of ρ."""
+    labels = tpauli.all_basis_labels(n)[_SUBSETS[n]]
+    counts = _random_counts(np.random.default_rng(n), n)[_SUBSETS[n]]
+    kw = dict(compat_mode=mode, psd=psd, readout_p=readout_p)
+    ref = to_complex(jpauli.make_counts_inverter(n, labels, **kw)(
+        jnp.asarray(counts)))
+    out = tpauli.make_counts_inverter(n, labels, **kw)(
+        torch.from_numpy(counts))
+    assert out.dtype == torch.complex64
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    if not psd:  # the all-identity coefficient is exactly 1
+        assert complex(out.trace()) == pytest.approx(1.0, abs=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_first_mode_on_the_full_grid_matches_jax(n):
+    counts = _random_counts(np.random.default_rng(5), n)
+    ref = to_complex(jpauli.make_counts_inverter(n, compat_mode="first")(
+        jnp.asarray(counts)))
+    out = tpauli.make_counts_inverter(n, compat_mode="first")(
+        torch.from_numpy(counts))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    # On the full grid, "mean" over the dense weights is the factored path.
+    w, mask = tpauli._compat_weights(n, tpauli.all_basis_labels(n), "mean")
+    par = tpauli.counts_parity_means(torch.from_numpy(counts), n)
+    coeff = torch.einsum("pb,bp->p", torch.from_numpy(w),
+                         par[:, torch.from_numpy(mask).long()])
+    coeff[0] = 1.0
+    dense = tpauli.project_psd(tpauli.coeffs_to_rho(coeff, n))
+    fact = tpauli.make_counts_inverter(n)(torch.from_numpy(counts))
+    np.testing.assert_allclose(dense.numpy(), fact.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["mean", "first"])
+def test_compat_weights_match_jax(mode):
+    labels = tpauli.all_basis_labels(3)[_SUBSETS[3]]
+    w, mask = tpauli._compat_weights(3, labels, mode)
+    jw, jmask = jpauli._compat_weights(3, labels, mode)
+    assert w.shape == (64, 11) and w.dtype == np.float32
+    np.testing.assert_allclose(w, jw, atol=1e-7)  # JAX keeps float64
+    np.testing.assert_array_equal(mask, jmask)
+    sums = w.sum(1)
+    assert set(np.round(sums, 5)) <= {0.0, 1.0} and round(sums[0], 5) == 1.0
+
+
+def _random_bits(rng, b, s, n):
+    return rng.integers(0, 2, (b, s, n)).astype(np.int8)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_subset_parity_means_match_jax(weighted):
+    rng = np.random.default_rng(3)
+    bits = _random_bits(rng, 5, 200, 3)
+    w = (rng.integers(0, 3, (5, 200)).astype(np.float32) if weighted
+         else None)
+    out = tpauli.subset_parity_means(
+        torch.from_numpy(bits), None if w is None else torch.from_numpy(w))
+    ref = jpauli.subset_parity_means(
+        jnp.asarray(bits), None if w is None else jnp.asarray(w))
+    assert out.shape == (5, 8)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    if not weighted:  # the same parities as the histogram route
+        np.testing.assert_allclose(
+            out.numpy(),
+            tpauli.counts_parity_means(
+                tmle.bits_to_counts(torch.from_numpy(bits)), 3).numpy(),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("subset,weighted", [(False, False), (True, False),
+                                             (True, True)])
+def test_make_inverter_from_bits_matches_jax(subset, weighted):
+    n = 2
+    rng = np.random.default_rng(9)
+    rows = _SUBSETS[n] if subset else list(range(9))
+    labels = tpauli.all_basis_labels(n)[rows]
+    bits = _random_bits(rng, len(rows), 300, n)
+    w = rng.random((len(rows), 300)).astype(np.float32) if weighted else None
+    ref = to_complex(jpauli.make_inverter(n, labels, readout_p=0.01)(
+        jnp.asarray(bits), None if w is None else jnp.asarray(w)))
+    out = tpauli.make_inverter(n, labels, readout_p=0.01)(
+        torch.from_numpy(bits), None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_linear_inversion_matches_jax():
+    bits = _random_bits(np.random.default_rng(2), 9, 250, 2)
+    for mode in ("mean", "first"):
+        ref = to_complex(jpauli.linear_inversion(jnp.asarray(bits), 2,
+                                                 compat_mode=mode))
+        out = tpauli.linear_inversion(torch.from_numpy(bits), 2,
+                                      compat_mode=mode)
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_label_helpers_match_jax():
+    np.testing.assert_array_equal(tpauli.all_pauli_labels(3),
+                                  jpauli.all_pauli_labels(3))
+    assert tpauli.all_pauli_labels(2).shape == (16, 2)
+    for row in tpauli.all_basis_labels(3)[[0, 5, 26]]:
+        s = tpauli.basis_label_to_str(row)
+        assert s == jpauli.basis_label_to_str(row)
+        np.testing.assert_array_equal(tpauli.basis_str_to_label(s), row)
+    assert tpauli.basis_label_to_str(np.array([0, 1, 2])) == "XYZ"
 
 
 def _rho_pair(rng, n=3):
