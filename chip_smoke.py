@@ -20,11 +20,15 @@ result line is printed; nothing falls back to the CPU):
    version on the card, bit for bit, at the main-path shape (T=100, C=27,
    N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128) and at N = 1, 5
    and 6 (with N=3 and N=7 the kernel's three ways of staging its tables),
-   and at every block size it can choose; check that the same seed repeats;
+   then in its global-memory body at the shadow route's shape (T=100,
+   C=100, N=10, S=5,000), at a ragged S there and at N = 8, 9 and 12, each
+   at every block size it can choose; check that the same seed repeats;
    check the walk's distribution against the exact propagation of its
-   tables (TV within 4 shot-noise scales) at N=3 and N=7; time kernel and
-   plain version with CUDA events at 135,000 and at 27 x 37,037 (about
-   10^6) chains, the kernel also at each block size;
+   tables (TV within 4 shot-noise scales) at N = 3, 7 and 10; time kernel
+   and plain version with CUDA events at 135,000 and at 27 x 37,037 (about
+   10^6) chains, at N=7, at the shadow shape and at one call of the
+   chunked sampler at N = 8 (3^8 rows x 319 chains, 5.4 GB of tables), the
+   kernel also at each block size;
 3. main path — ``run_experiment(get_preset("rqc"), seed=0)`` at full width
    on the default (CUDA) device, with the kernel's launch count set to 0
    just before and read just after; print each stage's time and the
@@ -75,6 +79,26 @@ result line is printed; nothing falls back to the CPU):
    scores at least 0.995. It prints the fidelities beside the reference's,
    the stage seconds, the ms per distillation step and the MLE solves'
    iterations and seconds.
+
+7. chunked — ``sample_all_bases_chunked`` (``gen_tables_once``) on phase
+   3's trained ``rqc`` model: 200,000 shots a basis, the tables once, then
+   3 walk launches of at most 2^21 chains (counts set to 0 just before,
+   read just after), the samples against the exact chain distribution of
+   the model's tables (TV within 4 shot-noise scales per basis).
+8. shadow — ``run_experiment(get_preset("shadow_transformer"), seed=0)`` at
+   full width and uncut (N=10, 100 sampled bases, 1,024 training and 5,000
+   generated shots a basis, transformer 128 / 512 / 4 blocks / 4 heads,
+   T=100, renoise, 30 epochs) on the card, with the launch counts set to 0
+   just before and read just after: one walk launch (the tables over the
+   102,400-row label grid, then one walk of 500,000 chains), no step
+   launch. It prints the stage seconds and the quality metrics beside the
+   reference's N=10 rows, checks every basis' samples against the exact
+   chain distribution of the trained model's own tables (TV within 4
+   shot-noise scales) and a few table rows against a CPU recompute (1e-5);
+   then a warm-started run (``params_load`` of the first run's
+   ``params_save``) with 3 distillation steps over minibatches of 10 bases
+   and no held-out split, printing ms a step and the chain CE before and
+   after.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -383,15 +407,26 @@ def phase_rate(_build) -> dict:
 
 
 def exact_walk(tables: torch.Tensor, init_dist: torch.Tensor) -> torch.Tensor:
-    """Exact propagation of the table walk in float64: [T,C,g,N] -> [C,g]."""
+    """Exact propagation of the table walk in float64: [T,C,g,N] -> [C,g].
+
+    Each step's [x, y] transition is built qubit by qubit, for a chunk of
+    rows at a time (at most 2^25 float64 entries, 256 MB), so no [C, g, g,
+    N] intermediate exists (8.4 GB a step at the shadow shape)."""
     t_steps, c, g, n = tables.shape
     y = ((torch.arange(g, device=tables.device)[:, None]
           >> torch.arange(n, device=tables.device)) & 1).double()
-    dist = init_dist.double()
+    rows = max(1, (1 << 25) // (g * g))
+    dist = init_dist.double().clone()
     for t in range(t_steps):
-        p1 = tables[t].double()[:, :, None, :]  # [C, x, 1, N]
-        trans = (p1 * y + (1 - p1) * (1 - y)).prod(-1)  # [C, x, y]
-        dist = torch.einsum("cx,cxy->cy", dist, trans)
+        for lo in range(0, c, rows):
+            p1 = tables[t, lo:lo + rows].double()  # [rows, x, N]
+            trans = None
+            for q in range(n):
+                pq = p1[:, :, q, None]  # [rows, x, 1]
+                f = pq * y[:, q] + (1 - pq) * (1 - y[:, q])  # [rows, x, y]
+                trans = f if trans is None else trans.mul_(f)
+            dist[lo:lo + rows] = torch.einsum("cx,cxy->cy", dist[lo:lo + rows],
+                                              trans)
     return dist
 
 
@@ -404,8 +439,17 @@ def tv_rows(idx: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
 
 
 def random_walk_inputs(t_steps, c, n, s, seed):
-    rng = np.random.default_rng(seed)
+    """Tables uniform in [0.05, 0.95] and a random start, from a seed: made
+    with numpy up to 2^7 outcomes (the inputs of the earlier slices), on the
+    card above (gigabytes of tables at N = 8 over the full grid)."""
     g = 2**n
+    if n > 7:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tables = torch.rand((t_steps, c, g, n), generator=gen, device="cuda")
+        init = torch.randint(0, g, (c, s), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        return tables.mul_(0.9).add_(0.05), init
+    rng = np.random.default_rng(seed)
     tables = rng.uniform(0.05, 0.95, (t_steps, c, g, n)).astype(np.float32)
     init = rng.integers(0, g, (c, s)).astype(np.int32)
     return (torch.from_numpy(tables).cuda(), torch.from_numpy(init).cuda())
@@ -415,10 +459,14 @@ def phase_kernel(ck) -> dict:
     """Kernel vs plain version on the card; returns the timing record."""
     # (T, C, N, S): the rqc preset's shape, the bench recipe's (50,000 shots
     # a basis), a ragged S, and N = 1 (plain loads), 5 (all T slices at
-    # once, 64 KB), 6 and 7 (a ring of chunks).
+    # once, 64 KB), 6 and 7 (a ring of chunks); then the body that reads
+    # global memory: the shadow route's shape (N = 10, 100 sampled bases),
+    # a ragged S there, and N = 8, 9 and 12.
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
-              (100, 27, 6, 1237)]
+              (100, 27, 6, 1237),
+              (100, 100, 10, 5000), (100, 100, 10, 1237), (100, 40, 8, 3001),
+              (50, 30, 9, 2049), (20, 8, 12, 999)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -444,7 +492,7 @@ def phase_kernel(ck) -> dict:
             f"repeatable; chose {plan[0]} threads, {plan[1]} steps a buffer, "
             f"{plan[2]} B of shared memory")
 
-    for n in (3, 7):
+    for n in (3, 7, 10):
         t_steps, c, s = 20, 4, 200_000
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=10 + n)
         g = 2**n
@@ -459,25 +507,34 @@ def phase_kernel(ck) -> dict:
             f" < bound {bound:.5f}")
 
     rec = {}
-    for label, n, s, it_k, it_r in (("main", 3, 5000, 50, 3),
-                                    ("1e6", 3, 37037, 20, 2),
-                                    ("bench", 3, 50000, 20, 2),
-                                    ("n7", 7, 5000, 20, 0)):
-        tables, init = random_walk_inputs(100, 27, n, s, seed=20)
+    # (label, C, N, S, kernel iterations, plain iterations): the shapes of
+    # the paths: rqc, 10^6 chains, the bench recipes, N = 7, the shadow
+    # route (100 sampled bases at N = 10) and one walk call of
+    # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
+    # a row, 5.4 GB of tables).
+    for label, c, n, s, it_k, it_r in (("main", 27, 3, 5000, 50, 3),
+                                       ("1e6", 27, 3, 37037, 20, 2),
+                                       ("bench", 27, 3, 50000, 20, 2),
+                                       ("n7", 27, 7, 5000, 20, 2),
+                                       ("shadow", 100, 10, 5000, 20, 1),
+                                       ("n8_grid", 3**8, 8, 319, 5, 1)):
+        tables, init = random_walk_inputs(100, c, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
         plan = ck.fused_chain_walk.last_plan
         sweep = {t: cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n,
                                                         threads=t), it_k)
                  for t in (64, 128, 256, 512)}
         ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(
-            5, tables, init, n), it_r) if it_r else float("nan")
-        bound, by = walk_bound_ms(100, 27, n, s)
-        log("kernel", f"{label}: N={n}, {27 * s} chains x 100 steps: kernel "
+            5, tables, init, n), it_r)
+        bound, by = walk_bound_ms(100, c, n, s)
+        log("kernel", f"{label}: N={n}, {c} x {s} chains x 100 steps: kernel "
             f"{ms_k:.4f} ms ({plan[0]} threads chosen), plain {ms_r:.3f} ms, "
-            f"bound {bound:.4f} ms ({by}); by block size: " + ", ".join(
+            f"bound {bound:.4f} ms ({by}), {ms_k / bound:.2f} x bound; by "
+            "block size: " + ", ".join(
                 f"{t}: {ms:.4f}" for t, ms in sweep.items()))
         rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by,
                           threads=plan[0], ms_by_threads=sweep)
+        del tables, init
     rec["max_abs_err"] = max_err
     return rec
 
@@ -1008,6 +1065,182 @@ def phase_distill(ck, depth: dict, ghz_seeds: int = 1) -> list[dict]:
     return runs
 
 
+# The reference's N=10 rows at this preset's data (RESULTS.md, "N=10
+# shadow-transformer preset", its round-2 runs on a TPU; quality numbers
+# only, no time of those runs is used anywhere).
+REFERENCE_SHADOW = {
+    "30 epochs, exact posterior": dict(
+        mean_tv_to_target=0.446, tv_shot_noise_floor=0.118,
+        meas_tv_to_target=0.264, mean_marginal_error=0.044,
+        classical_fidelity=0.678),
+    "150 epochs, cosine LR, renoise": dict(
+        mean_tv_to_target=0.213, tv_shot_noise_floor=0.118,
+        meas_tv_to_target=0.264, mean_marginal_error=0.015,
+        classical_fidelity=0.893),
+}
+SHADOW_DISTILL_STEPS = 3
+
+
+def phase_shadow(ck) -> dict:
+    """The shadow route on the card: the ``shadow_transformer`` preset at
+    full width and uncut, then a warm-started distillation run."""
+    import dataclasses
+
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import load_data_cache, run_experiment
+
+    cfg = get_preset("shadow_transformer")
+    n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
+                         cfg.data.shots_infer)
+    with tempfile.TemporaryDirectory() as tmp:
+        params, cache = (os.path.join(tmp, "shadow.pt"),
+                         os.path.join(tmp, "data.npz"))
+        ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, seed=0, params_save=params,
+                             data_cache=cache,
+                             log_fn=lambda m: log("shadow", m))
+        wall = time.perf_counter() - t0
+        walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+        plan = ck.fused_chain_walk.last_plan
+        labels = load_data_cache(cache).basis_labels
+        tm = res["timings"]
+        log("shadow", f"wall {wall:.2f} s; stages (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tm.items()))
+        log("shadow", f"train: {res['train_steps']} steps, "
+            f"{res['train_steps'] / tm['train']:.1f} steps/s")
+        log("shadow", f"fused_chain_walk.launches = {walks} ({plan[0]} "
+            f"threads a block), fused_chain_step.launches = {steps}")
+        check(walks == 1 and steps == 0,
+              "the shadow route launched the walk once and the step never")
+        quality = ("mean_tv_to_target", "tv_shot_noise_floor",
+                   "meas_tv_to_target", "mean_marginal_error",
+                   "classical_fidelity")
+        log("shadow", "quality (30 epochs, renoise): " + ", ".join(
+            f"{k} {res[k]:.5f}" for k in quality) + f", max_tv_to_target "
+            f"{res['max_tv_to_target']:.5f}, max_marginal_error "
+            f"{res['max_marginal_error']:.5f}, z_bias {res['z_bias']}")
+        for what, ref in REFERENCE_SHADOW.items():
+            log("shadow", f"reference ({what}): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ref.items()))
+        for k in quality + ("max_tv_to_target", "max_marginal_error"):
+            check(math.isfinite(res[k]), f"shadow {k} finite")
+        samples = res["samples"]
+        check(tuple(samples.shape) == (100, shots, n) and samples.is_cuda,
+              f"samples [100, {shots}, {n}] on the card")
+
+        # The samples against the exact chain distribution of the trained
+        # model's own tables, every basis.
+        model = res["state"]
+        sched = make_schedule("cosine", t_steps, "cuda")
+        exact = cfg.diffusion.exact
+        lab = torch.from_numpy(np.asarray(labels, np.int64)).cuda()
+        g = 2**n
+        grid = (diff._unpack(torch.arange(g, device="cuda"), n).repeat(100, 1),
+                lab.repeat_interleave(g, dim=0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = diff._assembled_tables(model, n, sched, exact, grid,
+                                        1 << 18, 1 << 16)
+        torch.cuda.synchronize()
+        t_tables = time.perf_counter() - t0
+        dist = exact_walk(tables, torch.full((100, g), 1 / g, device="cuda"))
+        idx = (samples.long() * (1 << torch.arange(n, device="cuda"))).sum(-1)
+        tv = tv_rows(idx, dist)
+        bound = 4 * math.sqrt(g / (2 * math.pi * shots))
+        log("shadow", f"samples vs the exact chain of the model's tables "
+            f"(rebuilt in {t_tables:.4f} s): TV mean {float(tv.mean()):.5f}, "
+            f"max {float(tv.max()):.5f} < bound {bound:.5f} over 100 bases")
+        check(bool((tv < bound).all()), f"shadow samples TV {float(tv.max())}"
+              f" < {bound} for every basis")
+
+        # A few table rows against a CPU recompute.
+        cpu_model = build_model(cfg.model, n, t_steps)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        rows = [0, 37, 99]
+        ts = torch.tensor([t_steps, t_steps // 2, 1])
+        cpu_grid = (grid[0][:g].cpu().repeat(len(rows), 1),
+                    lab[rows].cpu().repeat_interleave(g, dim=0))
+        with torch.no_grad():
+            cpu_tab = diff._tables_for_ts(cpu_model.eval(), ts, n,
+                                          sched.to("cpu"), exact,
+                                          grid=cpu_grid)
+        card = tables[(t_steps - ts).tolist()][:, rows].reshape(3, -1, n)
+        tab_err = float((card.cpu() - cpu_tab).abs().max())
+        log("shadow", f"tables card vs CPU, bases {rows} at t = "
+            f"{ts.tolist()}: max abs err {tab_err:.2e}")
+        check(tab_err < 1e-5, "shadow tables on the card match the CPU's")
+        del tables, dist
+
+        # A warm-started distillation run over minibatches of 10 bases.
+        cfg2 = cfg.replace(train=dataclasses.replace(
+            cfg.train, chain_finetune_steps=SHADOW_DISTILL_STEPS,
+            chain_basis_batch=10, chain_val_fraction=0.0))
+        ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+        res2 = run_experiment(cfg2, seed=0, params_load=params,
+                              data_cache=cache,
+                              log_fn=lambda m: log("shadow", m))
+        walks2 = ck.fused_chain_walk.launches
+    info, tm2 = res2["chain_info"], res2["timings"]
+    ms_step = tm2["distill"] * 1e3 / SHADOW_DISTILL_STEPS
+    log("shadow", f"distillation, {SHADOW_DISTILL_STEPS} steps of 10 bases: "
+        f"{ms_step:.1f} ms a step (its 2 full-grid CE evaluations over 100 "
+        f"bases included); chain CE {info['train_ce_before']:.5f} -> "
+        f"{info['train_ce_after']:.5f}; stages (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tm2.items()))
+    check(len(res2["ft_losses"]) == SHADOW_DISTILL_STEPS
+          and np.isfinite(res2["ft_losses"]).all(),
+          "the shadow distillation ran its steps with finite losses")
+    check(math.isfinite(info["train_ce_after"]) and walks2 == 1,
+          "the warm-started run generated through one walk launch")
+    return dict(walk_launches=walks, walk_threads=plan[0], wall_s=wall,
+                timings=tm, train_steps=res["train_steps"],
+                **{k: res[k] for k in quality}, max_tv_exact_chain=float(
+                    tv.max()), table_err=tab_err, distill_ms_per_step=ms_step,
+                distill_ce=(info["train_ce_before"], info["train_ce_after"]),
+                distill_timings=tm2)
+
+
+def phase_chunked(ck, model) -> int:
+    """``sample_all_bases_chunked`` on the trained ``rqc`` model: the tables
+    once, then walks of at most 2^21 chains (200,000 shots a basis in 3
+    launches), against the exact chain distribution of its tables."""
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    sched = make_schedule("cosine", 100, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shots = 200_000
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    tm: dict = {}
+    out = diff.sample_all_bases_chunked(gen, model, 3, shots, sched,
+                                        max_chains=1 << 21, walk="cuda",
+                                        timings=tm)
+    torch.cuda.synchronize()
+    walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+    check(walks == 3 and steps == 0,
+          f"sample_all_bases_chunked launched the walk 3 times ({walks}) and "
+          f"the step never ({steps})")
+    tables = diff.grid_p1_tables(model, 3, sched).reshape(100, 27, 8, 3)
+    dist = exact_walk(tables, torch.full((27, 8), 1 / 8, device="cuda"))
+    idx = (out.long() * (1 << torch.arange(3, device="cuda"))).sum(-1)
+    tv = tv_rows(idx, dist)
+    bound = 4 * math.sqrt(8 / (2 * math.pi * shots))
+    log("chunked", f"sample_all_bases_chunked, {shots} shots a basis: walk "
+        f"launches {walks}, tables {tm['tables']:.4f} s, walks "
+        f"{tm['walk']:.4f} s; samples vs exact chain: max TV "
+        f"{float(tv.max()):.5f} < {bound:.5f}")
+    check(tuple(out.shape) == (27, shots, 3) and out.is_cuda,
+          "chunked samples on the card")
+    check(bool((tv < bound).all()), f"chunked samples TV {float(tv.max())} <"
+          f" {bound}")
+    return walks
+
+
 def profile_distill() -> dict:
     """Where one distillation step's time goes, at full width (27·8 grid
     rows, T = 100, seeded weights, random targets): the host-clock time of a
@@ -1081,9 +1314,13 @@ def time_kernels(ck) -> dict:
     import inspect
 
     out = {}
-    for label, s, iters in (("walk_main", 5000, 50), ("walk_1e6", 37037, 20)):
-        tables, init = random_walk_inputs(100, 27, 3, s, seed=20)
-        out[label] = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, 3),
+    shapes = [("walk_main", 27, 3, 5000, 50), ("walk_1e6", 27, 3, 37037, 20),
+              ("walk_n7", 27, 7, 5000, 20)]
+    if getattr(ck, "_MAX_WALK_N", 7) >= 10:  # the walk takes N = 10
+        shapes.append(("walk_shadow", 100, 10, 5000, 20))
+    for label, c, n, s, iters in shapes:
+        tables, init = random_walk_inputs(100, c, n, s, seed=20)
+        out[label] = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n),
                              iters)
     has_base = "row_base" in inspect.signature(ck.fused_chain_step).parameters
     for label, (g, n, b) in (("step_eval", (50 * 27 * 8, 3, 6_750_000)),
@@ -1162,6 +1399,8 @@ def main() -> int:
     phase_seq_walk(ck, res["state"])
     step_launches, path_ms = phase_route(ck)
     distill = phase_distill(ck, DISTILL_DEPTH)
+    chunked_launches = phase_chunked(ck, res["state"])
+    shadow = phase_shadow(ck)
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -1192,6 +1431,15 @@ def main() -> int:
         "ms_by_threads_bench_shape": bench_rec["ms_by_threads"],
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["walk_n3"],
+        "ms_n7": kernel["n7"]["ms"],
+        "plain_ms_n7": kernel["n7"]["plain_ms"],
+        "bound_ms_n7": kernel["n7"]["bound_ms"],
+        "launches_shadow_route": shadow["walk_launches"],
+        "launches_chunked_sampler": chunked_launches,
+        **{f"{k}_{label}": kernel[label][k]
+           for label in ("shadow", "n8_grid")
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
+                     "ms_by_threads")},
     }, {
         "name": "fused_chain_step",
         "route": "cuda",
@@ -1215,7 +1463,7 @@ def main() -> int:
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["step_n3_row_base"],
     }], "lane_instructions_per_s": rate["rates"],
-        "bench_recipes": distill}), flush=True)
+        "bench_recipes": distill, "shadow": shadow}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

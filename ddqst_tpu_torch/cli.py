@@ -5,6 +5,7 @@ and flags plus ``--device`` (default ``cuda``; without CUDA every
 subcommand but ``convert`` raises unless ``--device cpu`` is given).
 
   python -m ddqst_tpu_torch.cli run --preset special_states --state_type bell
+  python -m ddqst_tpu_torch.cli run --preset shadow_transformer  # N=10 shadow
   python -m ddqst_tpu_torch.cli generate --samples 1000 --qubits 3 --out_dir ds
   python -m ddqst_tpu_torch.cli train --data_path ds --save_dir exp --run_name m1
   python -m ddqst_tpu_torch.cli train --sanity_check        # memorisation smoke
@@ -50,7 +51,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sampler", choices=["auto", "exact", "renoise"])
     p.add_argument("--infer_mode", choices=["generate", "denoise"])
     p.add_argument("--gen_tables_once", action="store_true", default=None,
-                   help="amortised generation (not ported yet)")
+                   help="amortised generation: the grid tables once in "
+                        "bounded chunks, then table walks per shot chunk")
     # Model
     p.add_argument("--arch", choices=["film_mlp", "plain_mlp", "transformer"])
     p.add_argument("--input_encoding", choices=["float", "token"])

@@ -21,8 +21,11 @@
 // moves 1.3 MB (init and out at 135,000 x 4 B each, plus the 259 KB of
 // tables), 0.4 us, but each of its 13.5 M chain steps needs at least 17
 // products (34 multiplier slots) beside 27 add/logic instructions: 27 us.
-// It is bound by the integer multiplier, not by bytes. The measured times
-// stand in PERF.md.
+// It is bound by the integer multiplier, not by bytes. At the shadow
+// route's shape (T=100, C=100 sampled bases, 2^N=1024, N=10, S=5,000) it
+// moves 413.6 MB of tables, 0.124 ms, and its 1.5e8 Philox calls need
+// 0.305 ms of multiplier slots: bound by operations again. The measured
+// times stand in PERF.md.
 //
 // Design:
 // - One thread per chain, the state x in a register across the T-step loop
@@ -54,6 +57,27 @@
 //   tail); at 10^6 chains blocks of 512, which stage a row's slices for more
 //   chains. The counter is the chain's index, so the output cannot depend
 //   on the choice.
+//
+// N = 8 to 16 (2^N = 256 to 65,536 outcomes: the shadow route's tables at
+// N = 10, and the full grid's at N = 8) take a second body that stages
+// nothing. One step's slice is 2^N * N * 4 bytes, 8 KB at N = 8, 40 KB at
+// N = 10, 192 KB at N = 12, so a ring of 8-step chunks no longer fits a
+// block's 227 KB, and staging whole slices is the wrong trade anyway: a
+// chain reads N * 4 bytes of its slice a step, and a block's 64-512 chains
+// read a quarter to a half of what staging would copy. So each thread reads
+// its chain's N probabilities straight from global memory through the
+// read-only path (__ldg) and converts them with the same philox_threshold,
+// so the bits are those of the staged body and of the plain version. A block
+// walks a tile of one row's chains, and the blocks of one row read the same
+// slice at about the same step, so a slice is fetched from memory about
+// once and served from L2 (50 MB) to the rest. The loop is unrolled by 2:
+// the next step's Philox calls do not depend on the state and run under
+// this step's loads. The block size is the largest that still gives every
+// SM a block: the fewer rows an SM's resident chains come from, the more of
+// their reads its L1 serves. On an H100, 512-thread blocks took 0.79 ms at
+// the shadow shape against 1.16 ms for 64-thread ones, and 2.67 ms against
+// 2.91 ms at N = 8 over the full grid, where 319 chains a row leave 38% of
+// a 512-thread block idle (PERF.md).
 
 #include <algorithm>
 #include <cstdint>
@@ -63,7 +87,8 @@
 
 namespace {
 
-constexpr int kMaxN = 7;
+constexpr int kMaxStagedN = 7;   // N up to here stages its slices
+constexpr int kMaxN = 16;        // N up to here reads them from global memory
 constexpr int kFullBytes = 64 * 1024;   // up to here all T slices are staged
 constexpr int kChunkBytes = 16 * 1024;  // a ring buffer's target size
 constexpr int kMinChunkSteps = 8;
@@ -211,6 +236,49 @@ __global__ void chain_walk_kernel(const float* __restrict__ tables,
   if (live) out[row] = static_cast<int32_t>(x);
 }
 
+// N >= 8: no staging; a chain's N probabilities of a step come straight from
+// global memory. Same counter, same thresholds, same bits.
+template <int N>
+__global__ void chain_walk_global_kernel(const float* __restrict__ tables,
+                                         const int32_t* __restrict__ init,
+                                         int32_t* __restrict__ out,
+                                         int t_steps, int c_rows, int s_chains,
+                                         const __grid_constant__
+                                             ddqst::PhiloxKeys keys) {
+  constexpr int kSlice = (1 << N) * N;  // table entries a step
+  const int c = blockIdx.y;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= s_chains) return;  // no block barrier below
+  const int64_t row = static_cast<int64_t>(c) * s_chains + s;
+  const int64_t step_stride = static_cast<int64_t>(c_rows) * kSlice;
+  const float* slice = tables + static_cast<int64_t>(c) * kSlice;
+  uint32_t x = static_cast<uint32_t>(__ldcs(init + row));
+#pragma unroll 2
+  for (int i = 0; i < t_steps; ++i, slice += step_stride) {
+    const float* p1 = slice + x * N;
+    uint32_t thr[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) thr[q] = ddqst::philox_threshold(__ldg(p1 + q));
+    uint32_t nx = 0u;
+#pragma unroll
+    for (int qb = 0; qb < (N + 3) / 4; ++qb) {
+      const uint4 w = ddqst::philox4x32_10(
+          make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(c),
+                     static_cast<uint32_t>(i), static_cast<uint32_t>(qb)),
+          keys);
+#pragma unroll
+      for (int jq = 0; jq < 4; ++jq) {
+        const int q = 4 * qb + jq;
+        if (q < N) {
+          nx |= ddqst::philox_bit(ddqst::philox_word(w, jq), thr[q]) << q;
+        }
+      }
+    }
+    x = nx;
+  }
+  __stcs(out + row, static_cast<int32_t>(x));
+}
+
 struct Plan {
   int threads;  // block size
   int chunk;    // steps a shared-memory buffer holds
@@ -223,13 +291,25 @@ struct Plan {
 // staging of its T slices (kStageOps an entry: the copies' latency, the
 // conversion and the barrier, fitted to the times of all four block sizes
 // at two shapes), times the blocks that SM gets. A candidate that leaves an
-// SM under 768 resident threads pays for the latency it cannot hide.
+// SM under 768 resident threads pays for the latency it cannot hide. The
+// global-memory body (N > kMaxStagedN) stages nothing (chunk and shared
+// memory are 0) and takes the largest block size that fills every SM.
 template <int N>
 int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
               Plan* plan) {
+  constexpr bool kStaged = N <= kMaxStagedN;
   constexpr int kSliceBytes = (1 << N) * N * 4;
+  const void* kernel;
+  if constexpr (kStaged) {
+    kernel = reinterpret_cast<const void*>(chain_walk_kernel<N>);
+  } else {
+    kernel = reinterpret_cast<const void*>(chain_walk_global_kernel<N>);
+  }
   const long long total = static_cast<long long>(t_steps) * kSliceBytes;
-  if (total <= kFullBytes) {
+  if (!kStaged) {
+    plan->chunk = 0;
+    plan->smem = 0;
+  } else if (total <= kFullBytes) {
     plan->chunk = t_steps;
     plan->smem = static_cast<int>(total);
   } else {
@@ -238,8 +318,7 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
   }
   if (plan->smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_walk_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        plan->smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int device = 0, sms = 0;
@@ -248,17 +327,33 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (!kStaged) {
+    if (threads_asked == 0) {
+      plan->threads = 64;
+      for (int threads = 512; threads >= 64; threads /= 2) {
+        const long long blocks =
+            static_cast<long long>((s_chains + threads - 1) / threads) *
+            c_rows;
+        if (blocks >= sms) {
+          plan->threads = threads;
+          break;
+        }
+      }
+      return 0;
+    }
+  }
 
   const double chain_ops =
       static_cast<double>(t_steps) * (((N + 3) / 4) * kCallOps + kBitOps * N);
-  const double stage_ops = static_cast<double>(total / 4) * kStageOps;
+  const double stage_ops =
+      kStaged ? static_cast<double>(total / 4) * kStageOps : 0.0;
   double best = -1.0;
   plan->threads = 0;
   for (int threads = 64; threads <= 512; threads *= 2) {
     if (threads_asked > 0 && threads != threads_asked) continue;
     int active = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &active, chain_walk_kernel<N>, threads, plan->smem);
+        &active, kernel, threads, plan->smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (active < 1) continue;
     const long long blocks =
@@ -290,13 +385,19 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
     plan_out[1] = plan.chunk;
     plan_out[2] = plan.smem;
   }
-  constexpr int kSliceBytes = (1 << N) * N * 4;
-  const int bulk = kSliceBytes % 16 == 0 &&
-                   (reinterpret_cast<uintptr_t>(tables) & 15u) == 0;
   const dim3 grid((s_chains + plan.threads - 1) / plan.threads, c_rows);
-  chain_walk_kernel<N><<<grid, plan.threads, plan.smem, stream>>>(
-      tables, init, out, t_steps, c_rows, s_chains, plan.chunk, bulk,
-      ddqst::philox_keys(seed));
+  if constexpr (N <= kMaxStagedN) {
+    constexpr int kSliceBytes = (1 << N) * N * 4;
+    const int bulk = kSliceBytes % 16 == 0 &&
+                     (reinterpret_cast<uintptr_t>(tables) & 15u) == 0;
+    chain_walk_kernel<N><<<grid, plan.threads, plan.smem, stream>>>(
+        tables, init, out, t_steps, c_rows, s_chains, plan.chunk, bulk,
+        ddqst::philox_keys(seed));
+  } else {
+    chain_walk_global_kernel<N><<<grid, plan.threads, 0, stream>>>(
+        tables, init, out, t_steps, c_rows, s_chains,
+        ddqst::philox_keys(seed));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -308,7 +409,8 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
 // checked by the Python wrapper; this re-checks the limits the kernel's
 // shared memory relies on. `threads` is 0 (the block size is chosen from the
 // shape) or one of 64, 128, 256, 512; `plan_out`, if not null, receives
-// {threads, steps a buffer, shared-memory bytes}.
+// {threads, steps a buffer, shared-memory bytes} (0 and 0 for N >= 8, which
+// stages nothing). 1 <= N <= 16.
 extern "C" int ddqst_fused_chain_walk(const float* tables, const int32_t* init,
                                       int32_t* out, int t_steps, int c_rows,
                                       int g, int n, int s_chains,
@@ -333,6 +435,15 @@ extern "C" int ddqst_fused_chain_walk(const float* tables, const int32_t* init,
     DDQST_WALK_CASE(5);
     DDQST_WALK_CASE(6);
     DDQST_WALK_CASE(7);
+    DDQST_WALK_CASE(8);
+    DDQST_WALK_CASE(9);
+    DDQST_WALK_CASE(10);
+    DDQST_WALK_CASE(11);
+    DDQST_WALK_CASE(12);
+    DDQST_WALK_CASE(13);
+    DDQST_WALK_CASE(14);
+    DDQST_WALK_CASE(15);
+    DDQST_WALK_CASE(16);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,11 @@
 ``params_np`` is the flax ``params`` tree with every leaf as a numpy array
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no
 JAX. A flax ``Dense`` kernel is ``[in, out]`` and becomes the transposed
-``nn.Linear`` weight; ``Embed`` tables copy as they are.
+``nn.Linear`` weight; ``Embed`` tables copy as they are; a ``LayerNorm``'s
+``scale`` becomes its ``weight``. The attention's ``DenseGeneral`` kernels
+are flattened first: q/k/v ``[E, H, D]`` to ``[E, H·D]`` (bias ``[H, D]`` to
+``[H·D]``) and ``out`` ``[H, D, E]`` to ``[H·D, E]``, head-major as
+``models.transformer.SelfAttention`` reads them.
 """
 
 from __future__ import annotations
@@ -14,25 +18,58 @@ import numpy as np
 import torch
 
 
-def _linear(prefix: str, p: Mapping) -> dict[str, torch.Tensor]:
+def _linear(prefix: str, p: Mapping, in_dims: int = 1) -> dict[str, torch.Tensor]:
+    """A (Dense or DenseGeneral) kernel whose first ``in_dims`` axes are the
+    inputs, as an ``nn.Linear``."""
+    kernel = np.asarray(p["kernel"])
+    kernel = kernel.reshape(int(np.prod(kernel.shape[:in_dims])), -1)
     return {
-        f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel"]).T)),
+        f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(kernel.T)),
+        f"{prefix}.bias": torch.from_numpy(np.array(p["bias"]).reshape(-1)),
+    }
+
+
+def _layer_norm(prefix: str, p: Mapping) -> dict[str, torch.Tensor]:
+    return {
+        f"{prefix}.weight": torch.from_numpy(np.array(p["scale"])),
         f"{prefix}.bias": torch.from_numpy(np.array(p["bias"])),
     }
 
 
+def _transformer_block(prefix: str, p: Mapping) -> dict[str, torch.Tensor]:
+    sd = {}
+    for sub in ("film", "mlp1", "mlp2"):
+        sd.update(_linear(f"{prefix}.{sub}", p[sub]))
+    for sub in ("ln1", "ln2"):
+        sd.update(_layer_norm(f"{prefix}.{sub}", p[sub]))
+    for sub in ("query", "key", "value"):
+        sd.update(_linear(f"{prefix}.attn.{sub}", p["attn"][sub]))
+    sd.update(_linear(f"{prefix}.attn.out", p["attn"]["out"], in_dims=2))
+    return sd
+
+
 def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``ConditionalD3PM`` params -> ``ConditionalD3PM.state_dict()``."""
+    """Flax ``ConditionalD3PM`` or ``TransformerDenoiser`` params -> the
+    port's ``state_dict()`` of the same model."""
+    transformer = "pos_emb" in params_np
     sd: dict[str, torch.Tensor] = {}
     for name, p in params_np.items():
-        if name in ("x_emb", "time_emb", "basis_emb", "circuit_emb"):
+        if name in ("x_emb", "time_emb", "basis_emb", "circuit_emb",
+                    "bit_emb"):
             sd[f"{name}.weight"] = torch.from_numpy(np.array(p["embedding"]))
+        elif name == "pos_emb":
+            sd[name] = torch.from_numpy(np.array(p))
         elif name in ("input_proj", "output_head"):
             sd.update(_linear(name, p))
+        elif name == "ln_f":
+            sd.update(_layer_norm(name, p))
         elif name.startswith("block_"):
             i = int(name.split("_")[1])
-            for sub in ("film", "fc1", "fc2"):
-                sd.update(_linear(f"blocks.{i}.{sub}", p[sub]))
+            if transformer:
+                sd.update(_transformer_block(f"blocks.{i}", p))
+            else:
+                for sub in ("film", "fc1", "fc2"):
+                    sd.update(_linear(f"blocks.{i}.{sub}", p[sub]))
         else:
             raise ValueError(f"unexpected flax param group {name!r}")
     return sd

@@ -19,7 +19,11 @@ of (basis, circuit), and a 1-D input takes circuit 0.
 Parameters start from flax's default initialisers, so a model trained from
 scratch starts from the same distribution as the JAX package's: Linear
 weights lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796 cut at
-±2 std) with zero bias, embeddings N(0, 1/E).
+±2 std) with zero bias, embeddings N(0, 1/E), LayerNorms at scale 1 and
+bias 0, and the transformer's ``pos_emb`` N(0, 0.02).
+
+``build_model`` also builds ``models.transformer.TransformerDenoiser`` for
+``arch='transformer'``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ def init_params_(module: nn.Module, generator: torch.Generator | None = None) ->
 
     ``generator`` lives on the parameters' device; None draws from torch's
     global generator (only the constructor does that, and ``train.fit``
-    re-draws from its own generator).
+    re-draws from its own generator). Every parameter is covered, so one
+    generator state gives one model.
     """
     for m in module.modules():
         if isinstance(m, nn.Linear):
@@ -53,6 +58,12 @@ def init_params_(module: nn.Module, generator: torch.Generator | None = None) ->
         elif isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=math.sqrt(1.0 / m.embedding_dim),
                             generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        pos = getattr(m, "pos_emb", None)
+        if isinstance(pos, nn.Parameter):  # the transformer's positions
+            nn.init.normal_(pos, std=0.02, generator=generator)
 
 
 class FiLMResBlock(nn.Module):
@@ -140,18 +151,32 @@ class ConditionalD3PM(nn.Module):
 def build_model(
     cfg: ModelConfig, num_qubits: int, num_timesteps: int,
     num_circuits: int = 0,
-) -> ConditionalD3PM:
+) -> nn.Module:
     """Instantiate a denoiser from a :class:`ModelConfig` (on the CPU; the
-    caller moves it). ``num_circuits > 0`` adds the circuit embedding."""
-    if cfg.arch != "film_mlp":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} is not ported yet (ROADMAP Queue 1 items 2 "
-            "and 8: PlainMLP and the transformer); only 'film_mlp' runs"
-        )
+    caller moves it). ``num_circuits > 0`` adds the circuit embedding
+    (``film_mlp`` only)."""
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"model dtype {cfg.dtype!r} is not ported; the port computes in "
             "float32"
+        )
+    if cfg.arch == "transformer":
+        if num_circuits > 0:
+            raise ValueError("the transformer takes no circuit conditioning")
+        from ddqst_tpu_torch.models.transformer import TransformerDenoiser
+
+        return TransformerDenoiser(
+            num_qubits=num_qubits,
+            num_timesteps=num_timesteps,
+            embed_dim=cfg.embed_dim,
+            hidden_dim=cfg.hidden_dim,
+            num_blocks=cfg.num_blocks,
+            num_heads=cfg.num_heads,
+        )
+    if cfg.arch != "film_mlp":
+        raise NotImplementedError(
+            f"arch={cfg.arch!r} is not ported yet (ROADMAP Queue 1 item 2: "
+            "PlainMLP); 'film_mlp' and 'transformer' run"
         )
     return ConditionalD3PM(
         num_qubits=num_qubits,

@@ -1,0 +1,142 @@
+"""Transformer denoiser for the shadow route (large N, sampled bases).
+
+The port's counterpart of ``ddqst_tpu/models/transformer.py``. The N-qubit
+bitstring is a length-N token sequence conditioned per qubit: each token is
+a bit embedding ``Embedding(2, E)`` plus a basis-character embedding
+``Embedding(3, E)`` (0 = X, 1 = Y, 2 = Z) plus a learned position
+``pos_emb [N, E]``, so the parameter count does not grow with 3^N. The
+timestep enters every block through FiLM: ``film`` (``Linear(E -> 2E)`` of
+the time embedding) modulates the first LayerNorm's output as
+``x * (1 + γ) + β``, broadcast over the tokens.
+
+Numerics follow flax, so converted weights give the same logits:
+
+- LayerNorm with epsilon 1e-6 (torch's default is 1e-5);
+- multi-head self-attention with the query scaled by ``1/sqrt(head_dim)``
+  before the QK product and a float32 softmax, written as plain matrix
+  products (N tokens is a short sequence, and the JAX package computes it
+  with XLA, not a kernel). The q/k/v projections are ``Linear(E, E)`` whose
+  output is laid out head-major (flax's ``[E, H, D]`` kernel flattened), and
+  ``out`` is ``Linear(E, E)`` over the same layout (flax's ``[H, D, E]``);
+- parameters start from flax's initialisers (``d3pm.init_params_``), with
+  ``pos_emb`` from N(0, 0.02) and LayerNorms at scale 1, bias 0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddqst_tpu_torch.models.d3pm import init_params_
+
+_LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
+
+
+def basis_idx_to_labels(basis_idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
+    """Global basis index -> per-qubit labels ``[..., N]`` (0=X, 1=Y, 2=Z).
+
+    Inverts the canonical ``itertools.product`` enumeration of
+    ``ops.pauli.all_basis_labels``: qubit 0 is the most-significant base-3
+    digit.
+    """
+    powers = 3 ** torch.arange(num_qubits - 1, -1, -1, device=basis_idx.device,
+                               dtype=basis_idx.dtype)
+    return (basis_idx[..., None] // powers) % 3
+
+
+def labels_to_basis_idx(labels: torch.Tensor) -> torch.Tensor:
+    n = labels.shape[-1]
+    powers = 3 ** torch.arange(n - 1, -1, -1, device=labels.device,
+                               dtype=labels.dtype)
+    return (labels * powers).sum(-1)
+
+
+class SelfAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` on one sequence (q = k = v)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.query = nn.Linear(embed_dim, embed_dim)
+        self.key = nn.Linear(embed_dim, embed_dim)
+        self.value = nn.Linear(embed_dim, embed_dim)
+        self.out = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, length, e = x.shape
+        h = self.num_heads
+        d = e // h
+        q = self.query(x).view(b, length, h, d) / math.sqrt(d)
+        k = self.key(x).view(b, length, h, d)
+        v = self.value(x).view(b, length, h, d)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, e)
+        return self.out(o)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, embed_dim: int, hidden_dim: int, num_heads: int):
+        super().__init__()
+        self.film = nn.Linear(embed_dim, 2 * embed_dim)
+        self.ln1 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.attn = SelfAttention(embed_dim, num_heads)
+        self.ln2 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.mlp1 = nn.Linear(embed_dim, hidden_dim)
+        self.mlp2 = nn.Linear(hidden_dim, embed_dim)
+
+    def forward(self, h: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.film(cond).chunk(2, dim=-1)
+        x = self.ln1(h) * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+        h = h + self.attn(x)
+        y = self.mlp2(F.silu(self.mlp1(self.ln2(h))))
+        return h + y
+
+
+class TransformerDenoiser(nn.Module):
+    """``forward(x [B,N], t [B], basis [B] or [B,N]) -> logits [B,N,2]``.
+
+    ``basis`` is a global basis index (converted to labels; valid while 3^N
+    fits the index type) or per-qubit labels ``[B, N]``, the native form of
+    the shadow route's sampled bases.
+    """
+
+    def __init__(
+        self,
+        num_qubits: int,
+        num_timesteps: int,
+        embed_dim: int = 128,
+        hidden_dim: int = 512,
+        num_blocks: int = 4,
+        num_heads: int = 4,
+    ):
+        super().__init__()
+        self.num_qubits = num_qubits
+        self.bit_emb = nn.Embedding(2, embed_dim)
+        self.basis_emb = nn.Embedding(3, embed_dim)
+        self.pos_emb = nn.Parameter(torch.empty(num_qubits, embed_dim))
+        self.time_emb = nn.Embedding(num_timesteps + 1, embed_dim)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(embed_dim, hidden_dim, num_heads)
+            for _ in range(num_blocks)
+        )
+        self.ln_f = nn.LayerNorm(embed_dim, eps=_LN_EPS)
+        self.output_head = nn.Linear(embed_dim, 2)
+        init_params_(self)
+
+    def forward(
+        self, x: torch.Tensor, t: torch.Tensor, basis: torch.Tensor
+    ) -> torch.Tensor:
+        basis = basis.long()
+        if basis.dim() == x.dim() - 1:
+            basis = basis_idx_to_labels(basis, self.num_qubits)
+        h = self.bit_emb(x.long()) + self.basis_emb(basis) + self.pos_emb
+        cond = self.time_emb(t.long())
+        for block in self.blocks:
+            h = block(h, cond)
+        return self.output_head(self.ln_f(h)).float()

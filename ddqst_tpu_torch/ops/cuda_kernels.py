@@ -33,7 +33,9 @@ from ddqst_tpu_torch.ops import _build
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
-_MAX_G = 128  # the kernel's shared-memory slice holds at most 2^7 outcomes
+# The walk kernel's largest N: up to 7 it stages its table slices in shared
+# memory, from 8 to 16 it reads them from global memory (csrc/chain_walk.cu).
+_MAX_WALK_N = 16
 
 
 def _mulhilo(m: int, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -154,7 +156,11 @@ def fused_chain_walk(
       tables: ``[T, C, 2^N, N]`` float32 P(bit=1) per (step, conditioning
         row, current outcome); index 0 = the first reverse step (t = T).
       init: ``[C, S]`` int32 initial outcome indices.
-      num_qubits: N, with 2^N <= 128.
+      num_qubits: N, with 1 <= N <= 16. Up to N = 7 the kernel stages each
+        step's ``[2^N, N]`` slices in shared memory; from N = 8 (a slice of
+        8 KB, 40 KB at N = 10) each chain reads its N probabilities from
+        global memory, since a chain reads only N of a slice's 2^N·N
+        entries a step. Both give the same bits.
       threads: the kernel's block size: 0 (chosen from the shape) or 64,
         128, 256 or 512, for measurements. The result does not depend on it
         (the Philox counter is the chain's index), and the plain version
@@ -166,7 +172,8 @@ def fused_chain_walk(
     CPU tensors take :func:`fused_chain_walk_reference`; CUDA tensors launch
     the kernel on the current stream, or raise. After a launch,
     ``fused_chain_walk.last_plan`` holds what the kernel chose: ``(threads a
-    block, steps a shared-memory buffer, shared-memory bytes)``.
+    block, steps a shared-memory buffer, shared-memory bytes)``, the last
+    two 0 for N >= 8.
     """
     _check_walk_args(seed, tables, init, num_qubits)
     if threads not in (0, 64, 128, 256, 512):
@@ -176,8 +183,10 @@ def fused_chain_walk(
     if tables.device.type != "cuda":
         raise ValueError(f"unsupported device {tables.device}")
     t_steps, c, g, n = tables.shape
-    if g > _MAX_G:
-        raise ValueError(f"the CUDA walk needs 2^N <= {_MAX_G}, got {g}")
+    if n > _MAX_WALK_N:
+        raise ValueError(
+            f"the CUDA walk takes N <= {_MAX_WALK_N} (2^N <= {2**_MAX_WALK_N}),"
+            f" got N={n}")
     if c > 65535:
         raise ValueError(f"the CUDA walk takes at most 65,535 rows, got {c}")
     if not (tables.is_contiguous() and init.is_contiguous()):

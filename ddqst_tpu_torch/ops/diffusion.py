@@ -32,9 +32,20 @@ tables) to float tolerance.
   ``_grid_p1_table`` as the samplers, so chain and sampler share one
   posterior.
 
-Not ported yet (ROADMAP Queue 1): ``p_denoise`` (denoise mode), the
-shadow-route samplers, and ``sample_all_bases_chunked``
-(``gen_tables_once``).
+- ``sample_for_bases`` / ``sample_for_bases_tables`` — the shadow route's
+  generation for sampled ``[B, N]`` basis-label rows: per-chain
+  :func:`p_sample` ('direct'), or all T tables over the ``B·2^N``
+  (basis-row, x) grid and one table walk ('tables').
+- ``sample_all_bases_chunked`` (``gen_tables_once``) — the canonical grid's
+  tables built once in bounded chunks, then table walks over shot chunks.
+
+  Both assemble their ``[T, B, 2^N, N]`` tables in one preallocated buffer,
+  written in place chunk by chunk (the peak is one table plus one chunk),
+  and walk through :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`,
+  which takes 2^N up to 2^16 on the card (the JAX package walks these with
+  XLA, because its Pallas walk takes 2^N <= 128).
+
+Not ported yet (ROADMAP Queue 1): ``p_denoise`` (denoise mode).
 """
 
 from __future__ import annotations
@@ -238,6 +249,7 @@ def _tables_for_ts(
     exact: bool,
     num_circuits: int = 0,
     row_budget: int = _ROW_BUDGET,
+    grid: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """P(bit=1) tables ``[len(ts_c), Gtot, N]`` for the given timesteps.
 
@@ -246,8 +258,15 @@ def _tables_for_ts(
     row-chunked when it alone exceeds the budget. A length that ``m`` does
     not divide (a prime T) is padded with dummy t=1 rows, which are sliced
     off, so every group is a forward of the same size.
+
+    ``grid``: an optional ``(grid_x, grid_basis)`` in place of the canonical
+    :func:`_grid_enum`; the shadow route passes its ``[B·2^N, N]`` label
+    grid here (``grid_basis`` then holds ``[R, N]`` labels).
     """
-    grid_x, grid_basis = _grid_enum(num_qubits, ts_c.device, num_circuits)
+    if grid is None:
+        grid_x, grid_basis = _grid_enum(num_qubits, ts_c.device, num_circuits)
+    else:
+        grid_x, grid_basis = grid
     gtot = grid_x.shape[0]
     length = ts_c.shape[0]
     if gtot > row_budget:
@@ -501,6 +520,78 @@ def chain_distribution_all_bases(
     return torch.cat(rows)
 
 
+def _check_generator(generator: torch.Generator, device) -> torch.device:
+    dev = resolve_device(device)
+    if resolve_device(generator.device) != dev:
+        raise ValueError(f"generator on {generator.device}, expected {dev}")
+    return dev
+
+
+@torch.no_grad()
+def _assembled_tables(
+    denoise_fn, num_qubits: int, schedule: DiffusionSchedule, exact: bool,
+    grid: tuple[torch.Tensor, torch.Tensor], max_table_rows: int,
+    row_budget: int,
+) -> torch.Tensor:
+    """All T steps' tables ``[T, C, 2^N, N]`` of a grid of ``C·2^N`` rows,
+    computed ``m`` timesteps at a time (``m·C·2^N <= max_table_rows`` rows,
+    every forward ``<= row_budget`` rows) and written in place into one
+    preallocated buffer, so the peak is the table plus one chunk (the JAX
+    package's donated ``_table_acc``)."""
+    t_steps = schedule.num_timesteps
+    g = 2**num_qubits
+    gtot = grid[0].shape[0]
+    m = min(max(1, max_table_rows // gtot), t_steps)
+    ts = torch.arange(t_steps, 0, -1, device=schedule.betas.device)
+    tables = torch.empty((t_steps, gtot // g, g, num_qubits),
+                         dtype=torch.float32, device=grid[0].device)
+    for lo in range(0, t_steps, m):
+        part = _tables_for_ts(denoise_fn, ts[lo:lo + m], num_qubits, schedule,
+                              exact, row_budget=row_budget, grid=grid)
+        tables[lo:lo + part.shape[0]] = part.reshape(part.shape[0], -1, g,
+                                                     num_qubits)
+    return tables
+
+
+def _walk_shot_chunks(
+    generator: torch.Generator, tables: torch.Tensor, shots: int,
+    max_chains: int,
+) -> torch.Tensor:
+    """``shots`` chains per table row, walked at most ``max_chains`` chains
+    a call through :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`
+    (on CUDA the kernel, one launch a call), each call with its own
+    ``init`` and 64-bit seed drawn from ``generator``. Returns ``[C, shots,
+    N]`` int8."""
+    _, c, g, n = tables.shape
+    dev = tables.device
+    cap = max(1, max_chains // c)
+    n_calls = -(-shots // cap)
+    per_call = -(-shots // n_calls)  # equal chunks
+    idx = []
+    for _ in range(n_calls):
+        init = torch.randint(0, g, (c, per_call), generator=generator,
+                             device=dev, dtype=torch.int32)
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=generator,
+                                 device=dev))
+        idx.append(cuda_kernels.fused_chain_walk(seed, tables, init, n))
+    out = idx[0] if n_calls == 1 else torch.cat(idx, dim=1)[:, :shots]
+    return _unpack(out, n)
+
+
+def _timed_tables_and_walk(make_tables, walk, dev, timings):
+    t0 = time.perf_counter()
+    tables = make_tables()
+    if timings is not None:
+        synchronize(dev)
+        timings["tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = walk(tables)
+    if timings is not None:
+        synchronize(dev)
+        timings["walk"] = time.perf_counter() - t0
+    return out
+
+
 @torch.no_grad()
 def sample_all_bases(
     generator: torch.Generator,
@@ -535,7 +626,7 @@ def sample_all_bases(
       otherwise all T tables in one precompute, then the whole walk through
       :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`. That
       wrapper launches the hand-written kernel for CUDA tensors (raising if
-      2^N > 128) and takes its plain version only for CPU tensors.
+      N > 16) and takes its plain version only for CPU tensors.
     - ``'cuda'`` — the table walk of ``'auto'``, demanded: raises unless
       the device is CUDA and the grid path is on.
 
@@ -543,9 +634,7 @@ def sample_all_bases(
     walk are stored under ``'tables'`` and ``'walk'`` (the device is
     synchronised around each).
     """
-    dev = resolve_device(device)
-    if resolve_device(generator.device) != dev:
-        raise ValueError(f"generator on {generator.device}, expected {dev}")
+    dev = _check_generator(generator, device)
     num_bases = 3**num_qubits
     g = 2**num_qubits
     chains = num_bases * shots
@@ -561,24 +650,12 @@ def sample_all_bases(
         )
     if use_grid and (walk == "cuda" or (
             walk == "auto" and chains >= 32 * 6**num_qubits)):
-        t0 = time.perf_counter()
-        tables = grid_p1_tables(denoise_fn, num_qubits, schedule, exact)
-        tables = tables.reshape(schedule.num_timesteps, num_bases, g,
-                                num_qubits)
-        init = torch.randint(0, g, (num_bases, shots), generator=generator,
-                             device=dev, dtype=torch.int32)
-        seed = int(torch.randint(0, 2**63 - 1, (), generator=generator,
-                                 device=dev))
-        if timings is not None:
-            synchronize(dev)
-            timings["tables"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        idx = cuda_kernels.fused_chain_walk(seed, tables.contiguous(), init,
-                                            num_qubits)
-        if timings is not None:
-            synchronize(dev)
-            timings["walk"] = time.perf_counter() - t0
-        return _unpack(idx, num_qubits)
+        return _timed_tables_and_walk(
+            lambda: grid_p1_tables(denoise_fn, num_qubits, schedule, exact
+                                   ).reshape(schedule.num_timesteps,
+                                             num_bases, g, num_qubits),
+            lambda tables: _walk_shot_chunks(generator, tables, shots, chains),
+            dev, timings)
     basis = torch.arange(num_bases, device=dev).repeat_interleave(shots)
     if use_grid:
         out = p_sample_grid(generator, denoise_fn, basis, num_qubits,
@@ -587,3 +664,147 @@ def sample_all_bases(
         out = p_sample(generator, denoise_fn, basis, num_qubits, schedule,
                        exact=exact)
     return out.reshape(num_bases, shots, num_qubits)
+
+
+@torch.no_grad()
+def sample_for_bases(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    basis_labels: torch.Tensor,
+    shots: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    max_chains_per_call: int = 1 << 16,
+    mode: str = "auto",
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+) -> torch.Tensor:
+    """Generate ``shots`` samples per basis-label row (the shadow route).
+
+    ``basis_labels``: ``[B, N]`` per-qubit labels (0=X, 1=Y, 2=Z), the
+    transformer denoiser's conditioning form, used where 3^N makes global
+    indices and the full enumeration infeasible. Returns ``[B, shots, N]``
+    int8 on ``device`` (default CUDA; raises if CUDA is absent and
+    ``device`` was not given), where ``denoise_fn``, ``schedule`` and
+    ``generator`` live.
+
+    ``mode``:
+
+    - ``'direct'`` — per-chain :func:`p_sample` on the flat label rows, at
+      most ``max_chains_per_call`` chains a call (the JAX package's bound
+      on one call's activations).
+    - ``'tables'`` — :func:`sample_for_bases_tables`: the tables over the
+      ``B·2^N`` (basis-row, x) grid, then one table walk; ``timings`` gets
+      ``'tables'`` and ``'walk'``.
+    - ``'auto'`` — tables when chains outnumber grid rows (``shots >=
+      2^N``), direct otherwise.
+    """
+    dev = _check_generator(generator, device)
+    if mode not in ("auto", "tables", "direct"):
+        raise ValueError(f"unknown mode {mode!r}")
+    labels = torch.as_tensor(basis_labels, device=dev).long()
+    b, n = labels.shape
+    if mode == "tables" or (mode == "auto" and shots >= 2**n):
+        return sample_for_bases_tables(generator, denoise_fn, labels, shots,
+                                       schedule, exact=exact, device=dev,
+                                       timings=timings)
+    flat = labels.repeat_interleave(shots, dim=0)  # [B·shots, N]
+    out = [p_sample(generator, denoise_fn, flat[lo:lo + max_chains_per_call],
+                    n, schedule, exact=exact)
+           for lo in range(0, flat.shape[0], max_chains_per_call)]
+    return torch.cat(out).reshape(b, shots, n)
+
+
+@torch.no_grad()
+def sample_for_bases_tables(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    basis_labels: torch.Tensor,
+    shots: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    max_table_rows: int = 1 << 18,
+    max_chains: int = 1 << 21,
+    row_budget: int = 1 << 16,
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+) -> torch.Tensor:
+    """Shadow-route generation with amortised grid tables.
+
+    Within a basis row every chain's denoiser input is one of the 2^N
+    values of x_t, so the per-step tables over the ``[B·2^N, N]``
+    (basis-row, x) grid determine the whole reverse process: the model runs
+    T·B·2^N grid rows instead of T·B·shots chain rows, and every chain
+    becomes a table walk with no model call.
+
+    - Tables: ``m`` timesteps a chunk (``m·B·2^N <= max_table_rows``), every
+      forward ``<= row_budget`` rows (tighter than the MLP's budget: a
+      transformer row carries N token activations), written in place into
+      one ``[T, B, 2^N, N]`` buffer (409.6 MB at T=100, B=100, N=10).
+    - Walk: at most ``max_chains`` chains a call through
+      :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`, each call
+      with its own ``init`` and seed from ``generator``; on CUDA one kernel
+      launch a call (one at the ``shadow_transformer`` preset).
+
+    The distribution is the direct sampler's (the same per-step marginals).
+    Returns ``[B, shots, N]`` int8; ``timings`` gets ``'tables'`` and
+    ``'walk'`` seconds (the device synchronised around each).
+    """
+    exact = _resolve_exact(schedule, exact)
+    dev = _check_generator(generator, device)
+    labels = torch.as_tensor(basis_labels, device=dev).long()
+    b, n = labels.shape
+    g = 2**n
+    grid = (_unpack(torch.arange(g, device=dev), n).repeat(b, 1),
+            labels.repeat_interleave(g, dim=0))
+    return _timed_tables_and_walk(
+        lambda: _assembled_tables(denoise_fn, n, schedule, exact, grid,
+                                  max_table_rows, row_budget),
+        lambda tables: _walk_shot_chunks(generator, tables, shots, max_chains),
+        dev, timings)
+
+
+@torch.no_grad()
+def sample_all_bases_chunked(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    num_qubits: int,
+    shots: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+    max_table_rows: int = 1 << 22,
+    max_chains: int = 1 << 22,
+    walk: str = "auto",
+    device: str | torch.device | None = None,
+    timings: dict | None = None,
+) -> torch.Tensor:
+    """All-bases generation with the grid tables computed ONCE.
+
+    :func:`sample_all_bases` builds the ``[T, 6^N]`` tables inside every
+    call, so a run chunked over shots pays for them once a chunk. Here they
+    are built once: ``m`` timesteps a chunk (``m·6^N <= max_table_rows``
+    rows; every forward ``<= 2^17`` rows) into one preallocated ``[T, 3^N,
+    2^N, N]`` buffer written in place (peak: the table plus one chunk, 5.4
+    GB at N = 8), then walked at most ``max_chains`` chains a call through
+    :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk` (2^N up to
+    2^16 on the card).
+
+    ``walk``: ``'auto'`` (the walk's wrapper: the kernel on CUDA, its plain
+    version on the CPU) or ``'cuda'`` (the same, demanded: raises unless
+    the device is CUDA). The distribution equals ``sample_all_bases``'s, and
+    the tables equal :func:`grid_p1_tables`'s. Returns ``[3^N, shots, N]``
+    int8; ``timings`` gets ``'tables'`` and ``'walk'``.
+    """
+    exact = _resolve_exact(schedule, exact)
+    dev = _check_generator(generator, device)
+    if walk not in ("auto", "cuda"):
+        raise ValueError(f"unknown walk {walk!r}")
+    if walk == "cuda" and dev.type != "cuda":
+        raise ValueError(f"walk='cuda' launches the CUDA kernel; got device "
+                         f"{dev}")
+    grid = _grid_enum(num_qubits, dev)
+    return _timed_tables_and_walk(
+        lambda: _assembled_tables(denoise_fn, num_qubits, schedule, exact,
+                                  grid, max_table_rows, _ROW_BUDGET),
+        lambda tables: _walk_shot_chunks(generator, tables, shots, max_chains),
+        dev, timings)

@@ -17,9 +17,18 @@ the full route in generate mode:
 8. compute the metrics (``ops.metrics``), plus the reference's control:
    linear inversion of the raw training shots.
 
+For ``N > 8``, or ``N >= 7`` with ``max_bases``, ``run_experiment`` takes
+the shadow route instead (``_run_shadow_experiment``): a transformer
+conditioned on per-qubit basis labels, trained on the sampled bases,
+optionally distilled over exactly those bases, generating through
+``ops.diffusion.sample_for_bases`` (at ``shots >= 2^N`` the grid tables
+and one walk of the CUDA kernel), and scored against the exact Born
+probabilities of the clean target per basis (no density matrix). With
+``gen_tables_once`` the full route generates through
+``ops.diffusion.sample_all_bases_chunked``: the tables once, then walks.
+
 Options not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item, before any work is done: denoise mode, the shadow route,
-``gen_tables_once``, checkpoints and meshes.
+item, before any work is done: denoise mode, checkpoints and meshes.
 
 The data cache keeps the JAX package's npz schema, so each package reads
 the other's cache. ``params_load`` / ``params_save`` read and write a
@@ -195,15 +204,9 @@ def use_shadow_route(num_qubits: int, max_bases: int | None) -> bool:
 
 def _check_ported(cfg: ExperimentConfig, mesh) -> None:
     """Raise for every option this slice does not run (never skip one)."""
-    n = cfg.data.num_qubits
     unported = [
         (cfg.diffusion.infer_mode == "denoise",
          "infer_mode='denoise': ROADMAP Queue 1 item 7"),
-        (use_shadow_route(n, cfg.data.max_bases),
-         "the shadow route (N > 8, or N >= 7 with max_bases): ROADMAP "
-         "Queue 1 item 8"),
-        (cfg.diffusion.gen_tables_once,
-         "gen_tables_once (sample_all_bases_chunked): ROADMAP Queue 1 item 7"),
         (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
          "training checkpoints: ROADMAP Queue 1 item 10"),
         (mesh is not None, "meshes / multi-device: ROADMAP Queue 1 item 10"),
@@ -232,13 +235,25 @@ _DISTILL_STREAM = 0xD157
 def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
              model: torch.nn.Module, schedule, dev: torch.device,
              target_cache: str, opt_load: str, opt_save: str,
-             timings: dict, mle_iterations: dict, log_fn: Callable):
+             timings: dict, mle_iterations: dict, log_fn: Callable,
+             shadow: bool = False):
     """Exact-chain distillation of ``model`` against the training counts
-    (see ``train.finetune_chain``). Returns ``(losses, info)``."""
+    (see ``train.finetune_chain``). Returns ``(losses, info)``.
+
+    ``shadow``: the chain runs over exactly the measured bases, conditioned
+    on their ``[B, N]`` labels, and the target is always their counts (the
+    JAX package's shadow route reads no ``chain_target``)."""
     n = cfg.data.num_qubits
     tc = cfg.train
-    log_fn(f"[{cfg.name}] exact-chain distillation: "
-           f"{tc.chain_finetune_steps} steps")
+    labels = None
+    if shadow:
+        labels = torch.from_numpy(
+            np.asarray(data.basis_labels, np.int64)).to(dev)
+        log_fn(f"[{cfg.name}] shadow-scale chain distillation: "
+               f"{tc.chain_finetune_steps} steps over {labels.shape[0]} bases")
+    else:
+        log_fn(f"[{cfg.name}] exact-chain distillation: "
+               f"{tc.chain_finetune_steps} steps")
     t0 = time.perf_counter()
     val_counts = None
     if tc.chain_val_fraction > 0:
@@ -251,7 +266,7 @@ def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
         val_counts = bits_to_counts(data.bits[:, s - s_val:])
     else:
         tgt_counts = bits_to_counts(data.bits)
-    if tc.chain_target == "mle":
+    if tc.chain_target == "mle" and not shadow:
         # Physics-constrained target: project the training counts through
         # the (PSD, trace-1) MLE manifold and distil against the Born
         # distribution of the estimate, which carries the cross-basis
@@ -304,6 +319,7 @@ def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
         accum=tc.chain_accum,
         hard_frac=tc.chain_hard_frac,
         init_opt_state=init_opt,
+        basis_labels=labels,
         device=dev,
     )
     # The params-sized moments never reach a results dict.
@@ -313,7 +329,8 @@ def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
         log_fn(f"saved distillation Adam state to {opt_save}")
     synchronize(dev)
     timings["distill"] = time.perf_counter() - t0
-    msg = (f"[{cfg.name}] chain CE (full grid) "
+    msg = (f"[{cfg.name}] chain CE "
+           f"({'all shadow bases' if shadow else 'full grid'}) "
            f"{info['train_ce_before']:.5f} -> {info['train_ce_after']:.5f}")
     if val_counts is not None:
         msg += (f"; held-out best {info['best_val_ce']:.5f} at step "
@@ -366,14 +383,16 @@ def run_experiment(
     ``stop_after='distill'`` returns right after distillation and
     ``params_save`` with ``{'losses', 'ft_losses', 'ft_info'}``: a later
     ``params_load`` run with ``chain_finetune_steps=0`` does the generation
-    and estimator tail.
+    and estimator tail. ``gen_tables_once`` generates through
+    ``sample_all_bases_chunked`` (the tables once, then the walks).
+
+    For ``N > 8``, or ``N >= 7`` with ``max_bases`` (``use_shadow_route``),
+    the run takes the shadow route after the data step; see
+    :func:`_run_shadow_experiment` for its results.
     """
     dev = resolve_device(device)
     _check_ported(cfg, mesh)
     n = cfg.data.num_qubits
-    model = build_model(cfg.model, n, cfg.diffusion.num_timesteps).to(dev)
-    schedule = make_schedule(cfg.diffusion.schedule,
-                             cfg.diffusion.num_timesteps, dev)
     rng = np.random.default_rng(seed)
     g_data, g_train, g_sample = _generators(seed, dev)
     timings: dict[str, float] = {}
@@ -393,7 +412,15 @@ def run_experiment(
             log_fn(f"[{cfg.name}] cached data to {data_cache}")
     synchronize(dev)
     timings["datagen"] = time.perf_counter() - t0
+    if use_shadow_route(n, cfg.data.max_bases):
+        return _run_shadow_experiment(
+            cfg, seed, data, dev, g_train, g_sample, timings, log_fn,
+            params_load=params_load, params_save=params_save,
+            stop_after=stop_after, opt_load=opt_load, opt_save=opt_save)
 
+    model = build_model(cfg.model, n, cfg.diffusion.num_timesteps).to(dev)
+    schedule = make_schedule(cfg.diffusion.schedule,
+                             cfg.diffusion.num_timesteps, dev)
     t0 = time.perf_counter()
     train_steps = 0
     if params_load:
@@ -427,12 +454,7 @@ def run_experiment(
         save_params(params_save, model)
         log_fn(f"[{cfg.name}] saved params to {params_save}")
     if stop_after == "distill":
-        return {
-            "losses": losses.detach().cpu().numpy(),
-            "ft_losses": (None if ft_info is None
-                          else ft_losses.cpu().numpy()),
-            "ft_info": ft_info,
-        }
+        return _distill_only(losses, ft_losses, ft_info)
 
     if diff._resolve_exact(schedule, cfg.diffusion.exact):
         log_fn(
@@ -443,20 +465,27 @@ def run_experiment(
     log_fn(f"[{cfg.name}] sampling {cfg.data.shots_infer}/basis")
     num_bases = 3**n
     shots = cfg.data.shots_infer
-    cap = max(1, _GEN_CHAIN_CAP // num_bases)
-    n_calls = -(-shots // cap)
-    per_call = -(-shots // n_calls)  # equal chunks
     timings["tables"] = timings["walk"] = 0.0
-    chunks = []
-    for _ in range(n_calls):
-        part: dict[str, float] = {}
-        chunks.append(diff.sample_all_bases(
-            g_sample, model, n, per_call, schedule,
-            exact=cfg.diffusion.exact, device=dev, timings=part,
-        ))
-        for k, v in part.items():
-            timings[k] += v
-    samples = torch.cat(chunks, dim=1)[:, :shots] if n_calls > 1 else chunks[0]
+    if cfg.diffusion.gen_tables_once:
+        # The tables once, then walks of at most _GEN_CHAIN_CAP chains.
+        samples = diff.sample_all_bases_chunked(
+            g_sample, model, n, shots, schedule, exact=cfg.diffusion.exact,
+            max_chains=_GEN_CHAIN_CAP, device=dev, timings=timings)
+    else:
+        cap = max(1, _GEN_CHAIN_CAP // num_bases)
+        n_calls = -(-shots // cap)
+        per_call = -(-shots // n_calls)  # equal chunks
+        chunks = []
+        for _ in range(n_calls):
+            part: dict[str, float] = {}
+            chunks.append(diff.sample_all_bases(
+                g_sample, model, n, per_call, schedule,
+                exact=cfg.diffusion.exact, device=dev, timings=part,
+            ))
+            for k, v in part.items():
+                timings[k] += v
+        samples = (torch.cat(chunks, dim=1)[:, :shots] if n_calls > 1
+                   else chunks[0])
 
     t0 = time.perf_counter()
     mit_p = 0.0
@@ -532,6 +561,159 @@ def run_experiment(
     log_fn(
         f"[{cfg.name}] {'SUCCESS' if ok else 'WARNING'}"
         f": fidelity {'>' if ok else '<='} {threshold}"
+    )
+    return results
+
+
+def _distill_only(losses, ft_losses, ft_info) -> dict:
+    """The result of ``stop_after='distill'``: the training record only."""
+    return {
+        "losses": losses.detach().cpu().numpy(),
+        "ft_losses": None if ft_info is None else ft_losses.cpu().numpy(),
+        "ft_info": ft_info,
+    }
+
+
+def _run_shadow_experiment(
+    cfg: ExperimentConfig, seed: int, data: GeneratedData, dev: torch.device,
+    g_train: torch.Generator, g_sample: torch.Generator, timings: dict,
+    log_fn: Callable, params_load: str = "", params_save: str = "",
+    stop_after: str = "", opt_load: str = "", opt_save: str = "",
+) -> dict:
+    """The shadow route (large N, sampled bases): train on per-qubit basis
+    labels and score the generated distributions against the EXACT Born
+    probabilities of the clean target (``data.clean_probs``), not a
+    reconstructed density matrix (its 4^N expansion is out of reach).
+
+    Results, as the JAX package's: ``fidelity`` (None), per basis against
+    the exact distribution ``mean/max_tv_to_target`` (TV of the generated
+    counts), ``tv_shot_noise_floor`` (mean TV of 4 multinomial draws a basis
+    from the exact distribution at the generated shot count, numpy
+    ``default_rng(0)``: what an ideal generator scores),
+    ``meas_tv_to_target`` (TV of the measured counts),
+    ``mean/max_marginal_error`` (|E[x_q]| error over basis and qubit),
+    ``classical_fidelity`` (mean Bhattacharyya (Σ√(pq))²), ``z_bias`` (None
+    when the Z...Z basis was not sampled), ``losses``, ``target``, ``state``
+    (the model), ``samples`` and, after distillation, ``chain_info`` and
+    ``ft_losses``; plus ``timings`` (datagen, train, target and distill,
+    then tables and walk, or sample for the direct sampler, and metrics)
+    and ``train_steps``.
+
+    A model configured as anything but the transformer is switched to it
+    with a warning: per-qubit ``[B, N]`` labels are the transformer's
+    conditioning form, and ``ConditionalD3PM`` would read a 2-D basis as a
+    packed (basis, circuit). ``params_load`` / ``params_save``,
+    ``stop_after='distill'`` and ``opt_load`` / ``opt_save`` work as on the
+    full route; distillation (``chain_finetune_steps > 0``) runs the exact
+    chain over exactly the measured bases, with the shot-level held-out
+    split of ``chain_val_fraction``.
+    """
+    n = cfg.data.num_qubits
+    b_bases, s, _ = data.bits.shape
+    mcfg = cfg.model
+    if mcfg.arch != "transformer":
+        log_fn(f"[{cfg.name}] WARNING: arch={mcfg.arch!r} cannot condition on "
+               "per-qubit basis labels at shadow scale; switching to "
+               "arch='transformer'")
+        mcfg = dataclasses.replace(mcfg, arch="transformer")
+    schedule = make_schedule(cfg.diffusion.schedule,
+                             cfg.diffusion.num_timesteps, dev)
+    model = build_model(mcfg, n, cfg.diffusion.num_timesteps).to(dev)
+    labels = torch.from_numpy(np.asarray(data.basis_labels, np.int64)).to(dev)
+
+    t0 = time.perf_counter()
+    train_steps = 0
+    if params_load:
+        restore_params(params_load, model).eval()
+        losses = torch.zeros(0)
+        log_fn(f"[{cfg.name}] warm start: params from {params_load} "
+               "(CE training skipped)")
+    else:
+        x = data.bits.reshape(b_bases * s, n)
+        log_fn(f"[{cfg.name}] shadow-scale training on {x.shape[0]} shots "
+               f"({b_bases} bases)")
+        model, losses = training.fit(
+            g_train, model, x, labels.repeat_interleave(s, dim=0), cfg.train,
+            schedule, log_fn=log_fn, device=dev)
+        train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]),
+                           1) * cfg.train.num_epochs)
+    synchronize(dev)
+    timings["train"] = time.perf_counter() - t0
+
+    ft_info = ft_losses = None
+    if cfg.train.chain_finetune_steps > 0:
+        ft_losses, ft_info = _distill(
+            cfg, seed, data, model, schedule, dev, "", opt_load, opt_save,
+            timings, {}, log_fn, shadow=True)
+    if params_save:
+        save_params(params_save, model)
+        log_fn(f"[{cfg.name}] saved params to {params_save}")
+    if stop_after == "distill":
+        return _distill_only(losses, ft_losses, ft_info)
+
+    shots_gen = max(cfg.data.shots_infer, 1)
+    log_fn(f"[{cfg.name}] sampling {shots_gen}/basis over {b_bases} bases")
+    part: dict[str, float] = {}
+    t0 = time.perf_counter()
+    samples = diff.sample_for_bases(g_sample, model, labels, shots_gen,
+                                    schedule, exact=cfg.diffusion.exact,
+                                    device=dev, timings=part)
+    synchronize(dev)
+    timings.update(part or {"sample": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    gen_counts = bits_to_counts(samples).cpu().numpy()
+    meas_counts = bits_to_counts(data.bits).cpu().numpy()
+    gen_p = gen_counts / np.maximum(gen_counts.sum(-1, keepdims=True), 1.0)
+    meas_p = meas_counts / np.maximum(meas_counts.sum(-1, keepdims=True), 1.0)
+    exact_p = np.asarray(data.clean_probs)  # [B, 2^N]
+    tv_gen = 0.5 * np.abs(gen_p - exact_p).sum(-1)
+    tv_meas = 0.5 * np.abs(meas_p - exact_p).sum(-1)
+    # Shot-noise floor: the TV an ideal sampler scores at this shot count.
+    rng = np.random.default_rng(0)
+    exact64 = exact_p.astype(np.float64)
+    exact64 /= exact64.sum(-1, keepdims=True)  # an exact simplex for pvals
+    floor = np.mean([
+        0.5 * np.abs(rng.multinomial(shots_gen, p) / shots_gen - p).sum()
+        for p in exact64
+        for _ in range(4)
+    ])
+    outcomes = np.arange(exact_p.shape[-1])
+    bit_table = ((outcomes[:, None] >> np.arange(n)) & 1).astype(np.float32)
+    marg_err = np.abs((gen_p - exact_p) @ bit_table)  # [B, N]
+    cf = np.sqrt(gen_p * exact_p).sum(-1) ** 2  # Bhattacharyya per basis
+    zz_rows = np.nonzero((np.asarray(data.basis_labels) == 2).all(axis=1))[0]
+    # None: the Z...Z basis was not sampled (a missing diagnostic is
+    # reported as missing, not as its ideal value).
+    zb = float(M.z_bias(samples[int(zz_rows[0])])) if len(zz_rows) else None
+    results = {
+        "fidelity": None,  # no density matrix at this scale
+        "mean_tv_to_target": float(tv_gen.mean()),
+        "max_tv_to_target": float(tv_gen.max()),
+        "tv_shot_noise_floor": float(floor),
+        "meas_tv_to_target": float(tv_meas.mean()),
+        "mean_marginal_error": float(marg_err.mean()),
+        "max_marginal_error": float(marg_err.max()),
+        "classical_fidelity": float(cf.mean()),
+        "z_bias": zb,
+        "losses": losses.detach().cpu().numpy(),
+        "target": np.asarray(data.target),
+        "state": model,
+        "samples": samples,
+        "train_steps": train_steps,
+        "timings": timings,
+    }
+    if ft_info is not None:
+        results["chain_info"] = ft_info
+        results["ft_losses"] = ft_losses.cpu().numpy()
+    timings["metrics"] = time.perf_counter() - t0
+    log_fn(
+        f"[{cfg.name}] shadow-scale vs exact Born probs: "
+        f"TV {results['mean_tv_to_target']:.4f} "
+        f"(shot-noise floor {floor:.4f}, measured-data TV "
+        f"{results['meas_tv_to_target']:.4f}), marginal err "
+        f"{results['mean_marginal_error']:.4f}, classical fidelity "
+        f"{results['classical_fidelity']:.4f} over {b_bases} bases"
     )
     return results
 

@@ -43,13 +43,59 @@ def test_kernel_equals_plain_version(cuda, n, s):
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
-    tables = torch.zeros((2, 1, 256, 8), device=cuda)
+    tables = torch.zeros((1, 1, 2**17, 17), device=cuda)
     init = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        ck.fused_chain_walk(0, tables, init, 8)  # 2^N > 128
+    with pytest.raises(ValueError, match="N <= 16"):
+        ck.fused_chain_walk(0, tables, init, 17)  # above the kernel's limit
     with pytest.raises(ValueError):
         ck.fused_chain_walk(0, torch.zeros((2, 1, 8, 3), device=cuda),
                             init.cpu(), 3)  # mixed devices
+
+
+@pytest.mark.parametrize("n,c,s", [(8, 5, 1237), (10, 7, 3001),
+                                   (12, 3, 777)])
+def test_global_memory_walk_equals_plain_version(cuda, n, c, s):
+    """N >= 8 reads its slices from global memory: the same bits, at every
+    block size, from tables that are and are not 16-byte aligned."""
+    rng = np.random.default_rng(n)
+    g = 2**n
+    tables = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (12, c, g, n)).astype(np.float32)).to(cuda)
+    init = torch.from_numpy(rng.integers(0, g, (c, s)).astype(np.int32)).to(cuda)
+    want = ck.fused_chain_walk_reference(2**33 + n, tables, init, n)
+    before = ck.fused_chain_walk.launches
+    out = ck.fused_chain_walk(2**33 + n, tables, init, n)
+    torch.cuda.synchronize()
+    assert ck.fused_chain_walk.launches == before + 1
+    assert ck.fused_chain_walk.last_plan[1:] == (0, 0)  # nothing staged
+    assert torch.equal(out, want)
+    for threads in (64, 128, 256, 512):
+        assert torch.equal(ck.fused_chain_walk(2**33 + n, tables, init, n,
+                                               threads=threads), want)
+    assert torch.equal(ck.fused_chain_walk(
+        2**33 + n, _offset_by_one_word(tables), init, n), want)
+
+
+def test_shadow_samplers_reach_the_kernel(cuda):
+    """sample_for_bases in tables mode (N = 8, 2^N = 256) and
+    sample_all_bases_chunked each launch the walk once a shot chunk."""
+    from ddqst_tpu_torch.models import TransformerDenoiser
+
+    model = TransformerDenoiser(8, 10, embed_dim=16, hidden_dim=32,
+                                num_blocks=1, num_heads=2).to(cuda).eval()
+    sched = schedules.cosine_schedule(10, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    labels = torch.randint(0, 3, (4, 8), device=cuda)
+    before = ck.fused_chain_walk.launches
+    out = diff.sample_for_bases(gen, model, labels, 300, sched)
+    assert ck.fused_chain_walk.launches == before + 1
+    assert out.shape == (4, 300, 8) and out.is_cuda
+    small = d3pm.ConditionalD3PM(3, 27, 10, embed_dim=16, hidden_dim=32,
+                                 num_blocks=1, input_encoding="token").to(cuda)
+    out = diff.sample_all_bases_chunked(gen, small, 3, 100, sched,
+                                        max_chains=27 * 40, walk="cuda")
+    assert ck.fused_chain_walk.launches == before + 4  # 100 shots, 40 a call
+    assert out.shape == (27, 100, 3) and out.is_cuda
 
 
 def test_sample_all_bases_auto_reaches_the_kernel(cuda):

@@ -166,7 +166,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for name in ('ops.mle', 'ops.pauli', 'ops.diffusion', 'train', "
-        "'pipeline', 'evaluate', 'cli', 'utils.checkpoint'):\n"
+        "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
+        "'models.transformer'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ddqst_tpu')]\n"
@@ -187,7 +188,8 @@ def test_run_experiment_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 # Options that raised NotImplementedError until they were ported; their
 # cases stay in the list below and now assert what the option does.
-_PORTED = ("chain_finetune_steps", "reconstruction", "max_bases")
+_PORTED = ("chain_finetune_steps", "reconstruction", "max_bases",
+           "gen_tables_once", "num_qubits", "arch")
 
 
 @pytest.mark.parametrize("section,change", [
@@ -196,7 +198,7 @@ _PORTED = ("chain_finetune_steps", "reconstruction", "max_bases")
     ("diffusion", dict(gen_tables_once=True)),
     ("data", dict(reconstruction="mle")),
     ("data", dict(max_bases=5)),
-    ("data", dict(num_qubits=9)),
+    ("data", dict(num_qubits=9, max_bases=3)),  # the shadow route
     ("train", dict(checkpoint_dir="ckpt")),
     ("model", dict(arch="transformer")),
     (None, None),  # a mesh
@@ -219,6 +221,14 @@ def test_unported_options_raise(section, change):
         data=dataclasses.replace(cfg.data, shots_train=200, shots_infer=400))
     logs = []
     res = tpipe.run_experiment(cfg, seed=0, device="cpu", log_fn=logs.append)
+    if "num_qubits" in change:
+        # N = 9 takes the shadow route: the film_mlp config becomes a
+        # transformer, 3 sampled bases, no density matrix.
+        assert res["fidelity"] is None and "rho" not in res
+        assert tuple(res["samples"].shape) == (3, 400, 9)
+        assert 0 <= res["mean_tv_to_target"] <= 1
+        assert any("switching to arch='transformer'" in m for m in logs)
+        return
     rho = res["rho"]
     assert abs(np.trace(rho) - 1) < 1e-4
     assert np.linalg.eigvalsh(rho).min() > -1e-5
@@ -234,6 +244,10 @@ def test_unported_options_raise(section, change):
         assert 0 < res["raw_fidelity_mitigated"] <= 1.001
     else:
         assert res["mle_iterations"] == {}
+    if "gen_tables_once" in change or "arch" in change:
+        assert tuple(res["samples"].shape) == (27, 400, 3)
+        assert {"tables", "walk"} <= set(res["timings"])
+        assert 0 < res["fidelity"] <= 1.001
     if "max_bases" in change:
         # Five measured bases: the dense inverter reconstructs the raw shots,
         # the generated ones still cover the whole grid.
