@@ -18,8 +18,9 @@ result line is printed; nothing falls back to the CPU):
    one chain and step issues in each kernel;
 2. kernel — hold the CUDA ``fused_chain_walk`` against its plain PyTorch
    version on the card, bit for bit, at the main-path shape (T=100, C=27,
-   N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128) and at N = 1, 5
-   and 6 (with N=3 and N=7 the kernel's three ways of staging its tables),
+   N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128), at N = 1, 5
+   and 6 (with N=3 and N=7 the kernel's three ways of staging its tables)
+   and at the notebook presets' shape (T=100, C=3, N=1, S=1,024),
    then in its global-memory body at the shadow route's shape (T=100,
    C=100, N=10, S=5,000), at a ragged S there and at N = 8, 9 and 12, each
    at every block size it can choose; check that the same seed repeats;
@@ -99,6 +100,39 @@ result line is printed; nothing falls back to the CPU):
    ``params_save``) with 3 distillation steps over minibatches of 10 bases
    and no held-out split, printing ms a step and the chain CE before and
    after.
+
+9. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
+   ``notebook_upgraded``, uncut (PlainMLP, 200 / 300 epochs, N=1, 1,024
+   shots a basis, T=100, notebook schedule, renoise), each with the launch
+   counts set to 0 just before and read just after: one walk launch, no
+   step launch. It prints the stage seconds, the fidelity and the raw
+   fidelity beside the JAX package's seed-0 rows and seed spread, checks
+   the samples against the exact chain of the trained model's tables (TV
+   within 4 shot-noise scales per basis), the fidelity against the
+   inversion of that distribution (within 0.02, or 4 shot-noise standard
+   deviations of the fidelity where that is larger) and ρ.
+10. denoise — phase 3's trained ``rqc`` model saved and reloaded
+   (``params_load``), the ``rqc`` preset at the same seed in denoise mode:
+   no kernel launch; t*, reps, the shots a basis and the ``denoise`` stage
+   printed beside phase 3's generate-mode fidelity; each basis' samples
+   against the measured frequencies pushed through the model's tables for
+   steps t*..1 (TV within 4 noise scales of the reverse chain alone: each
+   sample starts from a known measured shot), the share of samples that
+   left their starting shot against the chain's own (within 4 standard
+   deviations), and ρ.
+11. bf16 — the ``rqc`` preset uncut at ``dtype='bfloat16'``: train steps/s
+   and fidelity against phase 3's float32 run, one walk launch, the
+   samples against the exact chain, the tables on the card against a CPU
+   recompute of the same bf16 model (mean absolute difference within
+   ``BF16_TABLE_TOL``, which the same weights' float32 tables on the card
+   must exceed); then the ``rqc`` and
+   the ``shadow_transformer`` widths' training, cut to about 300 steps,
+   warm, at float32 and at bfloat16 in turns, steps/s of each.
+12. train_profile — 20 training steps of ``fit`` inside the port's
+   ``utils.profiling.trace``, after a warm-up, at the
+   ``shadow_transformer`` and the ``rqc`` widths: ms a step with and
+   without the profiler, device kernels a step, the device's busy share of
+   a step and its 5 costliest kernels.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -430,6 +464,15 @@ def exact_walk(tables: torch.Tensor, init_dist: torch.Tensor) -> torch.Tensor:
     return dist
 
 
+def exact_transitions(tables: torch.Tensor) -> torch.Tensor:
+    """The table walk's whole transition matrix in float64: [T,C,g,N] ->
+    [C, g, g], row x the distribution after T steps from state x."""
+    t_steps, c, g, n = tables.shape
+    eye = torch.eye(g, dtype=torch.float64, device=tables.device)
+    return exact_walk(tables.repeat_interleave(g, dim=1),
+                      eye.repeat(c, 1)).reshape(c, g, g)
+
+
 def tv_rows(idx: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     g = dist.shape[-1]
     s = idx.shape[-1]
@@ -459,12 +502,13 @@ def phase_kernel(ck) -> dict:
     """Kernel vs plain version on the card; returns the timing record."""
     # (T, C, N, S): the rqc preset's shape, the bench recipe's (50,000 shots
     # a basis), a ragged S, and N = 1 (plain loads), 5 (all T slices at
-    # once, 64 KB), 6 and 7 (a ring of chunks); then the body that reads
+    # once, 64 KB), 6 and 7 (a ring of chunks), the notebook presets' (N = 1,
+    # 3 x 1,024 chains: fewer blocks than SMs); then the body that reads
     # global memory: the shadow route's shape (N = 10, 100 sampled bases),
     # a ragged S there, and N = 8, 9 and 12.
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
-              (100, 27, 6, 1237),
+              (100, 27, 6, 1237), (100, 3, 1, 1024),
               (100, 100, 10, 5000), (100, 100, 10, 1237), (100, 40, 8, 3001),
               (50, 30, 9, 2049), (20, 8, 12, 999)]
     max_err = 0.0
@@ -896,8 +940,10 @@ REFERENCE_FIDELITY = {
 # is 300 epochs and up to 800 steps (--full-depth).
 FULL_DEPTH = (300, 800)
 # Sized for a slow host: a distillation step is bound by the host's launches
-# and took 0.67 to 1.46 s on the machines it was measured on.
-DISTILL_DEPTH = {"ghz": (20, 50), "rqc": (5, 25)}
+# and took 0.67 to 1.48 s on the machines it was measured on. Cut to this
+# depth so the script, with the phases after `shadow`, stays near 450 s on
+# such a host.
+DISTILL_DEPTH = {"ghz": (20, 25), "rqc": (3, 25)}
 
 
 def bench_recipe(kind: str, epochs: int, chain_steps: int):
@@ -1241,6 +1287,457 @@ def phase_chunked(ck, model) -> int:
     return walks
 
 
+def samples_vs_tables(phase: str, what: str, samples: torch.Tensor,
+                      tables: torch.Tensor,
+                      init_dist: torch.Tensor) -> torch.Tensor:
+    """Each basis' samples ``[C, S, N]`` against the exact propagation of
+    ``tables`` ``[T', C, 2^N, N]`` from ``init_dist`` ``[C, 2^N]``: TV
+    within 4 shot-noise scales. Returns the exact distribution."""
+    c, shots, n = samples.shape
+    dist = exact_walk(tables, init_dist)
+    idx = (samples.long() * (1 << torch.arange(n, device="cuda"))).sum(-1)
+    tv = tv_rows(idx, dist)
+    bound = 4 * math.sqrt(2**n / (2 * math.pi * shots))
+    log(phase, f"{what}: samples vs the exact chain: TV mean "
+        f"{float(tv.mean()):.5f}, max {float(tv.max()):.5f} < bound "
+        f"{bound:.5f} over {c} bases")
+    check(bool((tv < bound).all()), f"{what}: samples TV {float(tv.max())} "
+          f"< {bound} for every basis")
+    return dist
+
+
+def fidelity_shot_sd(n: int, target: torch.Tensor, dist: torch.Tensor,
+                     shots: int) -> float:
+    """Shot-noise standard deviation of the linear-inversion fidelity at
+    ``shots`` a basis drawn from ``dist`` ``[3^N, 2^N]``: the unprojected
+    estimate is affine in each basis' frequencies, so its variance is the
+    sum over bases of Var_{o ~ dist[b]}(F with basis b's row one-hot at
+    o) / shots."""
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import pauli
+
+    inv = pauli.make_counts_inverter(n, psd=False)
+    var = 0.0
+    for b in range(dist.shape[0]):
+        f = []
+        for o in range(dist.shape[1]):
+            d = dist.clone()
+            d[b] = 0.0
+            d[b, o] = 1.0
+            f.append(float(M.state_fidelity(target, inv(d.float()))))
+        f = torch.tensor(f, dtype=torch.float64)
+        p = dist[b].double().cpu()
+        var += float((p * f**2).sum() - (p * f).sum() ** 2) / shots
+    return math.sqrt(max(var, 0.0))
+
+
+# The JAX package's notebook rows at seed 0 (examples/results_parity.jsonl
+# rows 13-14, its CPU/TPU runs; fidelities only) and its seed spread
+# (RESULTS.md, the notebook two-model comparison).
+REFERENCE_NOTEBOOK = {
+    "notebook_simple": dict(fidelity=0.98764, raw_fidelity=0.98526,
+                            seed_spread=(0.988, 0.997)),
+    "notebook_upgraded": dict(fidelity=0.88837, raw_fidelity=0.98526,
+                              seed_spread=(0.888, 0.998)),
+}
+
+
+def phase_notebook(ck) -> dict:
+    """The phase-1 notebook presets uncut on the card: PlainMLP, notebook
+    schedule, renoise, 1,024 shots a basis at N=1 (3 x 1,024 chains: the
+    table walk)."""
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import pauli
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import run_experiment
+
+    out = {}
+    for preset, ref in REFERENCE_NOTEBOOK.items():
+        cfg = get_preset(preset)
+        n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
+                             cfg.data.shots_infer)
+        ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, seed=0, log_fn=lambda m: log("notebook", m))
+        wall = time.perf_counter() - t0
+        walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+        tm = res["timings"]
+        log("notebook", f"{preset}: wall {wall:.2f} s; stages (s): " + ", "
+            .join(f"{k} {v:.4f}" for k, v in tm.items()))
+        log("notebook", f"{preset}: train {res['train_steps']} steps, "
+            f"{res['train_steps'] / tm['train']:.1f} steps/s; "
+            f"fused_chain_walk.launches = {walks}, fused_chain_step.launches "
+            f"= {steps}")
+        log("notebook", f"{preset}: fidelity {res['fidelity']:.5f}, raw "
+            f"fidelity {res['raw_fidelity']:.5f}; the JAX package at seed 0: "
+            f"{ref['fidelity']:.5f} / {ref['raw_fidelity']:.5f}, its seeds "
+            f"{ref['seed_spread'][0]}-{ref['seed_spread'][1]}")
+        check(walks == 1 and steps == 0,
+              f"{preset}: one walk launch and no step launch")
+        check(tuple(res["samples"].shape) == (3, shots, n)
+              and res["samples"].is_cuda, f"{preset}: samples [3, {shots}, "
+              f"{n}] on the card")
+        check_rho(torch.from_numpy(res["rho"]), f"{preset}: rho")
+
+        model = res["state"]
+        sched = make_schedule(cfg.diffusion.schedule, t_steps, "cuda")
+        tables = diff.grid_p1_tables(model, n, sched, cfg.diffusion.exact
+                                     ).reshape(t_steps, 3, 2**n, n)
+        dist = samples_vs_tables("notebook", preset, res["samples"], tables,
+                                 torch.full((3, 2**n), 1 / 2**n,
+                                            device="cuda"))
+        target = torch.from_numpy(res["target"]).cuda()
+        fid_exact = float(M.state_fidelity(target, pauli.make_counts_inverter(
+            n)((dist * shots).float())))
+        sd = fidelity_shot_sd(n, target, dist, shots)
+        bound = max(0.02, 4 * sd)
+        log("notebook", f"{preset}: fidelity {res['fidelity']:.5f} vs the "
+            f"exact chain's inversion {fid_exact:.5f} (shot-noise sd "
+            f"{sd:.5f}; bound {bound:.5f})")
+        check(abs(res["fidelity"] - fid_exact) < bound,
+              f"{preset}: fidelity within {bound:.4f} of the exact chain's "
+              "inversion")
+        out[preset] = dict(fidelity=res["fidelity"],
+                           raw_fidelity=res["raw_fidelity"],
+                           fidelity_exact_chain=fid_exact, fidelity_sd=sd,
+                           train_steps=res["train_steps"], timings=tm,
+                           wall_s=wall, walk_launches=walks)
+    return out
+
+
+def phase_denoise(ck, res_main: dict) -> dict:
+    """Denoise mode on the card: phase 3's trained ``rqc`` model reloaded,
+    the same seed's measured shots reverse-diffused from t*; no kernel
+    runs. Each basis' samples against the exact propagation of the measured
+    frequencies through the model's tables for steps t*..1."""
+    import dataclasses
+
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import load_data_cache, run_experiment
+    from ddqst_tpu_torch.qsim.noise import get_noise_config
+    from ddqst_tpu_torch.utils.checkpoint import save_params
+
+    base = get_preset("rqc")
+    cfg = base.replace(diffusion=dataclasses.replace(base.diffusion,
+                                                     infer_mode="denoise"))
+    n, t_steps = cfg.data.num_qubits, cfg.diffusion.num_timesteps
+    sched = make_schedule(cfg.diffusion.schedule, t_steps, "cuda")
+    t_star = diff.match_timestep(
+        sched, max(get_noise_config(cfg.data.noise_type).readout_p, 0.01))
+    reps = max(-(-cfg.data.shots_infer // cfg.data.shots_train), 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        params, cache = (os.path.join(tmp, "rqc.pt"),
+                         os.path.join(tmp, "data.npz"))
+        save_params(params, res_main["state"])
+        ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+        t0 = time.perf_counter()
+        res = run_experiment(cfg, seed=0, params_load=params, data_cache=cache,
+                             log_fn=lambda m: log("denoise", m))
+        wall = time.perf_counter() - t0
+        walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+        data = load_data_cache(cache, "cuda")
+    tm = res["timings"]
+    shots = reps * cfg.data.shots_train
+    log("denoise", f"t* = {t_star}, reps = {reps}, {reps} x "
+        f"{cfg.data.shots_train} = {shots} shots a basis; wall {wall:.2f} s; "
+        "stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items()))
+    log("denoise", f"fidelity {res['fidelity']:.5f} (denoise mode) against "
+        f"{res_main['fidelity']:.5f} (generate mode, phase 3) and raw "
+        f"{res['raw_fidelity']:.5f}; fused_chain_walk.launches = {walks}, "
+        f"fused_chain_step.launches = {steps}")
+    check(walks == 0 and steps == 0, "denoise mode launched no kernel")
+    check(abs(res["raw_fidelity"] - res_main["raw_fidelity"]) < 1e-6,
+          "the same seed regenerated the same data")
+    samples = res["samples"]
+    check(tuple(samples.shape) == (27, shots, n) and samples.is_cuda,
+          f"denoised samples [27, {shots}, {n}] on the card")
+    check_rho(torch.from_numpy(res["rho"]), "denoise: rho")
+
+    # Sample r·S + i of a basis started from its measured shot i, and the
+    # chain then ran steps t*..1 of the model's tables (P, [27, g, g]). The
+    # measured frequencies are fixed, so only the reverse chain adds noise:
+    # a hist entry's variance is sum_x freq[x] P[x,y] (1 - P[x,y]) / shots,
+    # and 0.5 * sum_y of its sd bounds E[TV] above. A denoiser that returned
+    # its input would pass a bound of independent draws, as the chain moves
+    # the distribution little; the moved-shot count catches it.
+    g = 2**n
+    weights = 1 << torch.arange(n, device="cuda")
+    start = (data.bits.long() * weights).sum(-1).repeat(1, reps)  # [27, shots]
+    idx = (samples.long() * weights).sum(-1)
+    freqs = torch.zeros((27, g), dtype=torch.float64, device="cuda")
+    freqs.scatter_add_(1, start, torch.ones(start.shape, dtype=torch.float64,
+                                            device="cuda"))
+    freqs /= shots
+    tables = diff.grid_p1_tables(res["state"], n, sched, cfg.diffusion.exact
+                                 ).reshape(t_steps, 27, g, n)
+    trans = exact_transitions(tables[t_steps - t_star:])
+    dist = torch.einsum("cx,cxy->cy", freqs, trans)
+    scale = 0.5 * (torch.einsum("cx,cxy->cy", freqs, trans * (1 - trans))
+                   / shots).sqrt().sum(-1)
+    tv = tv_rows(idx, dist)
+    log("denoise", f"samples vs the measured shots through steps t*..1: TV "
+        f"mean {float(tv.mean()):.6f}, max {float(tv.max()):.6f}; max TV / "
+        f"noise scale {float((tv / scale).max()):.3f} < 4 (scale mean "
+        f"{float(scale.mean()):.6f}) over 27 bases")
+    check(bool((tv < 4 * scale).all()), "denoise: samples TV within 4 noise "
+          "scales of the reverse chain for every basis")
+    stay = trans.diagonal(dim1=1, dim2=2).gather(1, start)  # P[x_i, x_i]
+    moved = int((idx != start).sum())
+    want = float((1 - stay).sum())
+    sd = math.sqrt(float((stay * (1 - stay)).sum()))
+    log("denoise", f"samples that left their measured shot: {moved} of "
+        f"{idx.numel()}, the chain's expectation {want:.1f} (sd {sd:.1f})")
+    check(want > 8 * sd, "denoise: the chain moves enough shots to tell a "
+          "denoiser from the identity")
+    check(abs(moved - want) < 4 * sd, "denoise: moved shots within 4 sd of "
+          "the chain's expectation")
+    return dict(t_star=t_star, reps=reps, shots_per_basis=shots,
+                moved_shots=moved, moved_shots_expected=want,
+                tv_max=float(tv.max()), tv_scale_mean=float(scale.mean()),
+                fidelity=res["fidelity"], raw_fidelity=res["raw_fidelity"],
+                fidelity_generate=res_main["fidelity"], timings=tm,
+                wall_s=wall, walk_launches=walks, step_launches=steps)
+
+
+# Epochs of the cut trainings the bf16 phase times at each dtype, about 300
+# steps each (the presets train 30 epochs of 27 and of 100 steps).
+TIMING_EPOCHS = {"rqc": 11, "shadow_transformer": 3}
+# bf16 grid tables, card against the CPU's recompute of the same model: the
+# mean absolute difference. Each side accumulates its products in its own
+# order, so a few roundings to bfloat16's 8 significant bits differ and
+# spread; a float32 computation differs at every rounding. Most table
+# entries sit near 0 or 1, where both differences vanish, so the maximum
+# cannot tell them apart and the mean can. The limit lies between the two
+# readings, which PERF.md records.
+BF16_TABLE_TOL = 1e-6
+
+
+def training_setup(cfg, rows: int):
+    """A one-epoch ``fit`` at ``cfg``'s width on the card, on ``rows``
+    random bitstrings and conditioning (per-qubit labels for the
+    transformer, basis indices otherwise) from a seeded generator: ``(gen,
+    model, bits, cond, sched, train_cfg)``, ``train_cfg`` logging
+    nothing."""
+    import dataclasses
+
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    n = cfg.data.num_qubits
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bits = torch.randint(0, 2, (rows, n), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    cond = (torch.randint(0, 3, (rows, n), generator=gen, device="cuda")
+            if cfg.model.arch == "transformer"
+            else torch.randint(0, 3**n, (rows,), generator=gen, device="cuda"))
+    sched = make_schedule(cfg.diffusion.schedule,
+                          cfg.diffusion.num_timesteps, "cuda")
+    model = build_model(cfg.model, n, cfg.diffusion.num_timesteps)
+    train_cfg = dataclasses.replace(cfg.train, num_epochs=1, log_every=0,
+                                    eval_every=0)
+    return gen, model, bits, cond, sched, train_cfg
+
+
+def train_steps_per_s(cfg, rows: int, epochs: int) -> float:
+    """``fit`` for ``epochs`` on ``rows`` random rows at ``cfg``'s width on
+    the card (one epoch to warm up first); returns steps per second."""
+    import dataclasses
+
+    from ddqst_tpu_torch import train as training
+
+    gen, model, bits, cond, sched, warm = training_setup(cfg, rows)
+    training.fit(gen, model, bits, cond, warm, sched, log_fn=lambda m: None)
+    tc = dataclasses.replace(warm, num_epochs=epochs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    training.fit(gen, model, bits, cond, tc, sched, log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    return rows // cfg.train.batch_size * epochs / (time.perf_counter() - t0)
+
+
+def phase_bf16(ck, res_main: dict) -> dict:
+    """The ``rqc`` preset uncut at ``dtype='bfloat16'``, against phase 3's
+    float32 run; then the shadow width's training, cut, at both dtypes."""
+    import dataclasses
+
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import run_experiment
+
+    base = get_preset("rqc")
+    cfg = base.replace(model=dataclasses.replace(base.model, dtype="bfloat16"))
+    n, t_steps = cfg.data.num_qubits, cfg.diffusion.num_timesteps
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, seed=0, log_fn=lambda m: log("bf16", m))
+    wall = time.perf_counter() - t0
+    walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+    tm, tm32 = res["timings"], res_main["timings"]
+    sps = res["train_steps"] / tm["train"]
+    sps32 = res_main["train_steps"] / tm32["train"]
+    log("bf16", f"rqc at bfloat16: wall {wall:.2f} s; stages (s): " + ", "
+        .join(f"{k} {v:.4f}" for k, v in tm.items()))
+    log("bf16", f"rqc train: bfloat16 {sps:.1f} steps/s against float32 "
+        f"{sps32:.1f} steps/s (phase 3); fidelity {res['fidelity']:.5f} "
+        f"against {res_main['fidelity']:.5f}; fused_chain_walk.launches = "
+        f"{walks}, fused_chain_step.launches = {steps}")
+    check(walks == 1 and steps == 0, "bf16 rqc: one walk launch, no step")
+    check_rho(torch.from_numpy(res["rho"]), "bf16 rqc: rho")
+    model = res["state"]
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16 rqc: the parameters stayed float32")
+    sched = make_schedule("cosine", t_steps, "cuda")
+    tables = diff.grid_p1_tables(model, n, sched, cfg.diffusion.exact)
+    check(tables.dtype == torch.float32, "bf16 rqc: float32 tables")
+    samples_vs_tables("bf16", "rqc", res["samples"],
+                      tables.reshape(t_steps, 27, 2**n, n),
+                      torch.full((27, 2**n), 1 / 2**n, device="cuda"))
+    weights = model.state_dict()
+    cpu_model = build_model(cfg.model, n, t_steps)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    cpu_tables = diff.grid_p1_tables(cpu_model.eval(), n, sched.to("cpu"),
+                                     cfg.diffusion.exact)
+    diff_bf16 = (tables.cpu() - cpu_tables).abs()
+    # The control: the same weights' tables computed in float32 on the card,
+    # what a card that skipped the bfloat16 casts would give.
+    f32_model = build_model(base.model, n, t_steps).cuda()
+    f32_model.load_state_dict(weights)
+    diff_f32 = (diff.grid_p1_tables(f32_model.eval(), n, sched,
+                                    cfg.diffusion.exact).cpu()
+                - cpu_tables).abs()
+    tab_err, f32_err = float(diff_bf16.mean()), float(diff_f32.mean())
+    log("bf16", f"rqc tables against the CPU's bf16 recompute, mean (max) "
+        f"abs difference: bf16 on the card {tab_err:.3e} "
+        f"({float(diff_bf16.max()):.3e}), float32 on the card (control) "
+        f"{f32_err:.3e} ({float(diff_f32.max()):.3e}); tolerance on the mean "
+        f"{BF16_TABLE_TOL:.0e}")
+    check(tab_err < BF16_TABLE_TOL, "bf16 rqc tables on the card match the "
+          "CPU's")
+    check(f32_err > BF16_TABLE_TOL, "float32 tables of the same weights fail "
+          "the bf16 tolerance")
+
+    # Both widths again, warm and in turns (float32, bfloat16, bfloat16,
+    # float32), on random data of the presets' sizes: phase 3's run was the
+    # process's first training, so its rate is not a warm one.
+    warm = {}
+    for preset, epochs in (("rqc", TIMING_EPOCHS["rqc"]),
+                           ("shadow_transformer",
+                            TIMING_EPOCHS["shadow_transformer"])):
+        c = get_preset(preset)
+        rows = (c.data.max_bases or 3**c.data.num_qubits) * c.data.shots_train
+        steps = rows // c.train.batch_size * epochs
+        log("bf16", f"{preset} width, CUT: {c.train.num_epochs} epochs -> "
+            f"{epochs} ({steps} steps, after a 1-epoch warm-up) at each "
+            "dtype, in turns, random bits and conditioning")
+        rates = {"float32": [], "bfloat16": []}
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            cd = c.replace(model=dataclasses.replace(c.model, dtype=dtype))
+            rates[dtype].append(train_steps_per_s(cd, rows, epochs))
+        warm[preset] = {k: sum(v) / len(v) for k, v in rates.items()}
+        log("bf16", f"{preset} train, warm: float32 " + " / ".join(
+            f"{r:.1f}" for r in rates["float32"]) + " steps/s, bfloat16 "
+            + " / ".join(f"{r:.1f}" for r in rates["bfloat16"])
+            + f" steps/s (bfloat16 / float32 = "
+            f"{warm[preset]['bfloat16'] / warm[preset]['float32']:.3f})")
+    return dict(rqc_steps_per_s=sps, rqc_steps_per_s_float32=sps32,
+                fidelity=res["fidelity"], fidelity_float32=res_main["fidelity"],
+                timings=tm, wall_s=wall, walk_launches=walks,
+                table_err=tab_err, table_err_float32_control=f32_err,
+                warm_steps_per_s=warm)
+
+
+PROFILE_STEPS = 20
+
+
+def _union_us(ranges: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals (microseconds)."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(ranges):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_training(preset: str) -> dict:
+    """``PROFILE_STEPS`` training steps of ``fit`` at a preset's width, on
+    random data, after a warm-up run: ms a step on the host clock without
+    the profiler, then the same call inside ``utils.profiling.trace``: its
+    ms a step, the device kernels a step, the device's busy time (the union
+    of the kernels' intervals) against both windows, and the 5 kernels that
+    take the most device time. A call of ``fit`` includes its parameter
+    initialisation. Device-side ranges of ``record_function`` annotations
+    (``Optimizer.step``'s) are not kernels and are left out."""
+    from ddqst_tpu_torch import train as training
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.utils.profiling import trace
+
+    cfg = get_preset(preset)
+    gen, model, bits, cond, sched, tc = training_setup(
+        cfg, PROFILE_STEPS * cfg.train.batch_size)
+
+    def run():
+        training.fit(gen, model, bits, cond, tc, sched, log_fn=lambda m: None)
+        torch.cuda.synchronize()
+
+    run()  # warm-up
+    t0 = time.perf_counter()
+    run()
+    plain_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp) as prof:
+            run()
+        window = time.perf_counter() - t0
+        trace_mb = sum(os.path.getsize(os.path.join(tmp, f))
+                       for f in os.listdir(tmp)) / 2**20
+    device = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    kernels = [e for e in device if not getattr(e, "is_user_annotation", False)]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels])
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        rec = by_name.setdefault(e.name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    out = dict(preset=preset, steps=PROFILE_STEPS,
+               ms_per_step=plain_s * 1e3 / PROFILE_STEPS,
+               ms_per_step_profiled=window * 1e3 / PROFILE_STEPS,
+               device_kernels_per_step=len(kernels) / PROFILE_STEPS,
+               device_busy_ms_per_step=busy_us / 1e3 / PROFILE_STEPS,
+               device_busy_share=busy_us / (plain_s * 1e6),
+               device_busy_share_profiled=busy_us / (window * 1e6),
+               annotation_ranges_left_out=len(device) - len(kernels),
+               trace_mb=trace_mb,
+               top_kernels=[(name[:80], c, us / 1e3) for name, (c, us) in top])
+    log("profile", f"{preset} width, {PROFILE_STEPS} steps of fit (batch "
+        f"{cfg.train.batch_size}): {out['ms_per_step']:.3f} ms a step "
+        f"({out['ms_per_step_profiled']:.3f} under the profiler), "
+        f"{out['device_kernels_per_step']:.1f} device kernels a step, device "
+        f"busy {out['device_busy_ms_per_step']:.3f} ms a step = "
+        f"{100 * out['device_busy_share']:.1f}% of an unprofiled step "
+        f"({100 * out['device_busy_share_profiled']:.1f}% of the profiled "
+        f"window); {out['annotation_ranges_left_out']} annotation ranges left "
+        f"out; trace {trace_mb:.1f} MB")
+    for name, count, ms in out["top_kernels"]:
+        log("profile", f"  {name}: {count} launches, device {ms:.3f} ms "
+            f"({ms / PROFILE_STEPS:.3f} ms a step)")
+    check(len(kernels) > 0, f"{preset}: the profile saw device kernels")
+    return out
+
+
+def phase_train_profile() -> dict:
+    return {p: profile_training(p) for p in ("shadow_transformer", "rqc")}
+
+
 def profile_distill() -> dict:
     """Where one distillation step's time goes, at full width (27·8 grid
     rows, T = 100, seeded weights, random targets): the host-clock time of a
@@ -1401,6 +1898,10 @@ def main() -> int:
     distill = phase_distill(ck, DISTILL_DEPTH)
     chunked_launches = phase_chunked(ck, res["state"])
     shadow = phase_shadow(ck)
+    notebook = phase_notebook(ck)
+    denoise = phase_denoise(ck, res)
+    bf16 = phase_bf16(ck, res)
+    train_profile = phase_train_profile()
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -1436,6 +1937,10 @@ def main() -> int:
         "bound_ms_n7": kernel["n7"]["bound_ms"],
         "launches_shadow_route": shadow["walk_launches"],
         "launches_chunked_sampler": chunked_launches,
+        "launches_notebook_presets": {k: v["walk_launches"]
+                                      for k, v in notebook.items()},
+        "launches_denoise_mode": denoise["walk_launches"],
+        "launches_bf16_rqc": bf16["walk_launches"],
         **{f"{k}_{label}": kernel[label][k]
            for label in ("shadow", "n8_grid")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
@@ -1463,7 +1968,9 @@ def main() -> int:
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["step_n3_row_base"],
     }], "lane_instructions_per_s": rate["rates"],
-        "bench_recipes": distill, "shadow": shadow}), flush=True)
+        "bench_recipes": distill, "shadow": shadow, "notebook": notebook,
+        "denoise": denoise, "bf16": bf16, "train_profile": train_profile}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

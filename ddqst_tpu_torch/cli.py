@@ -2,10 +2,15 @@
 
 The port's counterpart of ``ddqst_tpu/cli.py``, with the same subcommands
 and flags plus ``--device`` (default ``cuda``; without CUDA every
-subcommand but ``convert`` raises unless ``--device cpu`` is given).
+subcommand but ``convert`` raises unless ``--device cpu`` is given), and
+``--checkpoint_every`` / ``--resume`` beside ``--checkpoint_dir``.
 
   python -m ddqst_tpu_torch.cli run --preset special_states --state_type bell
   python -m ddqst_tpu_torch.cli run --preset shadow_transformer  # N=10 shadow
+  python -m ddqst_tpu_torch.cli run --preset notebook_simple     # PlainMLP
+  python -m ddqst_tpu_torch.cli run --preset rqc --infer_mode denoise
+  python -m ddqst_tpu_torch.cli run --preset rqc --dtype bfloat16 \
+      --checkpoint_dir ckpt --checkpoint_every 5 --resume
   python -m ddqst_tpu_torch.cli generate --samples 1000 --qubits 3 --out_dir ds
   python -m ddqst_tpu_torch.cli train --data_path ds --save_dir exp --run_name m1
   python -m ddqst_tpu_torch.cli train --sanity_check        # memorisation smoke
@@ -81,6 +86,11 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--chain_target", choices=["counts", "mle"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint_dir")
+    p.add_argument("--checkpoint_every", type=int,
+                   help="epochs between checkpoints (0 = at the end only)")
+    p.add_argument("--resume", action="store_true", default=None,
+                   help="resume training from the newest checkpoint in "
+                        "--checkpoint_dir")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="data-axis mesh size (0 = single device; not ported)")
     _add_device_flag(p)
@@ -117,7 +127,7 @@ def _check_single_device(args) -> None:
     if getattr(args, "data_parallel", 0):
         raise NotImplementedError(
             "--data_parallel (meshes / multi-device) is not ported yet "
-            "(ROADMAP Queue 1 item 10)"
+            "(ROADMAP Queue 1 item 6)"
         )
 
 

@@ -49,8 +49,9 @@ def _transformer_block(prefix: str, p: Mapping) -> dict[str, torch.Tensor]:
 
 
 def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
-    """Flax ``ConditionalD3PM`` or ``TransformerDenoiser`` params -> the
-    port's ``state_dict()`` of the same model."""
+    """Flax ``ConditionalD3PM``, ``PlainMLP`` or ``TransformerDenoiser``
+    params -> the port's ``state_dict()`` of the same model (a PlainMLP's
+    ``fc_i`` becomes ``fcs.i``)."""
     transformer = "pos_emb" in params_np
     sd: dict[str, torch.Tensor] = {}
     for name, p in params_np.items():
@@ -61,6 +62,8 @@ def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
             sd[name] = torch.from_numpy(np.array(p))
         elif name in ("input_proj", "output_head"):
             sd.update(_linear(name, p))
+        elif name.startswith("fc_"):
+            sd.update(_linear(f"fcs.{int(name[3:])}", p))
         elif name == "ln_f":
             sd.update(_layer_norm(name, p))
         elif name.startswith("block_"):

@@ -22,8 +22,20 @@ weights lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796 cut at
 ±2 std) with zero bias, embeddings N(0, 1/E), LayerNorms at scale 1 and
 bias 0, and the transformer's ``pos_emb`` N(0, 0.02).
 
+``PlainMLP`` is the phase-1 notebook family (the ``notebook_*`` presets):
+``concat(float bits, time emb, basis emb)``, then ``num_blocks`` x
+[Linear, ReLU], then ``Linear(2N)``; no FiLM, no residuals.
 ``build_model`` also builds ``models.transformer.TransformerDenoiser`` for
 ``arch='transformer'``.
+
+Compute dtype (``ModelConfig.dtype``): ``'float32'`` or ``'bfloat16'``. The
+parameters and the optimiser state stay float32 and the logits come out
+float32 in both; bfloat16 follows flax's ``dtype=`` semantics with explicit
+casts in ``forward``, so the CPU and the card run the same arithmetic:
+a ``Dense`` casts its input, kernel and bias to bfloat16 and computes in it
+(:func:`dense`), an ``Embed`` returns its rows in bfloat16
+(:func:`embed`), and a ``LayerNorm`` computes in float32 from its bfloat16
+input and returns bfloat16 (``models.transformer.layer_norm``).
 """
 
 from __future__ import annotations
@@ -38,6 +50,29 @@ from ddqst_tpu_torch.config import ModelConfig
 
 # Std of a unit normal truncated to [-2, 2]: flax's truncated_normal rescale.
 _TRUNC_STD = 0.87962566103423978
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``ModelConfig.dtype`` as a torch dtype; raises for any other name."""
+    try:
+        return _COMPUTE_DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown compute dtype {name!r}; options: "
+                         f"{sorted(_COMPUTE_DTYPES)}") from None
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``
+    and the product computed in it."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def embed(table: nn.Embedding, idx: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Embed(dtype=dtype)``: the rows, cast to ``dtype``."""
+    return table(idx.long()).to(dtype)
 
 
 @torch.no_grad()
@@ -69,16 +104,19 @@ def init_params_(module: nn.Module, generator: torch.Generator | None = None) ->
 class FiLMResBlock(nn.Module):
     """Residual block with feature-wise linear modulation."""
 
-    def __init__(self, cond_dim: int, hidden_dim: int):
+    def __init__(self, cond_dim: int, hidden_dim: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.film = nn.Linear(cond_dim, 2 * hidden_dim)
         self.fc1 = nn.Linear(hidden_dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, hidden_dim)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        gamma, beta = self.film(cond).chunk(2, dim=-1)
+        dt = self.compute_dtype
+        gamma, beta = dense(self.film, cond, dt).chunk(2, dim=-1)
         h = x * (1.0 + gamma) + beta
-        h = self.fc2(F.silu(self.fc1(h)))
+        h = dense(self.fc2, F.silu(dense(self.fc1, h, dt)), dt)
         return F.silu(x + h)
 
 
@@ -100,10 +138,12 @@ class ConditionalD3PM(nn.Module):
         num_blocks: int = 4,
         input_encoding: str = "float",
         num_circuits: int = 0,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_qubits = num_qubits
         self.num_circuits = num_circuits
+        self.compute_dtype = compute_dtype
         self.input_encoding = input_encoding
         if input_encoding == "float":
             self.input_proj = nn.Linear(num_qubits, hidden_dim)
@@ -119,7 +159,7 @@ class ConditionalD3PM(nn.Module):
             self.circuit_emb = nn.Embedding(num_circuits, embed_dim)
             n_cond = 3
         self.blocks = nn.ModuleList(
-            FiLMResBlock(n_cond * embed_dim, hidden_dim)
+            FiLMResBlock(n_cond * embed_dim, hidden_dim, compute_dtype)
             for _ in range(num_blocks)
         )
         self.output_head = nn.Linear(hidden_dim, num_qubits * 2)
@@ -129,23 +169,72 @@ class ConditionalD3PM(nn.Module):
         self, x: torch.Tensor, t: torch.Tensor, basis_idx: torch.Tensor
     ) -> torch.Tensor:
         b = x.shape[0]
+        dt = self.compute_dtype
         circuit_idx = None
         if basis_idx.dim() == 2:
             basis_idx, circuit_idx = basis_idx[:, 0], basis_idx[:, 1]
         if self.input_encoding == "float":
-            h = self.input_proj(x.float())
+            h = dense(self.input_proj, x.to(dt), dt)
         else:
-            emb = self.x_emb(x.long())  # [B, N, E]
-            h = self.input_proj(emb.reshape(b, -1))
-        parts = [self.time_emb(t.long()), self.basis_emb(basis_idx.long())]
+            emb = embed(self.x_emb, x, dt)  # [B, N, E]
+            h = dense(self.input_proj, emb.reshape(b, -1), dt)
+        parts = [embed(self.time_emb, t, dt), embed(self.basis_emb, basis_idx, dt)]
         if self.num_circuits > 0:
             if circuit_idx is None:
                 circuit_idx = torch.zeros_like(basis_idx)
-            parts.append(self.circuit_emb(circuit_idx.long()))
+            parts.append(embed(self.circuit_emb, circuit_idx, dt))
         cond = torch.cat(parts, dim=-1)
         for block in self.blocks:
             h = block(h, cond)
-        return self.output_head(h).reshape(b, self.num_qubits, 2).float()
+        return dense(self.output_head, h, dt).reshape(b, self.num_qubits,
+                                                       2).float()
+
+
+class PlainMLP(nn.Module):
+    """The phase-1 notebook MLP family (``SimpleMLP`` / ``UpgradedMLP``).
+
+    ``forward(x [B,N] int, t [B] int, basis_idx [B] int) -> logits [B,N,2]``
+    float32: ``concat(float bits, time_emb, basis_emb)``, then
+    ``num_blocks`` x [Linear(H), ReLU] (``fcs.i``, flax's ``fc_i``), then
+    ``Linear(2N)``. A ``[B, 2]`` conditioning input is read as packed
+    (basis, circuit) and its circuit column is ignored: the model takes no
+    circuit embedding.
+    """
+
+    def __init__(
+        self,
+        num_qubits: int,
+        num_bases: int,
+        num_timesteps: int,
+        embed_dim: int = 32,
+        hidden_dim: int = 128,
+        num_blocks: int = 2,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.num_qubits = num_qubits
+        self.compute_dtype = compute_dtype
+        self.time_emb = nn.Embedding(num_timesteps + 1, embed_dim)
+        self.basis_emb = nn.Embedding(num_bases, embed_dim)
+        widths = [num_qubits + 2 * embed_dim] + [hidden_dim] * num_blocks
+        self.fcs = nn.ModuleList(nn.Linear(a, b)
+                                 for a, b in zip(widths, widths[1:]))
+        self.output_head = nn.Linear(widths[-1], num_qubits * 2)
+        init_params_(self)
+
+    def forward(
+        self, x: torch.Tensor, t: torch.Tensor, basis_idx: torch.Tensor
+    ) -> torch.Tensor:
+        b = x.shape[0]
+        dt = self.compute_dtype
+        if basis_idx.dim() == 2:
+            basis_idx = basis_idx[:, 0]
+        h = torch.cat([x.to(dt), embed(self.time_emb, t, dt),
+                       embed(self.basis_emb, basis_idx, dt)], dim=-1)
+        for fc in self.fcs:
+            h = torch.relu(dense(fc, h, dt))
+        return dense(self.output_head, h, dt).reshape(b, self.num_qubits,
+                                                       2).float()
 
 
 def build_model(
@@ -154,12 +243,9 @@ def build_model(
 ) -> nn.Module:
     """Instantiate a denoiser from a :class:`ModelConfig` (on the CPU; the
     caller moves it). ``num_circuits > 0`` adds the circuit embedding
-    (``film_mlp`` only)."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"model dtype {cfg.dtype!r} is not ported; the port computes in "
-            "float32"
-        )
+    (``film_mlp`` only; the other archs raise ``ValueError``, as in the JAX
+    package)."""
+    dt = compute_dtype(cfg.dtype)
     if cfg.arch == "transformer":
         if num_circuits > 0:
             raise ValueError("the transformer takes no circuit conditioning")
@@ -172,12 +258,22 @@ def build_model(
             hidden_dim=cfg.hidden_dim,
             num_blocks=cfg.num_blocks,
             num_heads=cfg.num_heads,
+            compute_dtype=dt,
+        )
+    if cfg.arch == "plain_mlp":
+        if num_circuits > 0:
+            raise ValueError("plain_mlp does not support circuit conditioning")
+        return PlainMLP(
+            num_qubits=num_qubits,
+            num_bases=3**num_qubits,
+            num_timesteps=num_timesteps,
+            embed_dim=cfg.embed_dim,
+            hidden_dim=cfg.hidden_dim,
+            num_blocks=cfg.num_blocks,
+            compute_dtype=dt,
         )
     if cfg.arch != "film_mlp":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} is not ported yet (ROADMAP Queue 1 item 2: "
-            "PlainMLP); 'film_mlp' and 'transformer' run"
-        )
+        raise ValueError(f"unknown arch {cfg.arch!r}")
     return ConditionalD3PM(
         num_qubits=num_qubits,
         num_bases=3**num_qubits,
@@ -187,4 +283,5 @@ def build_model(
         num_blocks=cfg.num_blocks,
         input_encoding=cfg.input_encoding,
         num_circuits=num_circuits,
+        compute_dtype=dt,
     )

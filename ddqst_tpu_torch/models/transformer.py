@@ -20,6 +20,13 @@ Numerics follow flax, so converted weights give the same logits:
   ``out`` is ``Linear(E, E)`` over the same layout (flax's ``[H, D, E]``);
 - parameters start from flax's initialisers (``d3pm.init_params_``), with
   ``pos_emb`` from N(0, 0.02) and LayerNorms at scale 1, bias 0.
+
+In bfloat16 (``compute_dtype``) the Dense and Embed layers follow
+``d3pm.dense`` / ``d3pm.embed``, ``pos_emb`` is cast, a LayerNorm computes
+in float32 and returns bfloat16 (flax's float32 statistics), the query is
+divided by ``sqrt(head_dim)`` rounded to bfloat16, and the softmax takes and
+returns bfloat16 (flax's attention with its default
+``force_fp32_for_softmax=False``); the head's output is cast to float32.
 """
 
 from __future__ import annotations
@@ -30,9 +37,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddqst_tpu_torch.models.d3pm import init_params_
+from ddqst_tpu_torch.models.d3pm import dense, embed, init_params_
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=dtype)``: statistics and normalisation in
+    float32, the result in ``dtype``."""
+    return ln(x.float()).to(dtype)
 
 
 def basis_idx_to_labels(basis_idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
@@ -57,12 +71,14 @@ def labels_to_basis_idx(labels: torch.Tensor) -> torch.Tensor:
 class SelfAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` on one sequence (q = k = v)."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.num_heads = num_heads
+        self.compute_dtype = compute_dtype
         self.query = nn.Linear(embed_dim, embed_dim)
         self.key = nn.Linear(embed_dim, embed_dim)
         self.value = nn.Linear(embed_dim, embed_dim)
@@ -72,29 +88,36 @@ class SelfAttention(nn.Module):
         b, length, e = x.shape
         h = self.num_heads
         d = e // h
-        q = self.query(x).view(b, length, h, d) / math.sqrt(d)
-        k = self.key(x).view(b, length, h, d)
-        v = self.value(x).view(b, length, h, d)
+        dt = self.compute_dtype
+        q = dense(self.query, x, dt).view(b, length, h, d) / torch.tensor(
+            math.sqrt(d), dtype=dt)
+        k = dense(self.key, x, dt).view(b, length, h, d)
+        v = dense(self.value, x, dt).view(b, length, h, d)
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, e)
-        return self.out(o)
+        return dense(self.out, o, dt)
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, embed_dim: int, hidden_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, hidden_dim: int, num_heads: int,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.film = nn.Linear(embed_dim, 2 * embed_dim)
         self.ln1 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
-        self.attn = SelfAttention(embed_dim, num_heads)
+        self.attn = SelfAttention(embed_dim, num_heads, compute_dtype)
         self.ln2 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.mlp1 = nn.Linear(embed_dim, hidden_dim)
         self.mlp2 = nn.Linear(hidden_dim, embed_dim)
 
     def forward(self, h: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        gamma, beta = self.film(cond).chunk(2, dim=-1)
-        x = self.ln1(h) * (1.0 + gamma[:, None, :]) + beta[:, None, :]
+        dt = self.compute_dtype
+        gamma, beta = dense(self.film, cond, dt).chunk(2, dim=-1)
+        x = (layer_norm(self.ln1, h, dt) * (1.0 + gamma[:, None, :])
+             + beta[:, None, :])
         h = h + self.attn(x)
-        y = self.mlp2(F.silu(self.mlp1(self.ln2(h))))
+        y = dense(self.mlp2, F.silu(dense(self.mlp1,
+                                          layer_norm(self.ln2, h, dt), dt)), dt)
         return h + y
 
 
@@ -114,15 +137,17 @@ class TransformerDenoiser(nn.Module):
         hidden_dim: int = 512,
         num_blocks: int = 4,
         num_heads: int = 4,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_qubits = num_qubits
+        self.compute_dtype = compute_dtype
         self.bit_emb = nn.Embedding(2, embed_dim)
         self.basis_emb = nn.Embedding(3, embed_dim)
         self.pos_emb = nn.Parameter(torch.empty(num_qubits, embed_dim))
         self.time_emb = nn.Embedding(num_timesteps + 1, embed_dim)
         self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, hidden_dim, num_heads)
+            TransformerBlock(embed_dim, hidden_dim, num_heads, compute_dtype)
             for _ in range(num_blocks)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=_LN_EPS)
@@ -132,11 +157,13 @@ class TransformerDenoiser(nn.Module):
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, basis: torch.Tensor
     ) -> torch.Tensor:
+        dt = self.compute_dtype
         basis = basis.long()
         if basis.dim() == x.dim() - 1:
             basis = basis_idx_to_labels(basis, self.num_qubits)
-        h = self.bit_emb(x.long()) + self.basis_emb(basis) + self.pos_emb
-        cond = self.time_emb(t.long())
+        h = (embed(self.bit_emb, x, dt) + embed(self.basis_emb, basis, dt)
+             + self.pos_emb.to(dt))
+        cond = embed(self.time_emb, t, dt)
         for block in self.blocks:
             h = block(h, cond)
-        return self.output_head(self.ln_f(h)).float()
+        return dense(self.output_head, layer_norm(self.ln_f, h, dt), dt).float()

@@ -66,6 +66,11 @@ def philox4x32_10(ctr, key: tuple[int, int]):
     return c0, c1, c2, c3
 
 
+def _on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its plain version: only for CPU tensors."""
+    return t.device.type == "cpu"
+
+
 def _check_walk_args(seed, tables, init, num_qubits) -> None:
     if not isinstance(seed, int) or not 0 <= seed < 2**64:
         raise ValueError(f"seed must be an int in [0, 2^64), got {seed!r}")
@@ -178,10 +183,8 @@ def fused_chain_walk(
     _check_walk_args(seed, tables, init, num_qubits)
     if threads not in (0, 64, 128, 256, 512):
         raise ValueError(f"threads must be 0, 64, 128, 256 or 512, got {threads}")
-    if tables.device.type == "cpu":
+    if _on_cpu(tables):
         return fused_chain_walk_reference(seed, tables, init, num_qubits)
-    if tables.device.type != "cuda":
-        raise ValueError(f"unsupported device {tables.device}")
     t_steps, c, g, n = tables.shape
     if n > _MAX_WALK_N:
         raise ValueError(
@@ -189,6 +192,8 @@ def fused_chain_walk(
             f" got N={n}")
     if c > 65535:
         raise ValueError(f"the CUDA walk takes at most 65,535 rows, got {c}")
+    if tables.device.type != "cuda":
+        raise ValueError(f"unsupported device {tables.device}")
     if not (tables.is_contiguous() and init.is_contiguous()):
         raise ValueError("tables and init must be contiguous")
     s = init.shape[1]
@@ -334,7 +339,7 @@ def fused_chain_step(
     the kernel on the current stream, or raise.
     """
     _check_step_args(seed, table, rows, num_qubits, step, row_base)
-    if table.device.type == "cpu":
+    if _on_cpu(table):
         return fused_chain_step_reference(seed, table, rows, num_qubits, step,
                                           row_base=row_base)
     if table.device.type != "cuda":

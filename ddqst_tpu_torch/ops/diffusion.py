@@ -8,6 +8,10 @@ route's generate mode:
   cross-entropy of the predicted x_0 logits.
 - ``p_sample`` — the per-chain reverse sampler (one denoiser call per step
   for every chain).
+- ``p_denoise`` / ``denoise_dataset`` / ``match_timestep`` — denoise mode:
+  the same reverse chain started from the *measured* shots at the step t*
+  whose cumulative flip probability matches the readout flip rate. Plain
+  torch, as in the JAX package (no kernel: every chain calls the denoiser).
 - ``grid_p1_tables`` / ``p_sample_grid`` / ``sample_all_bases`` — the
   exhaustive-grid sampler: at small N the denoiser's inputs (x_t, t, basis,
   and the circuit for circuit-conditioned models) take only
@@ -44,8 +48,6 @@ tables) to float tolerance.
   and walk through :func:`~ddqst_tpu_torch.ops.cuda_kernels.fused_chain_walk`,
   which takes 2^N up to 2^16 on the card (the JAX package walks these with
   XLA, because its Pallas walk takes 2^N <= 128).
-
-Not ported yet (ROADMAP Queue 1): ``p_denoise`` (denoise mode).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from __future__ import annotations
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
@@ -151,7 +154,16 @@ def p_sample(
     num = basis.shape[0]
     x = (torch.rand((num, num_qubits), generator=generator, device=dev) < 0.5
          ).to(torch.int8)
-    for t in range(schedule.num_timesteps, 0, -1):
+    return _reverse_chain(generator, denoise_fn, x, basis,
+                          schedule.num_timesteps, schedule, exact)
+
+
+def _reverse_chain(generator, denoise_fn, x, basis, t_start: int,
+                   schedule: DiffusionSchedule, exact: bool) -> torch.Tensor:
+    """Steps t_start..1 of the reverse chain from the int8 state ``x``."""
+    dev = x.device
+    num = x.shape[0]
+    for t in range(t_start, 0, -1):
         t_vec = torch.full((num,), t, dtype=torch.int64, device=dev)
         logits = denoise_fn(x, t_vec, basis)
         if exact:
@@ -170,6 +182,65 @@ def p_sample(
                                ) < flip_p
             x = x0_hat ^ flips.to(torch.int8)
     return x
+
+
+@torch.no_grad()
+def p_denoise(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    noisy_bits: torch.Tensor,
+    basis: torch.Tensor,
+    t_star: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+) -> torch.Tensor:
+    """Denoise *measured* bitstrings by reverse diffusion from t*.
+
+    The forward process is a symmetric bit-flip channel, the model of
+    readout error, so each measured shot is taken as x_{t*} where
+    ``cum_flip[t*]`` matches the readout flip rate (:func:`match_timestep`),
+    and the reverse chain runs t*..1 under the same rule as
+    :func:`p_sample`: this inverts the readout channel shot by shot.
+
+    ``noisy_bits`` ``[B, N]`` (one row per shot), ``basis`` ``[B]`` indices
+    or ``[B, N]`` labels, on ``generator``'s device. Returns ``[B, N]``
+    int8 samples of x_0.
+    """
+    exact = _resolve_exact(schedule, exact)
+    return _reverse_chain(generator, denoise_fn, noisy_bits.to(torch.int8),
+                          basis, t_star, schedule, exact)
+
+
+# Rows per p_denoise call in denoise_dataset: bounds one call's activations
+# (2^21 rows of the rqc width's 512-wide blocks: 4.3 GB a float32 tensor).
+_DENOISE_CHAIN_CAP = 1 << 21
+
+
+@torch.no_grad()
+def denoise_dataset(
+    generator: torch.Generator,
+    denoise_fn: DenoiseFn,
+    noisy_bits: torch.Tensor,
+    basis: torch.Tensor,
+    t_star: int,
+    schedule: DiffusionSchedule,
+    exact: bool | None = None,
+) -> torch.Tensor:
+    """:func:`p_denoise` over a flat ``[M, N]`` dataset, at most
+    ``_DENOISE_CHAIN_CAP`` rows a call. Returns ``[M, N]`` int8."""
+    cap = _DENOISE_CHAIN_CAP
+    return torch.cat([
+        p_denoise(generator, denoise_fn, noisy_bits[lo:lo + cap],
+                  basis[lo:lo + cap], t_star, schedule, exact)
+        for lo in range(0, noisy_bits.shape[0], cap)
+    ])
+
+
+def match_timestep(schedule: DiffusionSchedule, flip_prob: float) -> int:
+    """Smallest t with cum_flip[t] >= flip_prob (clamped to [1, T])."""
+    cf = schedule.cum_flip.cpu().numpy()
+    idx = int(np.searchsorted(cf, flip_prob))
+    return max(1, min(idx, schedule.num_timesteps))
 
 
 def _grid_p1_table(
@@ -697,14 +768,18 @@ def sample_for_bases(
       ``B·2^N`` (basis-row, x) grid, then one table walk; ``timings`` gets
       ``'tables'`` and ``'walk'``.
     - ``'auto'`` — tables when chains outnumber grid rows (``shots >=
-      2^N``), direct otherwise.
+      2^N``) and the CUDA walk takes the N (``cuda_kernels._MAX_WALK_N``),
+      direct otherwise. Both sample the same chain; the JAX package walks
+      any N with XLA, the port's walk is the kernel, so above its N the
+      direct sampler runs on every device.
     """
     dev = _check_generator(generator, device)
     if mode not in ("auto", "tables", "direct"):
         raise ValueError(f"unknown mode {mode!r}")
     labels = torch.as_tensor(basis_labels, device=dev).long()
     b, n = labels.shape
-    if mode == "tables" or (mode == "auto" and shots >= 2**n):
+    if mode == "tables" or (mode == "auto" and shots >= 2**n
+                            and n <= cuda_kernels._MAX_WALK_N):
         return sample_for_bases_tables(generator, denoise_fn, labels, shots,
                                        schedule, exact=exact, device=dev,
                                        timings=timings)

@@ -1,7 +1,7 @@
 """End-to-end tomography pipeline: generate → train → sample → reconstruct.
 
 The port's counterpart of ``ddqst_tpu/pipeline.py``. ``run_experiment`` is
-the full route in generate mode:
+the full route; in generate mode:
 
 1. simulate shots in all 3^N bases (:func:`generate_training_data`);
 2. train the denoiser on the denoising cross-entropy (``train.fit``);
@@ -17,6 +17,12 @@ the full route in generate mode:
 8. compute the metrics (``ops.metrics``), plus the reference's control:
    linear inversion of the raw training shots.
 
+In denoise mode (``infer_mode='denoise'``) steps 3-5 become one: the
+measured shots, tiled to cover ``shots_infer``, are reverse-diffused from
+the step t* matched to the readout flip rate
+(``ops.diffusion.denoise_dataset``), and the samples are reconstructed over
+the measured bases without readout mitigation.
+
 For ``N > 8``, or ``N >= 7`` with ``max_bases``, ``run_experiment`` takes
 the shadow route instead (``_run_shadow_experiment``): a transformer
 conditioned on per-qubit basis labels, trained on the sampled bases,
@@ -27,8 +33,8 @@ probabilities of the clean target per basis (no density matrix). With
 ``gen_tables_once`` the full route generates through
 ``ops.diffusion.sample_all_bases_chunked``: the tables once, then walks.
 
-Options not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item, before any work is done: denoise mode, checkpoints and meshes.
+A mesh (multi-device) is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item before any work is done.
 
 The data cache keeps the JAX package's npz schema, so each package reads
 the other's cache. ``params_load`` / ``params_save`` read and write a
@@ -188,6 +194,29 @@ def load_data_cache(path: str, device="cpu") -> GeneratedData:
         )
 
 
+def ensure_data_cache(cfg: ExperimentConfig, seed: int, path: str,
+                      log_fn: Callable = print,
+                      device: str | torch.device | None = None) -> str:
+    """Fill a data cache at ``path`` if it is absent; a no-op when it exists.
+
+    The streams are :func:`run_experiment`'s (the data generator of
+    ``_generators(seed, device)`` and ``np.random.default_rng(seed)``), so
+    the cache holds exactly the data a run with this seed on ``device``
+    would have generated itself. Returns ``path``.
+    """
+    if os.path.exists(path):
+        return path
+    dev = resolve_device(device)
+    g_data, _, _ = _generators(seed, dev)
+    log_fn(f"[{cfg.name}] datagen: {cfg.data.state_type} "
+           f"N={cfg.data.num_qubits} noise={cfg.data.noise_type} "
+           f"shots={cfg.data.shots_train} -> {path}")
+    data = generate_training_data(cfg, g_data, np.random.default_rng(seed))
+    if not os.path.exists(path):  # another process may have written it
+        save_data_cache(path, data)
+    return path
+
+
 def flatten_for_training(
     bits: torch.Tensor, basis_idx: np.ndarray
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -202,18 +231,11 @@ def use_shadow_route(num_qubits: int, max_bases: int | None) -> bool:
     return num_qubits > 8 or (num_qubits >= 7 and bool(max_bases))
 
 
-def _check_ported(cfg: ExperimentConfig, mesh) -> None:
-    """Raise for every option this slice does not run (never skip one)."""
-    unported = [
-        (cfg.diffusion.infer_mode == "denoise",
-         "infer_mode='denoise': ROADMAP Queue 1 item 7"),
-        (bool(cfg.train.checkpoint_dir) or cfg.train.resume,
-         "training checkpoints: ROADMAP Queue 1 item 10"),
-        (mesh is not None, "meshes / multi-device: ROADMAP Queue 1 item 10"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+def _check_ported(mesh) -> None:
+    """Raise for the one option the port does not run (never skip it)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported yet: meshes / multi-device: ROADMAP Queue 1 item 6")
 
 
 def _generator(ss: np.random.SeedSequence, device) -> torch.Generator:
@@ -354,15 +376,17 @@ def run_experiment(
     data_cache: str = "",
     device: str | torch.device | None = None,
 ) -> dict:
-    """Full-route run in generate mode. Returns a metrics dict.
+    """Full-route run. Returns a metrics dict.
 
     Keys as in the JAX package: fidelity, raw_fidelity,
     raw_fidelity_mitigated, trace_distance, trace_distance_raw,
     expectations, expectations_raw, purity, vn_entropy, ent_entropy, z_bias,
     losses, rho, rho_raw, target, state (the trained model), samples; plus
     ``timings`` (seconds per stage: datagen, train, with distillation target
-    and distill, then tables, walk, inversion, metrics; the device is
-    synchronised at each boundary), ``train_steps``, ``mle_iterations``
+    and distill, then tables and walk (generate mode) or denoise (denoise
+    mode), inversion, metrics; the device is synchronised at each
+    boundary), ``train_steps`` (optimiser steps run in this call),
+    ``mle_iterations``
     (updates applied by each MLE solve that ran: ``target``, ``samples``,
     ``raw``) and, after distillation, ``chain_info`` (``train_ce_before`` /
     ``train_ce_after``, and with a held-out split ``val_history``,
@@ -375,7 +399,16 @@ def run_experiment(
     read if it exists and written otherwise.
 
     ``cfg.train.chain_finetune_steps > 0`` runs exact-chain distillation
-    (it needs all 3^N bases; otherwise it is skipped with a warning).
+    (it needs generate mode and all 3^N bases; otherwise it is skipped with
+    a warning). ``cfg.diffusion.infer_mode='denoise'`` reverse-diffuses the
+    measured shots instead of generating: t* = ``match_timestep(schedule,
+    max(readout_p, 0.01))``, the training shots tiled ``reps =
+    max(ceil(shots_infer / shots_train), 1)`` times (samples ``[B_bases,
+    reps·S, N]``, each basis' rep 0 first), conditioned on
+    ``data.basis_idx``, reconstructed over ``data.basis_labels`` without
+    readout mitigation; ``z_bias`` is the Z…Z row's, or None when that
+    basis was not measured. ``cfg.train.checkpoint_dir`` /
+    ``checkpoint_every`` / ``resume`` reach ``train.fit``.
     ``target_cache`` (``chain_target='mle'``): npz path of the MLE-projected
     Born-probabilities target, read if it exists and written otherwise.
     ``opt_load`` / ``opt_save``: ``torch.save`` paths of the distillation
@@ -387,11 +420,12 @@ def run_experiment(
     ``sample_all_bases_chunked`` (the tables once, then the walks).
 
     For ``N > 8``, or ``N >= 7`` with ``max_bases`` (``use_shadow_route``),
-    the run takes the shadow route after the data step; see
+    the run takes the shadow route after the data step, in either inference
+    mode (it never reads ``infer_mode``, as in the JAX package); see
     :func:`_run_shadow_experiment` for its results.
     """
     dev = resolve_device(device)
-    _check_ported(cfg, mesh)
+    _check_ported(mesh)
     n = cfg.data.num_qubits
     rng = np.random.default_rng(seed)
     g_data, g_train, g_sample = _generators(seed, dev)
@@ -436,26 +470,152 @@ def run_experiment(
             device=dev,
         )
         train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]), 1)
-                       * cfg.train.num_epochs)
+                       * len(losses))
     synchronize(dev)
     timings["train"] = time.perf_counter() - t0
 
+    denoised = cfg.diffusion.infer_mode == "denoise"
     ft_info = ft_losses = None
     mle_iterations: dict[str, int] = {}
     if cfg.train.chain_finetune_steps > 0:
-        if len(data.basis_idx) == 3**n:
+        if not denoised and len(data.basis_idx) == 3**n:
             ft_losses, ft_info = _distill(
                 cfg, seed, data, model, schedule, dev, target_cache,
                 opt_load, opt_save, timings, mle_iterations, log_fn)
         else:
             log_fn(f"[{cfg.name}] WARNING: chain distillation skipped (needs "
-                   "the full canonical basis set)")
+                   "infer_mode='generate' and the full canonical basis set)")
     if params_save:
         save_params(params_save, model)
         log_fn(f"[{cfg.name}] saved params to {params_save}")
     if stop_after == "distill":
         return _distill_only(losses, ft_losses, ft_info)
 
+    if denoised:
+        samples = _denoise_shots(cfg, data, model, schedule, g_sample, dev,
+                                 timings, log_fn)
+    else:
+        samples = _generate(cfg, model, schedule, g_sample, dev, timings,
+                            log_fn)
+
+    t0 = time.perf_counter()
+    mit_p = 0.0
+    if cfg.data.mitigate_readout:
+        mit_p = noise.get_noise_config(cfg.data.noise_type).readout_p
+    # Samples are already clean when the reverse chain inverted the readout
+    # channel (denoise mode) or the model was trained on mitigated data;
+    # mitigating them again would over-correct.
+    sample_p = 0.0 if denoised or cfg.data.mitigate_train_data else mit_p
+    use_mle = cfg.data.reconstruction == "mle"
+
+    def reconstruct(counts, labels, p, what):
+        # Counts-native both ways: scatter-add histogram, then the MLE
+        # iteration or the WHT parities.
+        if use_mle:
+            solve: dict = {}
+            rho = mle.make_mle(n, labels, readout_p=p)(counts, solve)
+            mle_iterations[what] = solve["iterations"]
+            return rho
+        return pauli.make_counts_inverter(n, labels, readout_p=p)(counts)
+
+    rho = reconstruct(bits_to_counts(samples),
+                      data.basis_labels if denoised else None, sample_p,
+                      "samples")
+    # Baseline: unmitigated linear inversion of the raw training shots,
+    # plus the configured estimator where it differs.
+    raw_counts = bits_to_counts(data.bits)
+    rho_raw = pauli.make_counts_inverter(n, data.basis_labels)(raw_counts)
+    rho_raw_mit = None
+    if mit_p > 0 or use_mle:
+        rho_raw_mit = reconstruct(raw_counts, data.basis_labels, mit_p, "raw")
+    synchronize(dev)
+    timings["inversion"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if denoised:
+        # The Z...Z basis may be missing from the measured set: the
+        # diagnostic is then reported as missing, not as its ideal value.
+        zz_rows = np.nonzero((np.asarray(data.basis_labels) == 2).all(axis=1))[0]
+        zb = float(M.z_bias(samples[int(zz_rows[0])])) if len(zz_rows) else None
+    else:
+        zb = float(M.z_bias(samples[-1]))  # the last canonical basis is Z...Z
+    target = torch.from_numpy(np.asarray(data.target)).to(dev)
+    pur, vn, ent = M.get_metrics(rho, n)
+    results = {
+        "fidelity": float(M.state_fidelity(target, rho)),
+        "raw_fidelity": float(M.state_fidelity(target, rho_raw)),
+        "raw_fidelity_mitigated": (
+            None if rho_raw_mit is None
+            else float(M.state_fidelity(target, rho_raw_mit))
+        ),
+        "trace_distance": float(M.trace_distance(target, rho)),
+        "trace_distance_raw": float(M.trace_distance(target, rho_raw)),
+        # Single-site ⟨X⟩/⟨Y⟩/⟨Z⟩ per qubit.
+        "expectations": M.pauli_expectations(rho),
+        "expectations_raw": M.pauli_expectations(rho_raw),
+        "purity": float(pur),
+        "vn_entropy": float(vn),
+        "ent_entropy": float(ent),
+        "z_bias": zb,
+        "losses": losses.detach().cpu().numpy(),
+        "rho": rho.cpu().numpy(),
+        "rho_raw": rho_raw.cpu().numpy(),
+        "target": np.asarray(data.target),
+        "state": model,
+        "samples": samples,
+        "train_steps": train_steps,
+        "timings": timings,
+        "mle_iterations": mle_iterations,
+    }
+    if ft_info is not None:
+        results["chain_info"] = ft_info
+        results["ft_losses"] = ft_losses.cpu().numpy()
+    timings["metrics"] = time.perf_counter() - t0
+    log_fn(
+        f"[{cfg.name}] fidelity={results['fidelity']:.5f} "
+        f"(raw baseline {results['raw_fidelity']:.5f}) "
+        f"trace_distance={results['trace_distance']:.5f} "
+        f"purity={results['purity']:.5f}"
+    )
+    threshold = 0.9  # reference success criterion
+    ok = results["fidelity"] > threshold
+    log_fn(
+        f"[{cfg.name}] {'SUCCESS' if ok else 'WARNING'}"
+        f": fidelity {'>' if ok else '<='} {threshold}"
+    )
+    return results
+
+
+def _denoise_shots(cfg: ExperimentConfig, data: GeneratedData, model,
+                   schedule, g_sample: torch.Generator, dev: torch.device,
+                   timings: dict, log_fn: Callable) -> torch.Tensor:
+    """Denoise mode: reverse-diffuse the measured shots, tiled ``reps``
+    times, from the step matched to the readout flip rate. Returns ``[B,
+    reps·S, N]`` int8, each basis' rep 0 first; ``timings['denoise']``."""
+    ncfg = noise.get_noise_config(cfg.data.noise_type)
+    t_star = diff.match_timestep(schedule, max(ncfg.readout_p, 0.01))
+    reps = max(-(-cfg.data.shots_infer // cfg.data.shots_train), 1)
+    log_fn(f"[{cfg.name}] denoising measured shots x{reps} from t*={t_star}")
+    t0 = time.perf_counter()
+    b_bases, s, n = data.bits.shape
+    flat_bits = data.bits.reshape(b_bases * s, n).repeat(reps, 1)
+    flat_basis = torch.from_numpy(np.asarray(data.basis_idx, np.int64)).to(
+        dev).repeat_interleave(s).repeat(reps)
+    out = diff.denoise_dataset(g_sample, model, flat_bits, flat_basis, t_star,
+                               schedule, exact=cfg.diffusion.exact)
+    samples = (out.reshape(reps, b_bases, s, n).transpose(0, 1)
+               .reshape(b_bases, reps * s, n))
+    synchronize(dev)
+    timings["denoise"] = time.perf_counter() - t0
+    return samples
+
+
+def _generate(cfg: ExperimentConfig, model, schedule,
+              g_sample: torch.Generator, dev: torch.device, timings: dict,
+              log_fn: Callable) -> torch.Tensor:
+    """Generate mode: ``shots_infer`` samples in every canonical basis
+    through the grid tables and the walk; ``timings['tables'|'walk']``."""
+    n = cfg.data.num_qubits
     if diff._resolve_exact(schedule, cfg.diffusion.exact):
         log_fn(
             f"[{cfg.name}] NOTE: exact factorised posterior in use "
@@ -486,83 +646,7 @@ def run_experiment(
                 timings[k] += v
         samples = (torch.cat(chunks, dim=1)[:, :shots] if n_calls > 1
                    else chunks[0])
-
-    t0 = time.perf_counter()
-    mit_p = 0.0
-    if cfg.data.mitigate_readout:
-        mit_p = noise.get_noise_config(cfg.data.noise_type).readout_p
-    # Samples of a model trained on mitigated data are already clean;
-    # mitigating them again would over-correct.
-    sample_p = 0.0 if cfg.data.mitigate_train_data else mit_p
-    use_mle = cfg.data.reconstruction == "mle"
-
-    def reconstruct(counts, labels, p, what):
-        # Counts-native both ways: scatter-add histogram, then the MLE
-        # iteration or the WHT parities.
-        if use_mle:
-            solve: dict = {}
-            rho = mle.make_mle(n, labels, readout_p=p)(counts, solve)
-            mle_iterations[what] = solve["iterations"]
-            return rho
-        return pauli.make_counts_inverter(n, labels, readout_p=p)(counts)
-
-    rho = reconstruct(bits_to_counts(samples), None, sample_p, "samples")
-    # Baseline: unmitigated linear inversion of the raw training shots,
-    # plus the configured estimator where it differs.
-    raw_counts = bits_to_counts(data.bits)
-    rho_raw = pauli.make_counts_inverter(n, data.basis_labels)(raw_counts)
-    rho_raw_mit = None
-    if mit_p > 0 or use_mle:
-        rho_raw_mit = reconstruct(raw_counts, data.basis_labels, mit_p, "raw")
-    synchronize(dev)
-    timings["inversion"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    target = torch.from_numpy(np.asarray(data.target)).to(dev)
-    pur, vn, ent = M.get_metrics(rho, n)
-    results = {
-        "fidelity": float(M.state_fidelity(target, rho)),
-        "raw_fidelity": float(M.state_fidelity(target, rho_raw)),
-        "raw_fidelity_mitigated": (
-            None if rho_raw_mit is None
-            else float(M.state_fidelity(target, rho_raw_mit))
-        ),
-        "trace_distance": float(M.trace_distance(target, rho)),
-        "trace_distance_raw": float(M.trace_distance(target, rho_raw)),
-        # Single-site ⟨X⟩/⟨Y⟩/⟨Z⟩ per qubit.
-        "expectations": M.pauli_expectations(rho),
-        "expectations_raw": M.pauli_expectations(rho_raw),
-        "purity": float(pur),
-        "vn_entropy": float(vn),
-        "ent_entropy": float(ent),
-        "z_bias": float(M.z_bias(samples[-1])),  # last basis is Z...Z
-        "losses": losses.detach().cpu().numpy(),
-        "rho": rho.cpu().numpy(),
-        "rho_raw": rho_raw.cpu().numpy(),
-        "target": np.asarray(data.target),
-        "state": model,
-        "samples": samples,
-        "train_steps": train_steps,
-        "timings": timings,
-        "mle_iterations": mle_iterations,
-    }
-    if ft_info is not None:
-        results["chain_info"] = ft_info
-        results["ft_losses"] = ft_losses.cpu().numpy()
-    timings["metrics"] = time.perf_counter() - t0
-    log_fn(
-        f"[{cfg.name}] fidelity={results['fidelity']:.5f} "
-        f"(raw baseline {results['raw_fidelity']:.5f}) "
-        f"trace_distance={results['trace_distance']:.5f} "
-        f"purity={results['purity']:.5f}"
-    )
-    threshold = 0.9  # reference success criterion
-    ok = results["fidelity"] > threshold
-    log_fn(
-        f"[{cfg.name}] {'SUCCESS' if ok else 'WARNING'}"
-        f": fidelity {'>' if ok else '<='} {threshold}"
-    )
-    return results
+    return samples
 
 
 def _distill_only(losses, ft_losses, ft_info) -> dict:
@@ -636,7 +720,7 @@ def _run_shadow_experiment(
             g_train, model, x, labels.repeat_interleave(s, dim=0), cfg.train,
             schedule, log_fn=log_fn, device=dev)
         train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]),
-                           1) * cfg.train.num_epochs)
+                           1) * len(losses))
     synchronize(dev)
     timings["train"] = time.perf_counter() - t0
 

@@ -20,6 +20,12 @@ from ddqst_tpu_torch.qsim import gates as G
 _ROT1 = np.stack([G.H, G.H @ G.SDG, G.I])  # [3, 2, 2]: X, Y, Z
 
 
+def rotation_unitary(basis_label) -> np.ndarray:
+    """Full-space rotation for one basis label (ints 0=X, 1=Y, 2=Z; index q
+    = qubit q), complex64 ``[2^N, 2^N]``."""
+    return rotation_unitaries(np.asarray(basis_label)[None])[0]
+
+
 def rotation_unitaries(basis_labels: np.ndarray) -> np.ndarray:
     """``[B, d, d]`` complex64 rotations for a stack of basis labels
     (ints 0=X, 1=Y, 2=Z; column q = qubit q)."""
@@ -31,6 +37,16 @@ def rotation_unitaries(basis_labels: np.ndarray) -> np.ndarray:
             mats.shape[0], mats.shape[1] * 2, mats.shape[2] * 2
         )
     return mats
+
+
+def measurement_probs(psi, basis_label) -> torch.Tensor:
+    """Outcome probabilities ``[2^N]`` float32 of measuring ``psi`` (a
+    complex statevector: a numpy array, or a tensor on any device) in one
+    Pauli basis."""
+    psi = torch.as_tensor(psi)
+    u = torch.from_numpy(rotation_unitary(basis_label)).to(psi.device)
+    phi = u @ psi.to(torch.complex64)
+    return phi.real.square() + phi.imag.square()
 
 
 def batched_probs_pure(psis: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ The port's counterpart of ``ddqst_tpu/qsim/noise.py``:
 Gate-level channels need density-matrix simulation; ρ is at most 2^N x 2^N
 at the full route's sizes, so evolution stays host-side numpy (as in the
 JAX package). Readout noise acts as a confusion matrix on the Born
-probabilities, a torch op on the caller's device.
+probabilities, a torch op on the caller's device, or bit by bit on shots
+(``flip_bits``).
 """
 
 from __future__ import annotations
@@ -83,6 +84,16 @@ def apply_readout_to_probs(
         return probs
     m = torch.from_numpy(confusion_matrix(num_qubits, p)).to(probs.device)
     return torch.einsum("ij,...j->...i", m, probs)
+
+
+def flip_bits(generator: torch.Generator, bits: torch.Tensor,
+              p: float) -> torch.Tensor:
+    """Flip each bit independently with probability ``p`` (bit-level
+    readout noise): an XOR with Bernoulli(p) draws from ``generator``, on
+    ``bits``' device."""
+    flips = torch.rand(bits.shape, generator=generator,
+                       device=bits.device) < p
+    return bits ^ flips.to(bits.dtype)
 
 
 # --- Gate-level channels (host-side density-matrix simulation) --------------

@@ -2,7 +2,7 @@
 
 The port's copy of ``ddqst_tpu/qsim/states.py`` (state preparation for
 plus / bell / ghz / w / rqc, the dataset builders' circuit hash, batched
-statevectors). Circuit construction is tiny scalar work and stays on the
+statevectors, the full circuit unitary and the named states' vectors). Circuit construction is tiny scalar work and stays on the
 host; ``prep_circuit`` draws from the caller's ``np.random.Generator``
 exactly as the JAX package does, so one seed gives the same circuit and
 target in both packages.
@@ -82,6 +82,15 @@ def circuit_statevector(circuit: Circuit) -> np.ndarray:
     return psi
 
 
+def circuit_unitary(circuit: Circuit) -> np.ndarray:
+    """Full circuit unitary (complex64, shape [2^N, 2^N])."""
+    n = circuit.num_qubits
+    u = np.eye(2**n, dtype=np.complex64)
+    for g in circuit.gates:
+        u = apply_gate_to(u, G.gate_matrix(g.name, g.params), g.qubits, n)
+    return u
+
+
 def batch_statevectors(circuits: list[Circuit]) -> np.ndarray:
     """Exact statevectors ``[C, 2^N]`` complex64 for a batch of circuits
     (the numpy path; the JAX package's native C++ engine is not ported)."""
@@ -143,3 +152,27 @@ def random_circuit(rng: np.random.Generator, num_qubits: int, depth: int) -> Cir
             params = tuple(float(x) for x in rng.uniform(0, 2 * np.pi, n_par))
             gs.append(Gate(name, qs, params))
     return Circuit(num_qubits, tuple(gs), depth=depth)
+
+
+def plus_state(n: int) -> np.ndarray:
+    return np.full(2**n, 1 / np.sqrt(2**n), dtype=np.complex64)
+
+
+def bell_state() -> np.ndarray:
+    psi = np.zeros(4, dtype=np.complex64)
+    psi[0] = psi[3] = 1 / np.sqrt(2)
+    return psi
+
+
+def ghz_state(n: int) -> np.ndarray:
+    psi = np.zeros(2**n, dtype=np.complex64)
+    psi[0] = psi[-1] = 1 / np.sqrt(2)
+    return psi
+
+
+def w_state(n: int) -> np.ndarray:
+    """|W_n⟩: equal superposition of single-excitation basis states."""
+    psi = np.zeros(2**n, dtype=np.complex64)
+    for q in range(n):
+        psi[1 << q] = 1 / np.sqrt(n)
+    return psi

@@ -19,8 +19,10 @@ no weight decay, eps outside the root) on the cross-entropy between the
 sampler's exact output distribution
 (``ops.diffusion.chain_distribution``) and the training counts.
 
-Not ported yet: checkpoints and resume, and data/model-parallel meshes
-(ROADMAP Queue 1 item 10); each raises ``NotImplementedError``.
+``fit`` checkpoints its training state every ``checkpoint_every`` epochs
+and at the end, and resumes from the newest checkpoint
+(``utils.checkpoint``). Not ported yet: data/model-parallel meshes (ROADMAP
+Queue 1 item 6); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ddqst_tpu_torch.device import resolve_device
 from ddqst_tpu_torch.models.d3pm import init_params_
 from ddqst_tpu_torch.ops.diffusion import chain_distribution, denoising_loss
 from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
+from ddqst_tpu_torch.utils import checkpoint as ckpt
 
 _ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
@@ -145,22 +148,37 @@ def fit(
     log_fn: Callable = print,
     device: str | torch.device | None = None,
 ) -> tuple[torch.nn.Module, torch.Tensor]:
-    """Full training run. Returns (model, per-epoch mean losses ``[E]``).
+    """Full training run. Returns (model, per-epoch mean losses of the
+    epochs run in this call).
 
     The model's parameters are re-drawn from flax's initialisers with
     ``generator`` (as the JAX package's ``fit`` creates its params), then
     trained on ``device`` (default CUDA; raises if CUDA is absent and
     ``device`` was not given). ``generator`` lives on that device and drives
     the initialisation, the permutations, the timesteps and the noise.
+
+    Checkpoints (``cfg.checkpoint_dir``): after every ``checkpoint_every``
+    epochs (0: none) and at the end, ``utils.checkpoint.save_checkpoint``
+    writes, under the epoch count, the model's and the optimiser's state
+    dicts, ``step`` (optimiser steps, the JAX package's ``state.step``) and
+    ``generator``'s state; the end's save is skipped when that epoch was
+    already saved, and then holds the parameters before the EMA, as orbax's
+    manager does in the JAX package. With ``cfg.resume`` the newest
+    checkpoint is restored (after the initialisation draws) and training
+    runs its remaining epochs. The JAX package does not save its key: its
+    per-epoch ``fold_in`` stream replays the skipped epochs' keys. The port
+    draws from one advancing generator, so it saves and restores its state:
+    a run resumed from epoch k equals, bit for bit on the CPU, the
+    uninterrupted run of the same total epochs, as long as the learning
+    rate does not depend on the total (a constant rate, or the same
+    ``num_epochs`` in both), and without EMA. The EMA is not saved: it
+    starts from zero on resume and averages only the epochs run in this
+    call, as in the JAX package (``ddqst_tpu/train.py:640-668``).
     """
     dev = resolve_device(device)
     if mesh is not None or cfg.data_axis != 1 or cfg.model_axis != 1:
         raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP Queue 1 item 10)"
-        )
-    if cfg.checkpoint_dir or cfg.resume:
-        raise NotImplementedError(
-            "training checkpoints are not ported yet (ROADMAP Queue 1 item 10)"
+            "multi-device training is not ported yet (ROADMAP Queue 1 item 6)"
         )
     if resolve_device(generator.device) != dev:
         raise ValueError(f"generator on {generator.device}, expected {dev}")
@@ -174,13 +192,28 @@ def fit(
     opt = make_optimizer(cfg, model.parameters())
 
     params = list(model.parameters())
+    step = 0
+    start_epoch = 0
+    if cfg.checkpoint_dir and cfg.resume and ckpt.latest_step(
+            cfg.checkpoint_dir) is not None:
+        state, start_epoch = ckpt.restore_checkpoint(cfg.checkpoint_dir)
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["optimizer"])
+        generator.set_state(state["generator"])
+        step = int(state["step"])
+        log_fn(f"resumed from checkpoint at epoch {start_epoch}")
+
+    def save(epoch: int) -> None:
+        ckpt.save_checkpoint(cfg.checkpoint_dir, {
+            "model": model.state_dict(), "optimizer": opt.state_dict(),
+            "step": step, "generator": generator.get_state()}, epoch)
+
     ema = None
     ema_epochs = 0
     losses = []
-    step = 0
     t_start = time.perf_counter()
     model.train()
-    for epoch in range(cfg.num_epochs):
+    for epoch in range(start_epoch, cfg.num_epochs):
         loss, n = _run_epoch(model, opt, lr_fn, step, generator, bits, basis,
                              schedule, cfg.batch_size, t_max=cfg.t_max)
         step += n
@@ -207,11 +240,16 @@ def fit(
                            eval_basis.to(dev, torch.int64), schedule,
                            cfg.batch_size)
             log_fn(f"  val loss {float(vl):.4f}")
+        if (cfg.checkpoint_dir and cfg.checkpoint_every
+                and (epoch + 1) % cfg.checkpoint_every == 0):
+            save(epoch + 1)
     if ema is not None:
         debias = 1.0 / (1.0 - cfg.ema_decay**ema_epochs)
         with torch.no_grad():
             for e, p in zip(ema, params):
                 p.copy_(e * debias)
+    if cfg.checkpoint_dir:
+        save(cfg.num_epochs)
     model.eval()
     return model, torch.stack(losses) if losses else torch.zeros(0)
 

@@ -1,18 +1,77 @@
-"""Params snapshots as ``torch.save`` state dicts.
+"""Training checkpoints and params snapshots as ``torch.save`` files.
 
-The port's counterpart of ``save_params`` / ``restore_params`` in
-``ddqst_tpu/utils/checkpoint.py``, and of the distillation Adam-state
-snapshots (``_save_chain_opt`` / ``_load_chain_opt`` in
-``ddqst_tpu/pipeline.py``). The orbax checkpoint manager (train state,
-resume) is not ported yet (ROADMAP Queue 1 item 10).
+The port's counterpart of ``ddqst_tpu/utils/checkpoint.py``:
+
+- ``save_checkpoint`` / ``latest_step`` / ``restore_checkpoint`` — the
+  training state (a dict: ``train.fit`` saves the model's state dict, the
+  optimiser's, the optimiser step count and its ``torch.Generator``'s state)
+  under ``ckpt_dir/<step>/checkpoint.pt``, written atomically (a temporary
+  directory, then a rename), the 3 newest kept, as the orbax manager's
+  ``max_to_keep=3`` keeps them, and a step at or below the newest kept one
+  not written again (orbax's ``should_save``);
+- ``save_params`` / ``restore_params`` — strict params snapshots;
+- ``save_chain_opt`` / ``restore_chain_opt`` — the distillation Adam state
+  (``_save_chain_opt`` / ``_load_chain_opt`` in ``ddqst_tpu/pipeline.py``).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
 import torch
 from torch import nn
+
+_MAX_TO_KEEP = 3
+_CKPT_FILE = "checkpoint.pt"
+
+
+def _steps(ckpt_dir: str) -> list[int]:
+    """The complete checkpoints' steps under ``ckpt_dir``, ascending."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d) for d in os.listdir(ckpt_dir)
+                  if d.isdigit() and os.path.exists(
+                      os.path.join(ckpt_dir, d, _CKPT_FILE)))
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The newest checkpoint's step, or None when there is none."""
+    steps = _steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(ckpt_dir: str, state: dict, step: int) -> bool:
+    """Write ``state`` (a dict of tensors, state dicts and ints) as the
+    checkpoint of ``step``, then delete all but the 3 newest. Returns False,
+    writing nothing, when a checkpoint at ``step`` or later exists."""
+    last = latest_step(ckpt_dir)
+    if last is not None and last >= step:
+        return False
+    final = os.path.join(ckpt_dir, str(step))
+    tmp = f"{final}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(state, os.path.join(tmp, _CKPT_FILE))
+    os.replace(tmp, final)
+    for old in _steps(ckpt_dir)[:-_MAX_TO_KEEP]:
+        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    return True
+
+
+def restore_checkpoint(ckpt_dir: str,
+                       step: int | None = None) -> tuple[dict, int]:
+    """Load the checkpoint of ``step`` (default: the newest) onto the CPU
+    (``load_state_dict`` moves each part to its model's or optimiser's
+    device). Returns ``(state, step)``; raises ``FileNotFoundError`` when
+    there is none."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    state = torch.load(os.path.join(ckpt_dir, str(step), _CKPT_FILE),
+                       map_location="cpu", weights_only=True)
+    return state, step
 
 
 def save_params(path: str, model: nn.Module) -> None:

@@ -302,3 +302,109 @@ def test_finetune_chain_on_the_card_follows_the_cpu(cuda):
     np.testing.assert_allclose(l1.cpu().numpy(), l0.numpy(), rtol=1e-4)
     assert i1["train_ce_after"] == pytest.approx(i0["train_ce_after"],
                                                  rel=1e-4)
+
+
+def _tv_bound(g, shots):
+    return 4 * np.sqrt(g / (2 * np.pi * shots))  # 4 shot-noise scales
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_plain_mlp_tables_and_walk_on_the_card(cuda, n):
+    """A notebook-width PlainMLP on the card: its grid tables equal the
+    CPU's, ``sample_all_bases`` takes one walk launch (3^N x 20,000 chains,
+    above 32·6^N), and the samples follow the exact chain distribution."""
+    from ddqst_tpu_torch.config import ModelConfig
+    from ddqst_tpu_torch.models import build_model
+
+    model = build_model(ModelConfig(arch="plain_mlp", embed_dim=32,
+                                    hidden_dim=128, num_blocks=2), n, 100)
+    d3pm.init_params_(model, torch.Generator().manual_seed(n))
+    with torch.no_grad():  # the zero-initialised head would hide the network
+        model.output_head.weight.normal_(
+            0, 0.3, generator=torch.Generator().manual_seed(9))
+    sched = schedules.notebook_schedule(100)
+    cpu_tables = diff.grid_p1_tables(model.eval(), n, sched)
+    dist = diff.sampler_distribution(model, n, sched).double()
+    model = model.to(cuda)
+    sched_c = sched.to(cuda)
+    torch.testing.assert_close(diff.grid_p1_tables(model, n, sched_c).cpu(),
+                               cpu_tables, rtol=0, atol=1e-5)
+    shots = 20_000
+    before = ck.fused_chain_walk.launches
+    out = diff.sample_all_bases(torch.Generator(device=cuda).manual_seed(0),
+                                model, n, shots, sched_c)
+    torch.cuda.synchronize()
+    assert ck.fused_chain_walk.launches == before + 1
+    assert out.shape == (3**n, shots, n) and out.is_cuda
+    idx = (out.long() * (1 << torch.arange(n, device=cuda))).sum(-1).cpu()
+    hist = torch.stack([torch.bincount(r, minlength=2**n) for r in idx]) / shots
+    tv = 0.5 * (hist.double() - dist).abs().sum(-1)
+    assert bool((tv < _tv_bound(2**n, shots)).all()), tv
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_p_denoise_on_the_card_follows_the_exact_propagation(cuda, exact):
+    """Denoise mode on the card, from fixed one-hot starts: the histogram is
+    within 4 shot-noise scales (TV) of the exact propagation of the model's
+    grid tables (computed on the CPU) over steps t*..1; no kernel runs."""
+    t_steps, t_star, shots = 10, 4, 50_000
+    sched = schedules.cosine_schedule(t_steps)
+    tables = diff.grid_p1_tables(_small_model("cpu").eval(), 3, sched,
+                                 exact=exact).double().reshape(t_steps, 27, 8, 3)
+    y = ((torch.arange(8)[:, None] >> torch.arange(3)) & 1).double()
+    starts = [(26, 0), (5, 7), (13, 2)]
+    basis = torch.tensor([b for b, _ in starts]).repeat_interleave(shots)
+    x0 = torch.tensor([[(x >> q) & 1 for q in range(3)] for _, x in starts],
+                      dtype=torch.int8).repeat_interleave(shots, dim=0)
+    before = (ck.fused_chain_walk.launches, ck.fused_chain_step.launches)
+    out = diff.p_denoise(torch.Generator(device=cuda).manual_seed(0),
+                         _small_model(cuda).eval(), x0.to(cuda),
+                         basis.to(cuda), t_star, sched.to(cuda), exact=exact)
+    torch.cuda.synchronize()
+    assert (ck.fused_chain_walk.launches, ck.fused_chain_step.launches) == before
+    assert out.is_cuda and out.dtype == torch.int8
+    idx = (out.long().cpu() * (1 << torch.arange(3))).sum(-1).reshape(3, shots)
+    for row, (b, x) in enumerate(starts):
+        dist = torch.zeros(8, dtype=torch.float64)
+        dist[x] = 1.0
+        for t in range(t_star, 0, -1):
+            p1 = tables[t_steps - t, b][:, None, :]
+            dist = dist @ (p1 * y + (1 - p1) * (1 - y)).prod(-1)
+        hist = torch.bincount(idx[row], minlength=8).double() / shots
+        tv = float(0.5 * (hist - dist).abs().sum())
+        assert tv < _tv_bound(8, shots), (b, x, tv)
+
+
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """``fit`` on the card saves model, optimiser, step and the CUDA
+    generator's state, and a resume runs the remaining epochs from them:
+    the resumed run's losses follow the uninterrupted run's (not bit for
+    bit: the card's embedding backward accumulates with atomics)."""
+    import dataclasses
+
+    from ddqst_tpu_torch import train
+    from ddqst_tpu_torch.config import TrainConfig
+    from ddqst_tpu_torch.utils import checkpoint as ckpt
+
+    rng = np.random.default_rng(0)
+    bits = torch.from_numpy(rng.integers(0, 2, (2048, 3)).astype(np.int8))
+    basis = torch.from_numpy(rng.integers(0, 27, 2048))
+    cfg = TrainConfig(batch_size=256, num_epochs=2, optimizer="adam",
+                      learning_rate=1e-3, log_every=0, eval_every=0,
+                      checkpoint_dir=str(tmp_path / "ck"), checkpoint_every=1)
+
+    def run(c, seed):
+        return train.fit(torch.Generator(device=cuda).manual_seed(seed),
+                         _small_model("cpu"), bits, basis, c,
+                         schedules.cosine_schedule(10), device=cuda,
+                         log_fn=lambda m: None)
+
+    run(cfg, 0)
+    model, losses = run(dataclasses.replace(cfg, num_epochs=4, resume=True), 9)
+    assert losses.shape == (2,) and losses.is_cuda
+    assert next(model.parameters()).is_cuda
+    state, step = ckpt.restore_checkpoint(cfg.checkpoint_dir)
+    assert step == 4 and state["step"] == 4 * (2048 // 256)
+    _, whole = run(dataclasses.replace(cfg, num_epochs=4, checkpoint_dir=""), 0)
+    np.testing.assert_allclose(losses.cpu().numpy(), whole[2:].cpu().numpy(),
+                               rtol=1e-3)

@@ -85,11 +85,15 @@ def test_init_follows_flax_defaults():
                                          ("arch", "plain_mlp"),
                                          ("dtype", "bfloat16")])
 def test_unported_model_options_raise(field, value):
-    cfg = ModelConfig(**{field: value})
-    if value == "transformer":  # ported: the shadow route's denoiser
-        from ddqst_tpu_torch.models import TransformerDenoiser
+    """Every model option is ported now; each case builds its model."""
+    from ddqst_tpu_torch.models import PlainMLP, TransformerDenoiser
 
-        assert isinstance(build_model(cfg, N, T), TransformerDenoiser)
-        return
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, N, T)
+    cfg = ModelConfig(**{field: value})
+    model = build_model(cfg, N, T)
+    if value == "transformer":  # the shadow route's denoiser
+        assert isinstance(model, TransformerDenoiser)
+    elif value == "plain_mlp":  # the notebook presets' denoiser
+        assert isinstance(model, PlainMLP)
+    else:  # bf16 compute, float32 parameters
+        assert model.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -144,6 +144,41 @@ def test_port_data_cache_reads_in_jax(tmp_path):
     np.testing.assert_array_equal(data.target, jdata.target)
 
 
+def test_ensure_data_cache_writes_what_run_experiment_generates(tmp_path):
+    """The cache equals the data run_experiment generates for the seed (its
+    own cache, bits equal on the CPU); the circuit, bases and target equal
+    the JAX package's ensure_data_cache at the same seed; an existing file
+    is left alone."""
+    cfg = _small(tcfg)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=1),
+                      data=dataclasses.replace(cfg.data, shots_train=64,
+                                               max_bases=20))
+    path = str(tmp_path / "ensured.npz")
+    logs = []
+    assert tpipe.ensure_data_cache(cfg, 3, path, log_fn=logs.append,
+                                   device="cpu") == path
+    assert any("datagen" in m for m in logs)
+    mtime = os.path.getmtime(path)
+    assert tpipe.ensure_data_cache(cfg, 3, path, device="cpu") == path
+    assert os.path.getmtime(path) == mtime
+    run_cache = str(tmp_path / "run.npz")
+    tpipe.run_experiment(cfg, seed=3, data_cache=run_cache, stop_after="distill",
+                         device="cpu", log_fn=lambda m: None)
+    a, b = tpipe.load_data_cache(path), tpipe.load_data_cache(run_cache)
+    assert torch.equal(a.bits, b.bits)
+    np.testing.assert_array_equal(a.basis_idx, b.basis_idx)
+    jpath = str(tmp_path / "jax.npz")
+    jcfg_small = _small(jcfg)
+    jcfg_small = jcfg_small.replace(data=dataclasses.replace(
+        jcfg_small.data, shots_train=64, max_bases=20))
+    jpipe.ensure_data_cache(jcfg_small, 3, jpath, log_fn=lambda m: None)
+    j = jpipe.load_data_cache(jpath)
+    np.testing.assert_array_equal(a.basis_labels, j.basis_labels)
+    np.testing.assert_array_equal(a.basis_idx, j.basis_idx)
+    np.testing.assert_array_equal(a.target, j.target)
+    assert a.bits.shape == tuple(j.bits.shape)
+
+
 def test_mitigate_train_data_path_runs(tmp_path):
     c = _small(tcfg)
     cfg = c.replace(data=dataclasses.replace(c.data, mitigate_train_data=True,
@@ -167,7 +202,7 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "for name in ('ops.mle', 'ops.pauli', 'ops.diffusion', 'train', "
         "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
-        "'models.transformer'):\n"
+        "'utils.profiling', 'models.transformer', 'models.d3pm'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ddqst_tpu')]\n"
@@ -189,7 +224,8 @@ def test_run_experiment_needs_cuda_unless_cpu_is_asked(monkeypatch):
 # Options that raised NotImplementedError until they were ported; their
 # cases stay in the list below and now assert what the option does.
 _PORTED = ("chain_finetune_steps", "reconstruction", "max_bases",
-           "gen_tables_once", "num_qubits", "arch")
+           "gen_tables_once", "num_qubits", "arch", "infer_mode",
+           "checkpoint_dir")
 
 
 @pytest.mark.parametrize("section,change", [
@@ -203,7 +239,8 @@ _PORTED = ("chain_finetune_steps", "reconstruction", "max_bases",
     ("model", dict(arch="transformer")),
     (None, None),  # a mesh
 ])
-def test_unported_options_raise(section, change):
+def test_unported_options_raise(section, change, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the checkpoint case writes ./ckpt
     cfg = _small(tcfg)
     mesh = None
     if section is None:
@@ -212,7 +249,7 @@ def test_unported_options_raise(section, change):
         cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
                                                           **change)})
     if section is None or not set(change) & set(_PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             tpipe.run_experiment(cfg, seed=0, mesh=mesh, device="cpu",
                                  log_fn=lambda m: None)
         return
@@ -248,6 +285,13 @@ def test_unported_options_raise(section, change):
         assert tuple(res["samples"].shape) == (27, 400, 3)
         assert {"tables", "walk"} <= set(res["timings"])
         assert 0 < res["fidelity"] <= 1.001
+    if "infer_mode" in change:
+        # The 200 measured shots a basis, tiled twice and denoised.
+        assert tuple(res["samples"].shape) == (27, 400, 3)
+        assert "denoise" in res["timings"] and "walk" not in res["timings"]
+        assert 0 < res["fidelity"] <= 1.001
+    if "checkpoint_dir" in change:
+        assert os.listdir(tmp_path / "ckpt") == ["1"]
     if "max_bases" in change:
         # Five measured bases: the dense inverter reconstructs the raw shots,
         # the generated ones still cover the whole grid.

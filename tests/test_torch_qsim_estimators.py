@@ -1,6 +1,8 @@
 """Port parity: simulator, linear inversion, histograms and metrics against
 ddqst_tpu on the same inputs."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -272,3 +274,59 @@ def test_bits_to_counts_matches_jax_exactly():
     assert out.dtype == torch.float32
     np.testing.assert_array_equal(out.numpy(),
                                   np.asarray(jmle.bits_to_counts(jnp.asarray(bits))))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_circuit_unitary_matches_jax(seed):
+    c = jstates.prep_circuit("rqc", 3, 4, np.random.default_rng(seed))
+    ref = jstates.circuit_unitary(c)
+    got = tstates.circuit_unitary(tstates.prep_circuit(
+        "rqc", 3, 4, np.random.default_rng(seed)))
+    assert got.dtype == np.complex64 and got.shape == (8, 8)
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    np.testing.assert_allclose(got[:, 0], tstates.circuit_statevector(
+        tstates.prep_circuit("rqc", 3, 4, np.random.default_rng(seed))),
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_named_states_match_jax(n):
+    for name in ("plus_state", "ghz_state", "w_state"):
+        got = getattr(tstates, name)(n)
+        assert got.dtype == np.complex64
+        np.testing.assert_allclose(got, getattr(jstates, name)(n), atol=1e-6)
+    np.testing.assert_allclose(tstates.bell_state(), jstates.bell_state(),
+                               atol=1e-6)
+    # The named vectors are the prepared circuits' states.
+    for name, kind in (("ghz_state", "ghz"), ("w_state", "w")):
+        psi = tstates.circuit_statevector(tstates.prep_circuit(kind, n))
+        np.testing.assert_allclose(psi, getattr(tstates, name)(n), atol=1e-6)
+
+
+@pytest.mark.parametrize("label", [(0,), (1, 2), (2, 0, 1), (1, 1, 0, 2)])
+def test_rotation_unitary_and_measurement_probs_match_jax(label):
+    n = len(label)
+    np.testing.assert_allclose(tmeasure.rotation_unitary(label),
+                               jmeasure.rotation_unitary(label), atol=1e-6)
+    psi = tstates.circuit_statevector(tstates.prep_circuit(
+        "rqc", n, 3, np.random.default_rng(n)))
+    ref = np.asarray(jmeasure.measurement_probs(psi, label))
+    got = tmeasure.measurement_probs(psi, label)
+    assert got.dtype == torch.float32 and got.shape == (2**n,)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6)
+    np.testing.assert_allclose(
+        tmeasure.measurement_probs(torch.from_numpy(psi), label).numpy(), ref,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.015, 0.3])
+def test_flip_bits_flip_rate_meets_a_binomial_bound(p):
+    bits = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 2, (4000, 5)).astype(np.int8))
+    out = tnoise.flip_bits(torch.Generator().manual_seed(1), bits, p)
+    assert out.dtype == torch.int8 and out.shape == bits.shape
+    m = bits.numel()
+    flips = int((out != bits).sum())
+    # Binomial(m, p): within 5 standard deviations.
+    assert abs(flips - m * p) <= 5 * math.sqrt(m * p * (1 - p)) + 1e-9
+    assert set(out.unique().tolist()) <= {0, 1}

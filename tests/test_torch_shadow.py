@@ -203,6 +203,33 @@ def test_auto_mode_takes_tables_when_chains_outnumber_grid_rows(monkeypatch):
                                mode="grid", device="cpu")
 
 
+def test_auto_mode_samples_directly_above_the_walk_kernels_n(monkeypatch):
+    """Above the CUDA walk's N, 'auto' takes the direct sampler and builds
+    no tables (the JAX package walks any N with XLA); a forced 'tables'
+    still reaches the walk's wrapper, which raises for a tensor it does not
+    take its plain version for (the device check patched: no card here)."""
+    n = ck._MAX_WALK_N + 1
+    sched = tsched.cosine_schedule(2)
+    labels = torch.full((1, n), 2)
+
+    def stub(x, t, b):  # P(bit = 1) = 1/2 everywhere
+        return torch.zeros(x.shape + (2,))
+
+    built = []
+    real = tdiff._assembled_tables
+    monkeypatch.setattr(tdiff, "_assembled_tables",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    out = tdiff.sample_for_bases(torch.Generator().manual_seed(0), stub,
+                                 labels, 2**n, sched, device="cpu")
+    assert out.shape == (1, 2**n, n) and not built
+    assert abs(float(out.float().mean()) - 0.5) < 0.01
+    monkeypatch.setattr(ck, "_on_cpu", lambda t: False)
+    with pytest.raises(ValueError, match=f"N <= {ck._MAX_WALK_N}"):
+        tdiff.sample_for_bases(torch.Generator(), stub, labels, 4, sched,
+                               mode="tables", device="cpu")
+    assert built == [1]
+
+
 def test_chunked_sampler_walk_options():
     _, _, tm = _models()
     sched = tsched.cosine_schedule(T)

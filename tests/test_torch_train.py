@@ -1,6 +1,7 @@
 """Port parity: loss, optimizer updates and the training loop."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -132,10 +133,41 @@ def test_fit_is_reproducible_from_its_generator():
 
 @pytest.mark.parametrize("change", [dict(checkpoint_dir="ckpt"),
                                     dict(data_axis=2)])
-def test_fit_unported_options_raise(change):
+def test_fit_unported_options_raise(change, tmp_path, monkeypatch):
+    """Meshes still raise; checkpoints are ported and write one at the end
+    (``tests/test_torch_checkpoint.py`` holds resume)."""
     bits, basis = _tiny_data(np.random.default_rng(4), m=64)
     m = td3pm.ConditionalD3PM(2, 9, 10, embed_dim=8, hidden_dim=16, num_blocks=1)
     cfg = dataclasses.replace(TrainConfig(num_epochs=1), **change)
-    with pytest.raises(NotImplementedError):
+    if "checkpoint_dir" in change:
+        monkeypatch.chdir(tmp_path)
+        ttrain.fit(torch.Generator().manual_seed(0), m, bits, basis, cfg,
+                   tsched.linear_schedule(10), device="cpu",
+                   log_fn=lambda msg: None)
+        assert os.listdir(tmp_path / "ckpt") == ["1"]
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         ttrain.fit(torch.Generator().manual_seed(0), m, bits, basis, cfg,
                    tsched.linear_schedule(10), device="cpu")
+
+
+def test_profiling_trace_writes_a_trace_file(tmp_path):
+    from ddqst_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path / "prof")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    files = os.listdir(tmp_path / "prof")
+    assert len(files) == 1 and files[0].endswith(".json")
+    assert os.path.getsize(tmp_path / "prof" / files[0]) > 0
+    assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_profiling_timed_logs_a_line():
+    from ddqst_tpu_torch.utils import profiling
+
+    lines = []
+    x = torch.ones(3)
+    with profiling.timed("block", sync_on={"a": [x, (x,)]}, log_fn=lines.append):
+        x.add_(1)
+    assert len(lines) == 1 and lines[0].startswith("[timed] block: ")
+    assert lines[0].endswith("s") and float(lines[0].split()[-1][:-1]) >= 0
