@@ -133,6 +133,29 @@ result line is printed; nothing falls back to the CPU):
    ``shadow_transformer`` and the ``rqc`` widths: ms a step with and
    without the profiler, device kernels a step, the device's busy share of
    a step and its 5 costliest kernels.
+13. mesh — data- and tensor-parallel training over ``torch.distributed``
+   (``ddqst_tpu_torch/parallel``): one-process fits at the ``rqc`` width
+   (27 batches, 3 epochs) and the shadow width (cut to 16 batches, 2
+   epochs) in this process, then a spawned world of 2 ranks on this card,
+   joined as ``torchrun`` joins them (gloo: NCCL refuses two ranks on one
+   device). There, ``make_mesh(data=2)``: the same fit, whose losses must
+   equal one process's at rtol 2e-4, atol 2e-5, then the ``rqc`` preset
+   uncut through ``run_experiment(mesh=)`` with the launch counts set to 0
+   just before and read just after (one walk launch a rank, no step
+   launch; both ranks the same rho, fidelity and samples, bit for bit; the
+   samples against the exact chain, the fidelity within 0.02 of its
+   inversion, rho a state). ``make_mesh(data=1, model=2)``: the split
+   forward of the shadow width against the whole one (2e-5), the same fit
+   as one process's (the tolerance above), the Adam moments of the 10
+   split parameters a block this rank's part, the replicated parameters
+   bit-equal across the ranks, then the ``shadow_transformer`` preset with
+   its training cut to ``MESH_TP_EPOCHS`` (one walk launch a rank at 2^N =
+   1024, ranks bit-equal, the samples against the exact chain). Then a
+   one-rank world over NCCL: ``fit`` on ``make_mesh(data=1)`` against the
+   mesh-less ``fit`` (the tolerance above). Each fit prints its steps/s and
+   the share of its time inside the collectives (host clock, the card
+   synchronised around each call). A rank that raises or exits non-zero,
+   or a world past ``MESH_WORLD_TIMEOUT_S``, fails the phase.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -1803,6 +1826,426 @@ def profile_distill() -> dict:
     return out
 
 
+
+# Depth cuts of the mesh phase, each printed. The rqc preset's DP-2 run is
+# uncut (30 epochs); the shadow preset's TP-2 run trains 1 of its 30 epochs:
+# two ranks on one card stage every tensor-parallel reduce through the host
+# over gloo (16 a step), and the whole phase gets 180 s.
+MESH_TP_EPOCHS = 1
+# The comparisons with one process: the rqc width on the preset's 27,648
+# rows for 3 epochs (81 steps), the shadow width on 16 of its 100 batches an
+# epoch for 2 epochs (32 steps), and the one-rank NCCL fit at the rqc width
+# on 8 batches for 2 epochs.
+MESH_DP_EPOCHS, MESH_TP_BATCHES, MESH_TP_FIT_EPOCHS = 3, 16, 2
+MESH_NCCL_BATCHES, MESH_NCCL_EPOCHS = 8, 2
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5  # tests/test_parallel.py's DP / TP tolerance
+MESH_WORLD_TIMEOUT_S = 240
+
+
+class CollectiveClock:
+    """Host-clock time inside ``torch.distributed.all_reduce`` and
+    ``broadcast`` while active, the card synchronised before and after each
+    call, so a call's time is its own and not the queue's before it."""
+
+    def __init__(self):
+        self.seconds, self.calls = 0.0, 0
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._saved = dist.all_reduce, dist.broadcast
+        dist.all_reduce, dist.broadcast = map(self._timed, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.broadcast = self._saved
+
+
+def mesh_fit(preset: str, batches: int, epochs: int, mesh=None):
+    """``fit`` at a preset's width on ``batches`` batches of random rows
+    (``training_setup``'s seeded data) for ``epochs``, on ``mesh`` or in one
+    process: ``(record, model, optimiser)``, the record holding the losses,
+    steps/s and the collectives' share of the time."""
+    import dataclasses
+
+    from ddqst_tpu_torch import train as training
+    from ddqst_tpu_torch.config import get_preset
+
+    cfg = get_preset(preset)
+    rows = batches * cfg.train.batch_size
+    gen, model, bits, cond, sched, tc = training_setup(cfg, rows)
+    tc = dataclasses.replace(tc, num_epochs=epochs)
+    made, make = [], training.make_optimizer
+
+    def recording(cfg, params):
+        made.append(make(cfg, params))
+        return made[-1]
+
+    training.make_optimizer = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveClock() as clock:
+            model, losses = training.fit(gen, model, bits, cond, tc, sched,
+                                         mesh=mesh, log_fn=lambda m: None)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        training.make_optimizer = make
+    steps = batches * epochs
+    return dict(losses=losses.cpu(), steps=steps, seconds=seconds,
+                steps_per_s=steps / seconds, collective_s=clock.seconds,
+                collective_calls=clock.calls,
+                collective_share=clock.seconds / seconds), model, made[0]
+
+
+def _mesh_rank(rank: int, fn, world: int, port: int, out_dir: str) -> None:
+    """A rank of a spawned world: torchrun's environment, then
+    ``init_distributed()``, ``fn(rank, out_dir)``, its result saved."""
+    from ddqst_tpu_torch.parallel.mesh import init_distributed
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    check(init_distributed(), "the rank joined its world")
+    try:
+        out = fn(rank, out_dir)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_world(fn, world: int, out_dir: str) -> list[dict]:
+    """``fn`` in ``world`` spawned ranks on this card; each rank's result.
+    An exception or a non-zero exit in any rank, or a world still running
+    after ``MESH_WORLD_TIMEOUT_S``, fails the phase (the other ranks are
+    stopped)."""
+    import torch.multiprocessing as mp
+
+    from ddqst_tpu_torch.parallel.mesh import free_port
+
+    ctx = mp.start_processes(_mesh_rank,
+                             args=(fn, world, free_port(), out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + MESH_WORLD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"check failed: the {world}-rank world "
+                                   f"ran past {MESH_WORLD_TIMEOUT_S} s")
+    except mp.ProcessException as e:
+        raise RuntimeError(f"check failed: a rank failed: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _run_record(ck, res: dict) -> dict:
+    keep = ("fidelity", "raw_fidelity", "trace_distance", "purity", "rho",
+            "target", "losses", "train_steps", "timings", "mean_tv_to_target",
+            "tv_shot_noise_floor", "mean_marginal_error", "classical_fidelity")
+    out = {k: res[k] for k in keep if k in res}
+    out.update(samples=res["samples"].cpu(),
+               state={k: v.cpu() for k, v in res["state"].state_dict().items()},
+               walk_launches=ck.fused_chain_walk.launches,
+               step_launches=ck.fused_chain_step.launches)
+    return out
+
+
+def mesh_two_ranks(rank: int, out_dir: str) -> dict:
+    """The 2-rank world of phase mesh, both ranks on this card (gloo)."""
+    import dataclasses
+
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.models.d3pm import init_params_
+    from ddqst_tpu_torch.ops import cuda_kernels as ck
+    from ddqst_tpu_torch.parallel import mesh as pm
+    from ddqst_tpu_torch.parallel import tensor as tp
+    from ddqst_tpu_torch.pipeline import run_experiment
+
+    def say(m):
+        if rank == 0:
+            log("mesh", m)
+
+    dp = pm.make_mesh(data=2)
+    tpm = pm.make_mesh(data=1, model=2)
+    out = dict(backend=dp.backend, device=str(dp.device))
+
+    # Data-parallel: the comparison fit (after a one-batch warm-up: the
+    # process's first training is slower), then the rqc preset uncut.
+    mesh_fit("rqc", 1, 1, dp)
+    out["dp_fit"] = mesh_fit("rqc", 27, MESH_DP_EPOCHS, dp)[0]
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    res = run_experiment(get_preset("rqc"), seed=0, mesh=dp, log_fn=say)
+    out["dp_run"] = dict(_run_record(ck, res),
+                         wall_s=time.perf_counter() - t0)
+
+    # Tensor-parallel: the forward of seeded weights, whole and split.
+    cfg = get_preset("shadow_transformer")
+    n, t_steps = cfg.data.num_qubits, cfg.diffusion.num_timesteps
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = build_model(cfg.model, n, t_steps).cuda()
+    init_params_(model, gen)
+    x = torch.randint(0, 2, (1024, n), generator=gen, device="cuda")
+    t = torch.randint(1, t_steps + 1, (1024,), generator=gen, device="cuda")
+    b = torch.randint(0, 3, (1024, n), generator=gen, device="cuda")
+    with torch.no_grad():
+        whole = model(x, t, b)
+        tp.shard_params(tpm, model)
+        split = model(x, t, b)
+    out["tp_forward_err"] = float((whole - split).abs().max())
+
+    # Tensor-parallel training: the comparison fit, its Adam moments, then
+    # the shadow preset with its training cut.
+    mesh_fit("shadow_transformer", 1, 1, tpm)
+    rec, model, opt = mesh_fit("shadow_transformer", MESH_TP_BATCHES,
+                               MESH_TP_FIT_EPOCHS, tpm)
+    out["tp_fit"] = rec
+    names = [k for k, _ in model.named_parameters()]
+    out["tp_moments"] = {
+        name: (tuple(opt.state[p]["exp_avg"].shape),
+               tuple(opt.state[p]["exp_avg_sq"].shape))
+        for name, p in zip(names, opt.param_groups[0]["params"])}
+    out["tp_whole_shapes"] = {k: tuple(p.shape)
+                              for k, p in model.named_parameters()}
+    out["tp_dims"] = tp.transformer_param_shardings(model)
+    out["tp_state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    say(f"shadow_transformer, CUT: {cfg.train.num_epochs} epochs -> "
+        f"{MESH_TP_EPOCHS} for the TP-2 run_experiment")
+    cut = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                num_epochs=MESH_TP_EPOCHS))
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    res = run_experiment(cut, seed=0, mesh=tpm, log_fn=say,
+                         data_cache=os.path.join(out_dir, "shadow.npz"))
+    out["tp_run"] = dict(_run_record(ck, res),
+                         wall_s=time.perf_counter() - t0)
+    return out
+
+
+def mesh_nccl_rank(rank: int, out_dir: str) -> dict:
+    """The one-rank NCCL world of phase mesh: ``fit`` without a mesh, then
+    on ``make_mesh(data=1)``."""
+    from ddqst_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(data=1)
+    mesh_fit("rqc", 1, 1, mesh)  # NCCL sets its communicator up here
+    plain = mesh_fit("rqc", MESH_NCCL_BATCHES, MESH_NCCL_EPOCHS)[0]
+    on_mesh = mesh_fit("rqc", MESH_NCCL_BATCHES, MESH_NCCL_EPOCHS, mesh)[0]
+    return dict(backend=mesh.backend, plain=plain, mesh=on_mesh)
+
+
+def _losses_match(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    err = float((got - want).abs().max())
+    log("mesh", f"{what}: losses {np.round(got.numpy(), 6).tolist()} against "
+        f"one process's {np.round(want.numpy(), 6).tolist()}, max abs "
+        f"difference {err:.3e}")
+    check(bool(torch.allclose(got, want, rtol=MESH_RTOL, atol=MESH_ATOL)),
+          f"{what}: losses equal one process's at rtol {MESH_RTOL}, atol "
+          f"{MESH_ATOL}")
+    return err
+
+
+def _fit_line(what: str, rec: dict) -> str:
+    return (f"{what}: {rec['steps']} steps in {rec['seconds']:.3f} s = "
+            f"{rec['steps_per_s']:.1f} steps/s; collectives "
+            f"{rec['collective_calls']} calls, {rec['collective_s']:.3f} s = "
+            f"{100 * rec['collective_share']:.1f}% of the fit")
+
+
+def phase_mesh() -> dict:
+    """Data- and tensor-parallel training on the card: a 2-rank world
+    sharing it over gloo, then a one-rank world over NCCL."""
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import pauli
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import load_data_cache
+
+    t_phase = time.perf_counter()
+    log("mesh", f"CUT: the TP comparison fit on {MESH_TP_BATCHES} of the "
+        f"shadow preset's 100 batches an epoch, {MESH_TP_FIT_EPOCHS} epochs; "
+        f"the NCCL fit on {MESH_NCCL_BATCHES} batches, {MESH_NCCL_EPOCHS} "
+        "epochs")
+    ref_dp = mesh_fit("rqc", 27, MESH_DP_EPOCHS)[0]
+    ref_tp = mesh_fit("shadow_transformer", MESH_TP_BATCHES,
+                      MESH_TP_FIT_EPOCHS)[0]
+    log("mesh", _fit_line("one process, rqc width", ref_dp))
+    log("mesh", _fit_line("one process, shadow width", ref_tp))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        a, b = run_world(mesh_two_ranks, 2, tmp)
+        world_s = time.perf_counter() - t0
+        labels = load_data_cache(os.path.join(tmp, "shadow.npz")).basis_labels
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (nccl,) = run_world(mesh_nccl_rank, 1, tmp)
+        nccl_s = time.perf_counter() - t0
+    log("mesh", f"2-rank world {world_s:.1f} s, backend {a['backend']} on "
+        f"{a['device']}; 1-rank world {nccl_s:.1f} s, backend "
+        f"{nccl['backend']}")
+    check(a["backend"] == b["backend"] == "gloo"
+          and a["device"] == b["device"] == "cuda:0",
+          "two ranks on one card run gloo, on the card")
+    check(nccl["backend"] == "nccl", "one rank on one card runs NCCL")
+
+    # Data-parallel.
+    for r, rank in enumerate((a, b)):
+        log("mesh", _fit_line(f"DP-2 rank {r}, rqc width", rank["dp_fit"]))
+        _losses_match(f"DP-2 rank {r}", rank["dp_fit"]["losses"],
+                      ref_dp["losses"])
+    ra, rb = a["dp_run"], b["dp_run"]
+    tm = ra["timings"]
+    log("mesh", f"DP-2 rqc uncut: wall {ra['wall_s']:.2f} / {rb['wall_s']:.2f}"
+        f" s; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items()))
+    log("mesh", f"DP-2 rqc: train {ra['train_steps']} steps, "
+        f"{ra['train_steps'] / tm['train']:.1f} steps/s; fidelity "
+        f"{ra['fidelity']:.5f} (ranks: {ra['fidelity']!r} / "
+        f"{rb['fidelity']!r}); walk launches {ra['walk_launches']} / "
+        f"{rb['walk_launches']}, step launches {ra['step_launches']} / "
+        f"{rb['step_launches']}")
+    check(ra["fidelity"] == rb["fidelity"]
+          and np.array_equal(ra["rho"], rb["rho"])
+          and torch.equal(ra["samples"], rb["samples"]),
+          "DP-2 rqc: both ranks return the same rho, fidelity and samples")
+    check(ra["walk_launches"] == rb["walk_launches"] == 1
+          and ra["step_launches"] == rb["step_launches"] == 0,
+          "DP-2 rqc: one walk launch a rank, no step launch")
+    check_rho(torch.from_numpy(ra["rho"]), "DP-2 rqc: rho")
+    cfg = get_preset("rqc")
+    model = build_model(cfg.model, 3, 100).cuda()
+    model.load_state_dict(ra["state"])
+    sched = make_schedule("cosine", 100, "cuda")
+    tables = diff.grid_p1_tables(model.eval(), 3, sched).reshape(100, 27, 8, 3)
+    shots = cfg.data.shots_infer
+    dist = samples_vs_tables("mesh", "DP-2 rqc", ra["samples"].cuda(), tables,
+                             torch.full((27, 8), 1 / 8, device="cuda"))
+    fid_exact = float(M.state_fidelity(
+        torch.from_numpy(ra["target"]).cuda(),
+        pauli.make_counts_inverter(3)((dist * shots).float())))
+    log("mesh", f"DP-2 rqc: fidelity {ra['fidelity']:.5f} vs the exact "
+        f"chain's inversion {fid_exact:.5f}")
+    check(abs(ra["fidelity"] - fid_exact) < 0.02,
+          "DP-2 rqc: fidelity within 0.02 of the exact chain's inversion")
+
+    # Tensor-parallel.
+    for r, rank in enumerate((a, b)):
+        log("mesh", f"TP-2 rank {r}: forward of seeded weights, split vs "
+            f"whole: max abs difference {rank['tp_forward_err']:.3e}")
+        check(rank["tp_forward_err"] < 2e-5,
+              "TP-2: the split forward equals the whole one within 2e-5")
+        log("mesh", _fit_line(f"TP-2 rank {r}, shadow width", rank["tp_fit"]))
+        _losses_match(f"TP-2 rank {r}", rank["tp_fit"]["losses"],
+                      ref_tp["losses"])
+        split = 0
+        for name, dim in rank["tp_dims"].items():
+            want = list(rank["tp_whole_shapes"][name])
+            if dim is not None:
+                want[dim] //= 2
+                split += 1
+            check(rank["tp_moments"][name] == (tuple(want), tuple(want)),
+                  f"TP-2 rank {r}: the Adam moments of {name} are this "
+                  "rank's part")
+        check(split == 10 * get_preset("shadow_transformer").model.num_blocks,
+              f"TP-2 rank {r}: 10 split parameters a block ({split})")
+    shadow = get_preset("shadow_transformer")
+    replicated = [k for k, d in a["tp_dims"].items() if d is None]
+    check(all(torch.equal(a["tp_state"][k], b["tp_state"][k])
+              for k in a["tp_state"]),
+          f"TP-2: the {len(replicated)} replicated parameters (and the "
+          "gathered split ones) are equal on both ranks, bit for bit")
+    log("mesh", f"TP-2: {split} split parameters with local Adam moments; "
+        f"{len(replicated)} replicated parameters bit-equal across the ranks")
+    ta, tb = a["tp_run"], b["tp_run"]
+    tm = ta["timings"]
+    log("mesh", f"TP-2 shadow (training cut): wall {ta['wall_s']:.2f} / "
+        f"{tb['wall_s']:.2f} s; stages (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in tm.items()))
+    log("mesh", f"TP-2 shadow: train {ta['train_steps']} steps, "
+        f"{ta['train_steps'] / tm['train']:.1f} steps/s; mean TV "
+        f"{ta['mean_tv_to_target']:.5f} (floor "
+        f"{ta['tv_shot_noise_floor']:.5f}); walk launches "
+        f"{ta['walk_launches']} / {tb['walk_launches']}, step launches "
+        f"{ta['step_launches']} / {tb['step_launches']}")
+    check(torch.equal(ta["samples"], tb["samples"])
+          and ta["mean_tv_to_target"] == tb["mean_tv_to_target"],
+          "TP-2 shadow: both ranks return the same samples and metrics")
+    check(ta["walk_launches"] == tb["walk_launches"] == 1
+          and ta["step_launches"] == tb["step_launches"] == 0,
+          "TP-2 shadow: one walk launch a rank, no step launch")
+    n, g = shadow.data.num_qubits, 2**shadow.data.num_qubits
+    model = build_model(shadow.model, n, 100).cuda()
+    model.load_state_dict(ta["state"])
+    lab = torch.from_numpy(np.asarray(labels, np.int64)).cuda()
+    grid = (diff._unpack(torch.arange(g, device="cuda"), n).repeat(len(lab), 1),
+            lab.repeat_interleave(g, dim=0))
+    tables = diff._assembled_tables(model.eval(), n, sched,
+                                    shadow.diffusion.exact, grid, 1 << 18,
+                                    1 << 16)
+    samples_vs_tables("mesh", "TP-2 shadow", ta["samples"].cuda(), tables,
+                      torch.full((len(lab), g), 1 / g, device="cuda"))
+    del tables
+
+    # NCCL, one rank.
+    log("mesh", _fit_line("NCCL-1, rqc width, no mesh", nccl["plain"]))
+    log("mesh", _fit_line("NCCL-1, rqc width, make_mesh(data=1)",
+                          nccl["mesh"]))
+    _losses_match("NCCL-1", nccl["mesh"]["losses"], nccl["plain"]["losses"])
+    phase_s = time.perf_counter() - t_phase
+    log("mesh", f"steps/s, one process / DP-2 / TP-2 (rank 0): rqc width "
+        f"{ref_dp['steps_per_s']:.1f} / {a['dp_fit']['steps_per_s']:.1f}, "
+        f"shadow width {ref_tp['steps_per_s']:.1f} / "
+        f"{a['tp_fit']['steps_per_s']:.1f}; collective share DP-2 "
+        f"{100 * a['dp_fit']['collective_share']:.1f}%, TP-2 "
+        f"{100 * a['tp_fit']['collective_share']:.1f}%, NCCL-1 "
+        f"{100 * nccl['mesh']['collective_share']:.1f}%. Two ranks share one "
+        f"card here: these numbers measure the mesh code, not scaling across "
+        f"cards. Phase {phase_s:.1f} s")
+
+    def fit_rec(rec):
+        return {k: rec[k] for k in ("steps", "seconds", "steps_per_s",
+                                    "collective_s", "collective_calls",
+                                    "collective_share")}
+
+    return dict(
+        phase_s=phase_s, world_s=world_s, nccl_world_s=nccl_s,
+        one_process=dict(rqc=fit_rec(ref_dp), shadow=fit_rec(ref_tp)),
+        dp2=[fit_rec(r["dp_fit"]) for r in (a, b)],
+        tp2=[fit_rec(r["tp_fit"]) for r in (a, b)],
+        nccl1=dict(plain=fit_rec(nccl["plain"]), mesh=fit_rec(nccl["mesh"])),
+        dp2_rqc=dict(fidelity=ra["fidelity"], fidelity_exact_chain=fid_exact,
+                     train_steps=ra["train_steps"], timings=ra["timings"],
+                     wall_s=ra["wall_s"],
+                     walk_launches=[ra["walk_launches"], rb["walk_launches"]]),
+        tp2_shadow=dict(mean_tv_to_target=ta["mean_tv_to_target"],
+                        train_steps=ta["train_steps"], timings=ta["timings"],
+                        wall_s=ta["wall_s"], epochs=MESH_TP_EPOCHS,
+                        walk_launches=[ta["walk_launches"],
+                                       tb["walk_launches"]]),
+        tp_forward_err=[a["tp_forward_err"], b["tp_forward_err"]])
+
+
 def time_kernels(ck) -> dict:
     """Both kernels' ms at their four shapes, in the forms every version of
     the port has (the step kernel with ``rows``), for comparing two
@@ -1902,6 +2345,7 @@ def main() -> int:
     denoise = phase_denoise(ck, res)
     bf16 = phase_bf16(ck, res)
     train_profile = phase_train_profile()
+    mesh = phase_mesh()
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -1941,6 +2385,9 @@ def main() -> int:
                                       for k, v in notebook.items()},
         "launches_denoise_mode": denoise["walk_launches"],
         "launches_bf16_rqc": bf16["walk_launches"],
+        "launches_mesh_per_rank": {
+            "dp2_rqc": mesh["dp2_rqc"]["walk_launches"],
+            "tp2_shadow": mesh["tp2_shadow"]["walk_launches"]},
         **{f"{k}_{label}": kernel[label][k]
            for label in ("shadow", "n8_grid")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
@@ -1969,7 +2416,8 @@ def main() -> int:
         "sass_instructions": rate["sass"]["step_n3_row_base"],
     }], "lane_instructions_per_s": rate["rates"],
         "bench_recipes": distill, "shadow": shadow, "notebook": notebook,
-        "denoise": denoise, "bf16": bf16, "train_profile": train_profile}),
+        "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
+        "mesh": mesh}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ subcommand but ``convert`` raises unless ``--device cpu`` is given), and
   python -m ddqst_tpu_torch.cli evaluate --params exp/m1_params.pt \\
       --eval_data exp/m1_eval.npz --out_dir results
   python -m ddqst_tpu_torch.cli convert --src <ref>/Datapoints/rqc_N3_data --out ds
+  torchrun --nproc_per_node 2 -m ddqst_tpu_torch.cli run --data_parallel 2
+
+``run --data_parallel R`` trains data-parallel over R ranks, one process
+each, as ``torchrun`` starts them; every rank runs the whole pipeline and
+rank 0 logs. As in the JAX package, ``train`` and ``evaluate`` take the flag
+and ignore it.
 
 A circuit-conditioned model (``--condition_on_circuit``) is evaluated with
 ``--num_circuits`` equal to its training circuit count (by default the eval
@@ -92,7 +98,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="resume training from the newest checkpoint in "
                         "--checkpoint_dir")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data-axis mesh size (0 = single device; not ported)")
+                   help="data-axis mesh size (0 = single device); run "
+                        "reads it, under torchrun with as many processes")
     _add_device_flag(p)
 
 
@@ -123,23 +130,41 @@ def _build_config(args):
     )
 
 
-def _check_single_device(args) -> None:
-    if getattr(args, "data_parallel", 0):
-        raise NotImplementedError(
-            "--data_parallel (meshes / multi-device) is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+def _mesh_for(args):
+    """``--data_parallel R``: a data-axis mesh over the R ranks of the world
+    ``torchrun`` started (one rank needs no launcher); None without it."""
+    r = args.data_parallel
+    if not r:
+        return None
+    import torch.distributed as dist
+
+    from ddqst_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != r:
+        raise ValueError(
+            f"--data_parallel {r} runs one process a rank, and this world has "
+            f"{world}; start it as: torchrun --nproc_per_node {r} -m "
+            f"ddqst_tpu_torch.cli run --data_parallel {r} [flags]")
+    return make_mesh(data=r, device=args.device)
 
 
 def cmd_run(args) -> int:
     import numpy as np
+    import torch.distributed as dist
 
     from ddqst_tpu_torch import pipeline
 
-    _check_single_device(args)
     cfg = _build_config(args)
-    res = pipeline.run_experiment(cfg, seed=args.seed, device=args.device)
-    if args.plots:
+    mesh = _mesh_for(args)
+    try:
+        res = pipeline.run_experiment(cfg, seed=args.seed, mesh=mesh,
+                                      device=args.device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if args.plots and (mesh is None or mesh.rank == 0):
         # A plotting failure must not sink the run.
         try:
             from ddqst_tpu_torch import viz
@@ -180,7 +205,6 @@ def cmd_train(args) -> int:
     from ddqst_tpu_torch import pipeline
     from ddqst_tpu_torch.data.records import load_dataset
 
-    _check_single_device(args)
     cfg = _build_config(args)
     if args.sanity_check:
         print("GENERATING SYNTHETIC BELL STATE FOR SANITY CHECK")
@@ -210,7 +234,6 @@ def cmd_evaluate(args) -> int:
     from ddqst_tpu_torch.qsim.noise import get_noise_config
     from ddqst_tpu_torch.utils.checkpoint import restore_params
 
-    _check_single_device(args)
     dev = resolve_device(args.device)
     cfg = _build_config(args)
     records = load_dataset(args.eval_data)

@@ -2,8 +2,7 @@
 
 The port's own copy of ``ddqst_tpu/config.py`` (the port imports nothing
 of the JAX package); the tests hold every preset field-for-field equal to
-the JAX one. Options this port does not run yet raise
-``NotImplementedError`` where they are read (see ``pipeline.py``).
+the JAX one.
 
 Replaces the reference's four drifting ``config.py`` DEFAULTS dicts
 (``multi_qubit_special_states/config.py:3-24``,
@@ -141,6 +140,7 @@ class TrainConfig:
     checkpoint_dir: str = ""
     checkpoint_every: int = 0  # epochs between mid-training checkpoints; 0 = final-only
     resume: bool = False  # restore latest checkpoint from checkpoint_dir
+    # Not read, as in the JAX package: fit takes its mesh from ``mesh=``.
     data_axis: int = 1  # data-parallel mesh size (1 = single chip)
     model_axis: int = 1  # model-parallel mesh size (transformer only)
 

@@ -27,6 +27,12 @@ in float32 and returns bfloat16 (flax's float32 statistics), the query is
 divided by ``sqrt(head_dim)`` rounded to bfloat16, and the softmax takes and
 returns bfloat16 (flax's attention with its default
 ``force_fp32_for_softmax=False``); the head's output is cast to float32.
+
+Under tensor parallelism (``parallel.tensor.shard_params``) a block holds
+its ``tp_group``: q/k/v and ``mlp1`` compute this rank's heads and hidden
+units from ``copy_to_model`` of their input, and ``out`` and ``mlp2`` sum
+their partial products over the group (``reduce_from_model``) before adding
+their biases once. Without a group the arithmetic is the one above.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddqst_tpu_torch.models.d3pm import dense, embed, init_params_
+from ddqst_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
 
@@ -47,6 +54,21 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
     """flax ``LayerNorm(dtype=dtype)``: statistics and normalisation in
     float32, the result in ``dtype``."""
     return ln(x.float()).to(dtype)
+
+
+def column_input(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of column-parallel layers (itself without a group)."""
+    return x if group is None else copy_to_model(x, group)
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+                 group) -> torch.Tensor:
+    """``dense(layer, x)`` for a layer whose input features are split over
+    ``group``: the partial products summed over it, then the bias once."""
+    if group is None:
+        return dense(layer, x, dtype)
+    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return y + layer.bias.to(dtype)
 
 
 def basis_idx_to_labels(basis_idx: torch.Tensor, num_qubits: int) -> torch.Tensor:
@@ -77,25 +99,27 @@ class SelfAttention(nn.Module):
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        self.num_heads = num_heads
+        self.num_heads = num_heads  # this rank's heads under TP
+        self.head_dim = embed_dim // num_heads
         self.compute_dtype = compute_dtype
+        self.tp_group = None
         self.query = nn.Linear(embed_dim, embed_dim)
         self.key = nn.Linear(embed_dim, embed_dim)
         self.value = nn.Linear(embed_dim, embed_dim)
         self.out = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, length, e = x.shape
-        h = self.num_heads
-        d = e // h
+        b, length, _ = x.shape
+        h, d = self.num_heads, self.head_dim
         dt = self.compute_dtype
+        x = column_input(x, self.tp_group)
         q = dense(self.query, x, dt).view(b, length, h, d) / torch.tensor(
             math.sqrt(d), dtype=dt)
         k = dense(self.key, x, dt).view(b, length, h, d)
         v = dense(self.value, x, dt).view(b, length, h, d)
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, e)
-        return dense(self.out, o, dt)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, length, h * d)
+        return row_parallel(self.out, o, dt, self.tp_group)
 
 
 class TransformerBlock(nn.Module):
@@ -103,6 +127,7 @@ class TransformerBlock(nn.Module):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.tp_group = None
         self.film = nn.Linear(embed_dim, 2 * embed_dim)
         self.ln1 = nn.LayerNorm(embed_dim, eps=_LN_EPS)
         self.attn = SelfAttention(embed_dim, num_heads, compute_dtype)
@@ -116,8 +141,9 @@ class TransformerBlock(nn.Module):
         x = (layer_norm(self.ln1, h, dt) * (1.0 + gamma[:, None, :])
              + beta[:, None, :])
         h = h + self.attn(x)
-        y = dense(self.mlp2, F.silu(dense(self.mlp1,
-                                          layer_norm(self.ln2, h, dt), dt)), dt)
+        x = column_input(layer_norm(self.ln2, h, dt), self.tp_group)
+        y = row_parallel(self.mlp2, F.silu(dense(self.mlp1, x, dt)), dt,
+                         self.tp_group)
         return h + y
 
 

@@ -90,12 +90,21 @@ def denoising_loss(
     basis: torch.Tensor,
     schedule: DiffusionSchedule,
     t_max: int = 0,
+    rows: slice | None = None,
 ) -> torch.Tensor:
-    """t ~ U[1, T] (or U[1, t_max]), x_t = q_sample(x0, t), CE(model(x_t), x0)."""
+    """t ~ U[1, T] (or U[1, t_max]), x_t = q_sample(x0, t), CE(model(x_t), x0).
+
+    ``rows``: a data-parallel rank's part of the batch. ``t`` and the noise
+    are drawn for the whole batch, as one process draws them, and the CE is
+    taken over ``rows`` only, so the ranks' mean equals the one-process
+    loss.
+    """
     upper = t_max if t_max else schedule.num_timesteps
     t = torch.randint(1, upper + 1, (x0.shape[0],), generator=generator,
                       device=x0.device)
     x_t = q_sample(generator, x0, t, schedule)
+    if rows is not None:
+        x0, x_t, t, basis = x0[rows], x_t[rows], t[rows], basis[rows]
     return cross_entropy(denoise_fn(x_t, t, basis), x0)
 
 

@@ -33,8 +33,11 @@ probabilities of the clean target per basis (no density matrix). With
 ``gen_tables_once`` the full route generates through
 ``ops.diffusion.sample_all_bases_chunked``: the tables once, then walks.
 
-A mesh (multi-device) is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item before any work is done.
+With a mesh (``parallel.mesh.make_mesh``) every rank runs
+``run_experiment`` with the same arguments: ``train.fit`` trains data- and
+tensor-parallel, and every rank runs the stages after training with the
+same generators on the same whole model, so all return the same result.
+Only rank 0 logs and writes files.
 
 The data cache keeps the JAX package's npz schema, so each package reads
 the other's cache. ``params_load`` / ``params_save`` read and write a
@@ -57,6 +60,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ddqst_tpu_torch import train as training
 from ddqst_tpu_torch.config import ExperimentConfig
@@ -70,6 +74,7 @@ from ddqst_tpu_torch.ops import mle
 from ddqst_tpu_torch.ops import pauli
 from ddqst_tpu_torch.ops.mle import bits_to_counts
 from ddqst_tpu_torch.ops.schedules import make_schedule
+from ddqst_tpu_torch.parallel.mesh import mesh_device
 from ddqst_tpu_torch.qsim import measure, noise, states
 from ddqst_tpu_torch.utils.checkpoint import (
     restore_chain_opt,
@@ -231,13 +236,6 @@ def use_shadow_route(num_qubits: int, max_bases: int | None) -> bool:
     return num_qubits > 8 or (num_qubits >= 7 and bool(max_bases))
 
 
-def _check_ported(mesh) -> None:
-    """Raise for the one option the port does not run (never skip it)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: meshes / multi-device: ROADMAP Queue 1 item 6")
-
-
 def _generator(ss: np.random.SeedSequence, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(
         int(ss.generate_state(1, np.uint64)[0]))
@@ -393,7 +391,10 @@ def run_experiment(
     ``best_step``, ``best_val_ce``) and ``ft_losses``.
 
     Runs on ``device`` (default CUDA; raises if CUDA is absent and
-    ``device`` was not given). ``params_load`` skips CE training and loads a
+    ``device`` was not given), or with ``mesh`` on the mesh's device, every
+    rank with the same arguments (see the module docstring; ``data_cache``
+    and ``target_cache`` are read where they exist when the call starts, and
+    written by rank 0). ``params_load`` skips CE training and loads a
     ``torch.save`` state dict; ``params_save`` writes one, after
     distillation. ``data_cache`` is an npz path in the JAX package's schema,
     read if it exists and written otherwise.
@@ -424,8 +425,16 @@ def run_experiment(
     mode (it never reads ``infer_mode``, as in the JAX package); see
     :func:`_run_shadow_experiment` for its results.
     """
-    dev = resolve_device(device)
-    _check_ported(mesh)
+    dev = mesh_device(mesh, device)
+    if mesh is not None:
+        # Every rank looks for the caches before any rank can write one, so
+        # all read the same data; only rank 0 writes and logs.
+        data_cache, target_cache = (
+            p if mesh.rank == 0 or (p and os.path.exists(p)) else ""
+            for p in (data_cache, target_cache))
+        dist.barrier()
+        if mesh.rank != 0:
+            log_fn, params_save, opt_save = training._silent, "", ""
     n = cfg.data.num_qubits
     rng = np.random.default_rng(seed)
     g_data, g_train, g_sample = _generators(seed, dev)
@@ -449,7 +458,7 @@ def run_experiment(
     if use_shadow_route(n, cfg.data.max_bases):
         return _run_shadow_experiment(
             cfg, seed, data, dev, g_train, g_sample, timings, log_fn,
-            params_load=params_load, params_save=params_save,
+            mesh=mesh, params_load=params_load, params_save=params_save,
             stop_after=stop_after, opt_load=opt_load, opt_save=opt_save)
 
     model = build_model(cfg.model, n, cfg.diffusion.num_timesteps).to(dev)
@@ -466,8 +475,8 @@ def run_experiment(
         x, basis = flatten_for_training(data.bits, data.basis_idx)
         log_fn(f"[{cfg.name}] training on {x.shape[0]} shots")
         model, losses = training.fit(
-            g_train, model, x, basis, cfg.train, schedule, log_fn=log_fn,
-            device=dev,
+            g_train, model, x, basis, cfg.train, schedule, mesh=mesh,
+            log_fn=log_fn, device=dev,
         )
         train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]), 1)
                        * len(losses))
@@ -661,7 +670,7 @@ def _distill_only(losses, ft_losses, ft_info) -> dict:
 def _run_shadow_experiment(
     cfg: ExperimentConfig, seed: int, data: GeneratedData, dev: torch.device,
     g_train: torch.Generator, g_sample: torch.Generator, timings: dict,
-    log_fn: Callable, params_load: str = "", params_save: str = "",
+    log_fn: Callable, mesh=None, params_load: str = "", params_save: str = "",
     stop_after: str = "", opt_load: str = "", opt_save: str = "",
 ) -> dict:
     """The shadow route (large N, sampled bases): train on per-qubit basis
@@ -718,7 +727,7 @@ def _run_shadow_experiment(
                f"({b_bases} bases)")
         model, losses = training.fit(
             g_train, model, x, labels.repeat_interleave(s, dim=0), cfg.train,
-            schedule, log_fn=log_fn, device=dev)
+            schedule, mesh=mesh, log_fn=log_fn, device=dev)
         train_steps = (max(x.shape[0] // min(cfg.train.batch_size, x.shape[0]),
                            1) * len(losses))
     synchronize(dev)

@@ -21,8 +21,8 @@ sampler's exact output distribution
 
 ``fit`` checkpoints its training state every ``checkpoint_every`` epochs
 and at the end, and resumes from the newest checkpoint
-(``utils.checkpoint``). Not ported yet: data/model-parallel meshes (ROADMAP
-Queue 1 item 6); they raise ``NotImplementedError``.
+(``utils.checkpoint``). With a ``parallel.mesh.Mesh`` it trains data- and
+tensor-parallel, one process a rank.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from ddqst_tpu_torch.device import resolve_device
 from ddqst_tpu_torch.models.d3pm import init_params_
 from ddqst_tpu_torch.ops.diffusion import chain_distribution, denoising_loss
 from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
+from ddqst_tpu_torch.parallel import mesh as pm
+from ddqst_tpu_torch.parallel import tensor as tp
 from ddqst_tpu_torch.utils import checkpoint as ckpt
 
 _ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
@@ -89,29 +91,54 @@ def _run_epoch(
     schedule: DiffusionSchedule,
     batch_size: int,
     t_max: int = 0,
+    mesh: pm.Mesh | None = None,
 ) -> tuple[torch.Tensor, int]:
     """One epoch: a fresh permutation, full batches only (the remainder is
     dropped), one optimizer update per batch.
 
-    Returns (mean loss as a device scalar, number of updates).
+    With a mesh every rank draws the same permutation, ``t`` and noise for
+    the whole batch, takes the loss on its data rank's rows and averages
+    the gradients (:func:`average_gradients`). Returns (mean loss as a
+    device scalar, this rank's with a mesh; number of updates).
     """
     m = bits.shape[0]
     batch_size = min(batch_size, m)  # datasets smaller than one batch
     steps = max(m // batch_size, 1)
     perm = torch.randperm(m, generator=generator, device=bits.device)
     perm = perm[: steps * batch_size].reshape(steps, batch_size)
+    rows = None
+    if mesh is not None:
+        part = batch_size // mesh.shape[pm.DATA_AXIS]
+        rows = slice(mesh.coords[0] * part, (mesh.coords[0] + 1) * part)
     losses = []
     for i in range(steps):
         idx = perm[i]
         loss = denoising_loss(generator, model, bits[idx], basis[idx],
-                              schedule, t_max=t_max)
+                              schedule, t_max=t_max, rows=rows)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            average_gradients(mesh, model)
         for group in opt.param_groups:
             group["lr"] = lr_fn(step0 + i)
         opt.step()
         losses.append(loss.detach())
     return torch.stack(losses).mean(), steps
+
+
+def average_gradients(mesh: pm.Mesh, model: torch.nn.Module) -> None:
+    """Average the gradients over the data axis, one flattened all-reduce,
+    and those of the replicated parameters over the model axis too: their
+    values agree across model ranks only up to the card's nondeterministic
+    backward (atomics), and averaging keeps the ranks' copies equal."""
+    named = [(k, p) for k, p in model.named_parameters() if p.grad is not None]
+    pm.all_reduce_mean([p.grad for _, p in named], mesh.data_group,
+                       mesh.shape[pm.DATA_AXIS])
+    m = mesh.shape[pm.MODEL_AXIS]
+    if m > 1:
+        dims = tp.transformer_param_shardings(model)
+        pm.all_reduce_mean([p.grad for k, p in named if dims[k] is None],
+                           mesh.model_group, m)
 
 
 @torch.no_grad()
@@ -174,14 +201,33 @@ def fit(
     ``num_epochs`` in both), and without EMA. The EMA is not saved: it
     starts from zero on resume and averages only the epochs run in this
     call, as in the JAX package (``ddqst_tpu/train.py:640-668``).
+
+    ``mesh`` (``parallel.mesh.make_mesh``; every rank calls ``fit`` with
+    the same arguments): training runs on the mesh's device, which
+    ``device`` may name but not contradict. The dataset is whole on every
+    rank, the initial parameters are broadcast from rank 0 and, with a
+    ``model`` axis above 1, a transformer is split over it
+    (``parallel.tensor.shard_params``; the optimiser and the EMA then hold
+    this rank's shards). Each step a rank takes the loss on its rows of the
+    batch, the gradients are averaged over the data axis (and the
+    replicated parameters' over the model axis), and the losses returned
+    are the data ranks' mean: the one-process losses to float tolerance.
+    Only rank 0 logs and writes checkpoints, of the whole model and
+    optimiser state, which a resume splits again. Returns the whole model,
+    the same on every rank. Raises ``ValueError`` when the batch does not
+    divide by ``data``. ``cfg.data_axis`` / ``cfg.model_axis`` are not
+    read, as in the JAX package.
     """
-    dev = resolve_device(device)
-    if mesh is not None or cfg.data_axis != 1 or cfg.model_axis != 1:
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP Queue 1 item 6)"
-        )
+    dev = pm.mesh_device(mesh, device)
     if resolve_device(generator.device) != dev:
         raise ValueError(f"generator on {generator.device}, expected {dev}")
+    if mesh is not None:
+        batch, d = min(cfg.batch_size, bits.shape[0]), mesh.shape[pm.DATA_AXIS]
+        if batch % d:
+            raise ValueError(f"batch {batch} does not divide by the data "
+                             f"axis ({d})")
+        if mesh.rank != 0:
+            log_fn = _silent
     model.to(dev)
     init_params_(model, generator)
     schedule = schedule.to(dev)
@@ -189,24 +235,42 @@ def fit(
     basis = basis.to(dev, torch.int64)
     steps_per_epoch = max(bits.shape[0] // cfg.batch_size, 1)
     lr_fn = make_lr_schedule(cfg, steps_per_epoch * cfg.num_epochs)
-    opt = make_optimizer(cfg, model.parameters())
 
-    params = list(model.parameters())
     step = 0
     start_epoch = 0
+    restored = None
     if cfg.checkpoint_dir and cfg.resume and ckpt.latest_step(
             cfg.checkpoint_dir) is not None:
-        state, start_epoch = ckpt.restore_checkpoint(cfg.checkpoint_dir)
-        model.load_state_dict(state["model"])
-        opt.load_state_dict(state["optimizer"])
-        generator.set_state(state["generator"])
-        step = int(state["step"])
+        restored, start_epoch = ckpt.restore_checkpoint(cfg.checkpoint_dir)
+        model.load_state_dict(restored["model"])
+    if mesh is not None:
+        pm.replicate(mesh, model)
+        tp.shard_params(mesh, model)
+    opt = make_optimizer(cfg, model.parameters())
+    params = list(model.parameters())
+    if restored is not None:
+        opt_state = restored["optimizer"]
+        if mesh is not None:
+            opt_state = tp.sharded_optimizer_state(mesh, model, opt_state)
+        opt.load_state_dict(opt_state)
+        generator.set_state(restored["generator"])
+        step = int(restored["step"])
         log_fn(f"resumed from checkpoint at epoch {start_epoch}")
 
     def save(epoch: int) -> None:
-        ckpt.save_checkpoint(cfg.checkpoint_dir, {
-            "model": model.state_dict(), "optimizer": opt.state_dict(),
-            "step": step, "generator": generator.get_state()}, epoch)
+        state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                 "step": step, "generator": generator.get_state()}
+        if mesh is None:
+            ckpt.save_checkpoint(cfg.checkpoint_dir, state, epoch)
+            return
+        # The whole state, which rank 0 writes; every rank goes on once it
+        # is on disk.
+        state["model"] = tp.gathered_state_dict(mesh, model)
+        state["optimizer"] = tp.gathered_optimizer_state(mesh, model,
+                                                         state["optimizer"])
+        if mesh.rank == 0:
+            ckpt.save_checkpoint(cfg.checkpoint_dir, state, epoch)
+        torch.distributed.barrier()
 
     ema = None
     ema_epochs = 0
@@ -215,7 +279,11 @@ def fit(
     model.train()
     for epoch in range(start_epoch, cfg.num_epochs):
         loss, n = _run_epoch(model, opt, lr_fn, step, generator, bits, basis,
-                             schedule, cfg.batch_size, t_max=cfg.t_max)
+                             schedule, cfg.batch_size, t_max=cfg.t_max,
+                             mesh=mesh)
+        if mesh is not None:
+            pm.all_reduce_mean([loss], mesh.data_group,
+                               mesh.shape[pm.DATA_AXIS])
         step += n
         if cfg.ema_decay > 0:
             # Zero-initialised EMA, debiased at the end (Adam-style), so the
@@ -250,8 +318,14 @@ def fit(
                 p.copy_(e * debias)
     if cfg.checkpoint_dir:
         save(cfg.num_epochs)
+    if mesh is not None:
+        tp.gather_params(mesh, model)
     model.eval()
     return model, torch.stack(losses) if losses else torch.zeros(0)
+
+
+def _silent(*args) -> None:
+    """The log of a rank other than 0."""
 
 
 # Grid rows per forward of the full-grid CE at label-conditioned (shadow)

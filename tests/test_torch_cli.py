@@ -196,9 +196,11 @@ def test_cli_without_device_needs_cuda(tmp_path, monkeypatch):
 
 
 def test_cli_data_parallel_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        cli.main(["train", "--sanity_check", "--save_dir", str(tmp_path),
-                  "--data_parallel", "8", "--device", "cpu", *TINY])
+    """``train`` takes ``--data_parallel`` and ignores it, as the JAX
+    package's does (only ``run`` reads it)."""
+    assert cli.main(["train", "--sanity_check", "--save_dir", str(tmp_path),
+                     "--data_parallel", "8", "--device", "cpu", *TINY]) == 0
+    assert os.path.exists(tmp_path / "model_params.pt")
 
 
 def test_module_entry_point_runs():
@@ -212,3 +214,19 @@ def test_module_entry_point_runs():
     assert out.returncode == 0
     for sub in ("run", "generate", "train", "evaluate", "convert"):
         assert sub in out.stdout
+
+
+def test_cli_run_data_parallel_needs_a_world_of_that_size(tmp_path,
+                                                         monkeypatch):
+    """``run --data_parallel 1`` needs no launcher (a one-process world);
+    a larger R outside a world of R processes raises with the torchrun
+    command line."""
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.chdir(tmp_path)
+    flags = ["--device", "cpu", "--shots_train", "128", "--shots_infer", "200",
+             *TINY]
+    assert cli.main(["run", "--data_parallel", "1", *flags]) == 0
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        cli.main(["run", "--data_parallel", "2", *flags])

@@ -408,3 +408,48 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     _, whole = run(dataclasses.replace(cfg, num_epochs=4, checkpoint_dir=""), 0)
     np.testing.assert_allclose(losses.cpu().numpy(), whole[2:].cpu().numpy(),
                                rtol=1e-3)
+
+
+def test_tensor_parallel_forward_on_the_card(cuda, tmp_path):
+    """Two ranks on the card (gloo): the shadow width's split forward equals
+    the whole one within 2e-5 (tests/test_parallel.py's tolerance)."""
+    import test_torch_parallel_workers as workers
+
+    for out in workers.spawn_world(workers.cuda_tp_forward, 2, str(tmp_path)):
+        assert out["device"] == "cuda:0" and out["err"] < 2e-5
+
+
+def test_one_rank_nccl_fit_equals_the_mesh_less_fit(cuda, monkeypatch):
+    """``init_distributed`` from a torchrun environment of one rank joins
+    over NCCL, and ``fit`` on ``make_mesh(data=1)`` gives the mesh-less
+    losses at rtol 2e-4, atol 2e-5 (the card's backward is not
+    bit-reproducible)."""
+    from ddqst_tpu_torch import train as training
+    from ddqst_tpu_torch.config import TrainConfig
+    from ddqst_tpu_torch.parallel import mesh as pm
+
+    for var, value in dict(MASTER_ADDR="localhost", MASTER_PORT=str(
+            pm.free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+            LOCAL_WORLD_SIZE="1").items():
+        monkeypatch.setenv(var, value)
+    rng = np.random.default_rng(0)
+    bits = torch.from_numpy(rng.integers(0, 2, (2048, 3)).astype(np.int8))
+    basis = torch.from_numpy(rng.integers(0, 27, (2048,)))
+    cfg = TrainConfig(batch_size=256, num_epochs=2, log_every=0)
+
+    def run(mesh):
+        model = d3pm.ConditionalD3PM(3, 27, 20, embed_dim=32, hidden_dim=128,
+                                     num_blocks=2, input_encoding="token")
+        return training.fit(torch.Generator(device=cuda).manual_seed(0), model,
+                            bits, basis, cfg, schedules.cosine_schedule(20),
+                            mesh=mesh, log_fn=lambda m: None)[1]
+
+    plain = run(None)
+    assert pm.init_distributed()
+    try:
+        mesh = pm.make_mesh(data=1)
+        assert mesh.backend == "nccl" and mesh.device == cuda
+        on_mesh = run(mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.testing.assert_close(on_mesh, plain, rtol=2e-4, atol=2e-5)

@@ -29,6 +29,7 @@ from ddqst_tpu_torch import pipeline as tpipe
 from ddqst_tpu_torch.models import params_from_flax
 from ddqst_tpu_torch.ops import diffusion as tdiff
 from ddqst_tpu_torch.ops.schedules import make_schedule as tmake_schedule
+from ddqst_tpu_torch.parallel import make_mesh
 
 # The suite runs in several xdist workers; one intra-op thread each keeps
 # torch from oversubscribing the cores.
@@ -202,7 +203,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "for name in ('ops.mle', 'ops.pauli', 'ops.diffusion', 'train', "
         "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
-        "'utils.profiling', 'models.transformer', 'models.d3pm'):\n"
+        "'utils.profiling', 'models.transformer', 'models.d3pm', "
+        "'parallel.mesh', 'parallel.tensor'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ddqst_tpu')]\n"
@@ -221,13 +223,9 @@ def test_run_experiment_needs_cuda_unless_cpu_is_asked(monkeypatch):
         tpipe.run_experiment(_small(tcfg), seed=0, log_fn=lambda m: None)
 
 
-# Options that raised NotImplementedError until they were ported; their
-# cases stay in the list below and now assert what the option does.
-_PORTED = ("chain_finetune_steps", "reconstruction", "max_bases",
-           "gen_tables_once", "num_qubits", "arch", "infer_mode",
-           "checkpoint_dir")
-
-
+# Options that raised NotImplementedError until they were ported (the mesh,
+# the (None, None) case, last); their cases stay in the list below and now
+# assert what the option does.
 @pytest.mark.parametrize("section,change", [
     ("train", dict(chain_finetune_steps=10)),
     ("diffusion", dict(infer_mode="denoise")),
@@ -242,17 +240,27 @@ _PORTED = ("chain_finetune_steps", "reconstruction", "max_bases",
 def test_unported_options_raise(section, change, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # the checkpoint case writes ./ckpt
     cfg = _small(tcfg)
-    mesh = None
     if section is None:
-        mesh = object()
-    else:
-        cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
-                                                          **change)})
-    if section is None or not set(change) & set(_PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            tpipe.run_experiment(cfg, seed=0, mesh=mesh, device="cpu",
-                                 log_fn=lambda m: None)
+        # A one-rank mesh (a one-process gloo world) runs as no mesh does.
+        cfg = cfg.replace(
+            train=dataclasses.replace(cfg.train, num_epochs=1),
+            data=dataclasses.replace(cfg.data, shots_train=200,
+                                     shots_infer=400))
+        mesh = make_mesh(data=1, device="cpu")
+        try:
+            on_mesh = tpipe.run_experiment(cfg, seed=0, mesh=mesh,
+                                           device="cpu", log_fn=lambda m: None)
+        finally:
+            torch.distributed.destroy_process_group()
+        plain = tpipe.run_experiment(cfg, seed=0, device="cpu",
+                                     log_fn=lambda m: None)
+        assert mesh.shape == {"data": 1, "model": 1} and mesh.backend == "gloo"
+        assert np.array_equal(on_mesh["losses"], plain["losses"])
+        assert np.array_equal(on_mesh["rho"], plain["rho"])
+        assert on_mesh["fidelity"] == plain["fidelity"]
         return
+    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section),
+                                                      **change)})
     cfg = cfg.replace(
         train=dataclasses.replace(cfg.train, num_epochs=1),
         data=dataclasses.replace(cfg.data, shots_train=200, shots_infer=400))

@@ -134,21 +134,29 @@ def test_fit_is_reproducible_from_its_generator():
 @pytest.mark.parametrize("change", [dict(checkpoint_dir="ckpt"),
                                     dict(data_axis=2)])
 def test_fit_unported_options_raise(change, tmp_path, monkeypatch):
-    """Meshes still raise; checkpoints are ported and write one at the end
-    (``tests/test_torch_checkpoint.py`` holds resume)."""
+    """Both options once raised. Checkpoints are ported and write one at the
+    end (``tests/test_torch_checkpoint.py`` holds resume); ``data_axis`` is
+    not read, as the JAX package's ``fit`` never reads it (the mesh comes
+    from ``mesh=``), so the run equals the default config's bit for bit."""
     bits, basis = _tiny_data(np.random.default_rng(4), m=64)
-    m = td3pm.ConditionalD3PM(2, 9, 10, embed_dim=8, hidden_dim=16, num_blocks=1)
     cfg = dataclasses.replace(TrainConfig(num_epochs=1), **change)
+
+    def run(cfg):
+        m = td3pm.ConditionalD3PM(2, 9, 10, embed_dim=8, hidden_dim=16,
+                                  num_blocks=1)
+        return ttrain.fit(torch.Generator().manual_seed(0), m, bits, basis, cfg,
+                          tsched.linear_schedule(10), device="cpu",
+                          log_fn=lambda msg: None)
+
     if "checkpoint_dir" in change:
         monkeypatch.chdir(tmp_path)
-        ttrain.fit(torch.Generator().manual_seed(0), m, bits, basis, cfg,
-                   tsched.linear_schedule(10), device="cpu",
-                   log_fn=lambda msg: None)
+        run(cfg)
         assert os.listdir(tmp_path / "ckpt") == ["1"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        ttrain.fit(torch.Generator().manual_seed(0), m, bits, basis, cfg,
-                   tsched.linear_schedule(10), device="cpu")
+    (m1, l1), (m2, l2) = run(cfg), run(TrainConfig(num_epochs=1))
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(m1.parameters(),
+                                                 m2.parameters()))
 
 
 def test_profiling_trace_writes_a_trace_file(tmp_path):
