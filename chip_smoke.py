@@ -8,8 +8,9 @@ result line is printed; nothing falls back to the CPU):
 
 1. build  — compile ``ddqst_tpu_torch/csrc/chain_walk.cu``,
    ``chain_step.cu`` and the measuring tool ``int_rate.cu`` with nvcc for
-   sm_90a from the sources in this checkout, all at once, and print the
-   build times and the compiler's register / shared-memory report;
+   sm_90a, and the host statevector engine ``statevec.cc`` with g++, from
+   the sources in this checkout, all at once, and print the build times and
+   the compiler's register / shared-memory report;
    rate   — measure the lane instructions a second the card issues for
    integer multiply-add, wide multiply-add, three-input logic, add, float32
    FMA and a multiply/logic mix (``int_rate.cu``), and hold them against
@@ -60,8 +61,25 @@ result line is printed; nothing falls back to the CPU):
    propagation of the model's own tables, the D3PM fidelities against the
    exact-chain inversion, the raw fidelities against the CPU's inversion,
    and every ρ for trace 1, Hermiticity and PSD.
+6. generate — ``cli generate`` at its defaults (``GENERATE_*``: 10,000
+   circuits of N=3, depths 2-10, 1,024 shots, 20 shards of 500, all 27
+   bases), in this process through ``cli.main``, under torino noise (the
+   engine computes the clean states, density matrices the counts) and under
+   readout noise (the engine computes every statevector); each build's
+   wall time and its stages' seconds and calls, the engine's calls (one a
+   chunk, two under readout noise); then the torino build once more as
+   ``python -m ddqst_tpu_torch.cli generate``, which must add no shard.
+   Checks: ids 0-9,999, unique hashes, depths 2-10, every count row sums to
+   1,024; the seed's 10,000 circuits are the records'; every clean state
+   is the engine's, bit for bit, and within 2e-6 of the numpy path, norms
+   within 1e-5; on 500 circuits spread over the 20 shards, every (circuit,
+   basis) row of counts within 4 shot-noise scales (TV) of its exact Born
+   probabilities after readout (the port's numpy path). It times
+   ``states.batch_statevectors`` on the 10,000 circuits with
+   ``prefer_native`` True and False in turns (True, False, False, True) and
+   prints the engine's figures as one JSON line ``native_host_code``.
 
-6. distill — the bench recipe on the card at full width, through
+7. distill — the bench recipe on the card at full width, through
    ``run_experiment``: GHZ-3 (renoise sampler, readout noise, readout
    mitigation of reconstruction and training data, MLE reconstruction,
    exact-chain distillation with a 15% held-out split, 5,000 training and
@@ -81,12 +99,12 @@ result line is printed; nothing falls back to the CPU):
    the stage seconds, the ms per distillation step and the MLE solves'
    iterations and seconds.
 
-7. chunked — ``sample_all_bases_chunked`` (``gen_tables_once``) on phase
+8. chunked — ``sample_all_bases_chunked`` (``gen_tables_once``) on phase
    3's trained ``rqc`` model: 200,000 shots a basis, the tables once, then
    3 walk launches of at most 2^21 chains (counts set to 0 just before,
    read just after), the samples against the exact chain distribution of
    the model's tables (TV within 4 shot-noise scales per basis).
-8. shadow — ``run_experiment(get_preset("shadow_transformer"), seed=0)`` at
+9. shadow — ``run_experiment(get_preset("shadow_transformer"), seed=0)`` at
    full width and uncut (N=10, 100 sampled bases, 1,024 training and 5,000
    generated shots a basis, transformer 128 / 512 / 4 blocks / 4 heads,
    T=100, renoise, 30 epochs) on the card, with the launch counts set to 0
@@ -101,7 +119,7 @@ result line is printed; nothing falls back to the CPU):
    and no held-out split, printing ms a step and the chain CE before and
    after.
 
-9. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
+10. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
    ``notebook_upgraded``, uncut (PlainMLP, 200 / 300 epochs, N=1, 1,024
    shots a basis, T=100, notebook schedule, renoise), each with the launch
    counts set to 0 just before and read just after: one walk launch, no
@@ -111,7 +129,7 @@ result line is printed; nothing falls back to the CPU):
    within 4 shot-noise scales per basis), the fidelity against the
    inversion of that distribution (within 0.02, or 4 shot-noise standard
    deviations of the fidelity where that is larger) and ρ.
-10. denoise — phase 3's trained ``rqc`` model saved and reloaded
+11. denoise — phase 3's trained ``rqc`` model saved and reloaded
    (``params_load``), the ``rqc`` preset at the same seed in denoise mode:
    no kernel launch; t*, reps, the shots a basis and the ``denoise`` stage
    printed beside phase 3's generate-mode fidelity; each basis' samples
@@ -120,7 +138,7 @@ result line is printed; nothing falls back to the CPU):
    sample starts from a known measured shot), the share of samples that
    left their starting shot against the chain's own (within 4 standard
    deviations), and ρ.
-11. bf16 — the ``rqc`` preset uncut at ``dtype='bfloat16'``: train steps/s
+12. bf16 — the ``rqc`` preset uncut at ``dtype='bfloat16'``: train steps/s
    and fidelity against phase 3's float32 run, one walk launch, the
    samples against the exact chain, the tables on the card against a CPU
    recompute of the same bf16 model (mean absolute difference within
@@ -128,12 +146,12 @@ result line is printed; nothing falls back to the CPU):
    must exceed); then the ``rqc`` and
    the ``shadow_transformer`` widths' training, cut to about 300 steps,
    warm, at float32 and at bfloat16 in turns, steps/s of each.
-12. train_profile — 20 training steps of ``fit`` inside the port's
+13. train_profile — 20 training steps of ``fit`` inside the port's
    ``utils.profiling.trace``, after a warm-up, at the
    ``shadow_transformer`` and the ``rqc`` widths: ms a step with and
    without the profiler, device kernels a step, the device's busy share of
    a step and its 5 costliest kernels.
-13. mesh — data- and tensor-parallel training over ``torch.distributed``
+14. mesh — data- and tensor-parallel training over ``torch.distributed``
    (``ddqst_tpu_torch/parallel``): one-process fits at the ``rqc`` width
    (27 batches, 3 epochs) and the shadow width (cut to 16 batches, 2
    epochs) in this process, then a spawned world of 2 ranks on this card,
@@ -950,6 +968,204 @@ def phase_route(ck) -> tuple[int, float]:
         check_rho(extras["rho_d3pm"][i], f"D3PM rho {i}")
     log("route", f"all {2 * c} rho: trace 1, Hermitian, PSD")
     return step_launches, path_ms
+
+
+# ``cli generate``'s defaults (ddqst_tpu_torch/cli.py): 10,000 circuits of
+# N=3 at depths 2-10, 1,024 shots, chunks of 500, max_bases 50 (N=3 has 27
+# bases, so every record holds all of them), seed 0. Phase generate runs the
+# CLI at these defaults and checks that it produced them.
+GENERATE_SAMPLES, GENERATE_CHUNK, GENERATE_QUBITS = 10_000, 500, 3
+GENERATE_DEPTHS, GENERATE_SHOTS = (2, 10), 1024
+GENERATE_TV_CIRCUITS = 500
+
+
+def generate_argv(out_dir: str, noise_type: str) -> list[str]:
+    return ["generate", "--out_dir", out_dir, "--noise", noise_type]
+
+
+def _timed(owner, name: str, acc: dict, restore: list) -> None:
+    """Replace ``owner.name`` by a wrapper adding its seconds and calls to
+    ``acc[name]``; ``restore`` collects the originals."""
+    real = getattr(owner, name)
+    acc[name] = {"s": 0.0, "calls": 0}
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            acc[name]["s"] += time.perf_counter() - t0
+            acc[name]["calls"] += 1
+
+    setattr(owner, name, wrapper)
+    restore.append((owner, name, real))
+
+
+def exact_counts_probs(qc, labels: np.ndarray, ncfg) -> np.ndarray:
+    """``[B, 2^N]`` Born probabilities of ``qc`` in each basis after the
+    noise (the density matrix under gate noise, else the statevector), by
+    the port's numpy path, then the readout channel."""
+    from ddqst_tpu_torch.qsim import measure, noise, states
+
+    n = qc.num_qubits
+    rots = measure.rotation_unitaries(labels)
+    if ncfg.has_gate_noise:
+        rho = noise.simulate_density_matrix(qc, ncfg)
+        probs = np.einsum("bij,jk,bik->bi", rots, rho, rots.conj()).real
+    else:
+        probs = np.abs(rots @ states.circuit_statevector(qc)) ** 2
+    probs = (probs / probs.sum(-1, keepdims=True)).astype(np.float32)
+    return noise.apply_readout_to_probs(
+        torch.from_numpy(probs), n, ncfg.readout_p).numpy()
+
+
+def phase_generate(engine_build_s: float) -> dict:
+    """Phase-4 ``cli generate`` at its defaults under torino and readout
+    noise, through ``cli.main`` (and once more as ``python -m``, which must
+    add no shard); the C++ engine against the numpy path on the same
+    10,000 circuits."""
+    from ddqst_tpu_torch import cli
+    from ddqst_tpu_torch.data import generate as gen
+    from ddqst_tpu_torch.data.records import load_dataset
+    from ddqst_tpu_torch.qsim import native_engine, noise, states
+
+    t_phase = time.perf_counter()
+    c, n, shots = GENERATE_SAMPLES, GENERATE_QUBITS, GENERATE_SHOTS
+    parts = -(-c // GENERATE_CHUNK)
+    out: dict = {"circuits": c, "num_qubits": n, "shards": parts,
+                 "shots": shots, "builds": {}}
+    built: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for noise_type in ("torino", "readout"):
+            ds = os.path.join(tmp, noise_type)
+            stages: dict = {}
+            restore: list = []
+            for owner, name in ((gen, "_unique_circuits"),
+                                (gen, "_simulate_chunk"),
+                                (noise, "simulate_density_matrix"),
+                                (native_engine, "statevectors"),
+                                (gen, "_records"), (gen, "save_shard")):
+                _timed(owner, name, stages, restore)
+            try:
+                t0 = time.perf_counter()
+                rc = cli.main(generate_argv(ds, noise_type))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for owner, name, real in restore:
+                    setattr(owner, name, real)
+            check(rc == 0, f"cli generate --noise {noise_type} exit 0")
+            ncfg = noise.get_noise_config(noise_type)
+            calls = stages["statevectors"]["calls"]
+            want_calls = parts * (1 if ncfg.has_gate_noise else 2)
+            log("generate", f"{noise_type}: {c} circuits in {wall:.4f} s; "
+                + ", ".join(f"{k} {v['s']:.4f} s / {v['calls']} calls"
+                            for k, v in stages.items()))
+            check(calls == want_calls,
+                  f"{noise_type}: {calls} engine calls, want {want_calls}")
+            shards = sorted(f for f in os.listdir(ds) if f.endswith(".npz"))
+            check(len(shards) == parts, f"{noise_type}: {parts} shards")
+            t0 = time.perf_counter()
+            records = load_dataset(ds)
+            load_s = time.perf_counter() - t0
+            log("generate", f"{noise_type}: load_dataset {load_s:.4f} s")
+            check(sorted(r.id for r in records) == list(range(c)),
+                  f"{noise_type}: ids 0..{c - 1}")
+            check(len({r.hash for r in records}) == c,
+                  f"{noise_type}: hashes unique")
+            lo, hi = GENERATE_DEPTHS
+            check(all(lo <= r.depth <= hi for r in records),
+                  f"{noise_type}: depths {lo}-{hi}")
+            counts = np.stack([r.counts for r in records])
+            check(counts.shape == (c, 3**n, 2**n)
+                  and bool((counts.sum(-1) == shots).all()),
+                  f"{noise_type}: every count row sums to {shots}")
+            built[noise_type] = (ds, ncfg, {r.id: r for r in records})
+            out["builds"][noise_type] = dict(
+                wall_s=wall, engine_calls=calls, load_dataset_s=load_s,
+                stages_s={k: v["s"] for k, v in stages.items()},
+                stage_calls={k: v["calls"] for k, v in stages.items()})
+
+        # The second call, as a user types it: resumes and adds nothing.
+        ds = built["torino"][0]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ddqst_tpu_torch.cli",
+             *generate_argv(ds, "torino")],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600, check=False)
+        resume_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"python -m ddqst_tpu_torch.cli generate "
+              f"again: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        check(len([f for f in os.listdir(ds) if f.endswith(".npz")]) == parts
+              and "saved" not in proc.stdout,
+              "a second cli generate adds no shard")
+        log("generate", f"python -m ddqst_tpu_torch.cli generate again: "
+            f"{resume_s:.4f} s, no shard added")
+        out["resume_s"] = resume_s
+
+        # The same circuits, drawn again from the seed (the basis plan draws
+        # nothing at N=3, so one draw of 10,000 equals the chunks' draws).
+        pool = gen._unique_circuits(np.random.default_rng(0), c, n,
+                                    *GENERATE_DEPTHS, set())
+        circuits = [qc for qc, _ in pool]
+        by_id = built["torino"][2]
+        check([h for _, h in pool] == [by_id[i].hash for i in range(c)],
+              "the seed's circuits are the records' circuits")
+        times: dict = {True: [], False: []}
+        psis = {}
+        for prefer_native in (True, False, False, True):
+            t0 = time.perf_counter()
+            psis[prefer_native] = states.batch_statevectors(
+                circuits, prefer_native=prefer_native)
+            times[prefer_native].append(time.perf_counter() - t0)
+        native, plain = psis[True], psis[False]
+        err = float(np.abs(native - plain).max())
+        norm_err = float(np.abs(np.linalg.norm(native, axis=1) - 1).max())
+        clean = {k: np.stack([b[2][i].clean_state for i in range(c)])
+                 for k, b in built.items()}
+        check(all(np.array_equal(v, native) for v in clean.values()),
+              "every record's clean state is the engine's, bit for bit")
+        check(err < 2e-6 and norm_err < 1e-5,
+              f"engine vs numpy path: max abs err {err:.2e} < 2e-6, norms "
+              f"within {norm_err:.2e} < 1e-5")
+        log("generate", f"batch_statevectors on {c} circuits: engine "
+            f"{times[True]} s, numpy path {times[False]} s; max abs err "
+            f"{err:.2e}, norms within {norm_err:.2e}")
+
+        # Counts against the exact Born probabilities after readout, on
+        # circuits spread over every shard.
+        bound = 4 * math.sqrt(2**n / (2 * math.pi * shots))
+        tvs = {}
+        for noise_type, (_, ncfg, recs) in built.items():
+            ids = range(0, c, c // GENERATE_TV_CIRCUITS)
+            tv = np.stack([
+                0.5 * np.abs(recs[i].counts / shots - exact_counts_probs(
+                    circuits[i], recs[i].basis_labels.astype(np.int64), ncfg)
+                ).sum(-1) for i in ids])
+            tvs[noise_type] = float(tv.max())
+            log("generate", f"{noise_type}: counts vs exact probabilities on "
+                f"{len(ids)} circuits: max TV {tv.max():.5f}, mean "
+                f"{tv.mean():.5f} < {bound:.5f} over {tv.size} rows")
+            check(bool((tv < bound).all()),
+                  f"{noise_type}: counts TV {tv.max()} < {bound}")
+    out["max_tv"] = tvs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("generate", f"phase {out['phase_s']:.4f} s")
+    engine = {
+        "name": "statevectors",
+        "route": "host C++ (g++ -O3)",
+        "source": "ddqst_tpu_torch/csrc/statevec.cc",
+        "replaces": "ddqst_tpu/qsim/native_engine.py:101",
+        "circuits": c, "num_qubits": n,
+        "calls": {k: v["engine_calls"] for k, v in out["builds"].items()},
+        "s": times[True], "numpy_s": times[False],
+        "max_abs_err": err, "max_norm_err": norm_err,
+        "build_s": engine_build_s,
+    }
+    print(json.dumps({"native_host_code": [engine], "generate": out}),
+          flush=True)
+    return out
 
 
 # The reference's seed-0 scores for the two recipes (its round-5 bench on a
@@ -2276,17 +2492,20 @@ def time_kernels(ck) -> dict:
     return out
 
 
-def build_all(_build) -> None:
-    """Build every source at once, one nvcc each."""
-    names = ("chain_walk", "chain_step", "int_rate")
+def build_all(_build) -> dict[str, float]:
+    """Build every source at once, one compiler each (nvcc for the CUDA
+    sources, g++ for the statevector engine); returns each one's seconds."""
+    names = ("chain_walk", "chain_step", "int_rate", "statevec")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds) in zip(names, built):
-        log("build", f"{name}.cu -> {path} in {seconds:.2f} s")
+        log("build", f"{os.path.basename(_build._source(name)[0])} -> {path} "
+            f"in {seconds:.2f} s")
         with open(f"{path}.log") as f:
             for line in f.read().splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log("build", line.strip())
+    return {name: seconds for name, (_, seconds) in zip(names, built)}
 
 
 def main() -> int:
@@ -2331,13 +2550,14 @@ def main() -> int:
                           "card": smi}), flush=True)
         return 0
 
-    build_all(_build)
+    build_s = build_all(_build)
     rate = phase_rate(_build)
     kernel = phase_kernel(ck)
     launches, res = phase_main_path(ck)
     step = phase_step(ck)
     phase_seq_walk(ck, res["state"])
     step_launches, path_ms = phase_route(ck)
+    phase_generate(build_s["statevec"])
     distill = phase_distill(ck, DISTILL_DEPTH)
     chunked_launches = phase_chunked(ck, res["state"])
     shadow = phase_shadow(ck)

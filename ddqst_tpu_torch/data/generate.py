@@ -12,12 +12,19 @@ The port's counterpart of ``ddqst_tpu/data/generate.py``:
 
 Circuits, hashes, depths, basis plans and clean states come from
 ``np.random.default_rng(seed)``, drawn in the JAX package's order (the
-circuits, then the basis plan), so they equal the JAX package's. Each
-chunk's circuits are simulated on the host (statevectors, or density
-matrices under gate noise), then rotated into every basis and sampled on
-the working device in one batch; the counts draw from a ``torch.Generator``
-derived from ``(seed, part)``, so they match the JAX package in
-distribution, not bit for bit.
+circuits, then the basis plan), so they equal the JAX package's. Where
+each part runs:
+
+- on the host, in C++ (``qsim.native_engine``, through
+  ``states.batch_statevectors``): the statevectors, one engine call a chunk
+  for the records' clean states, and one more for the counts when the noise
+  has no gate part;
+- on the host, in numpy: the density matrices under gate noise
+  (``noise.simulate_density_matrix``, one circuit at a time);
+- on the working device, one batch a chunk: the rotation of every state
+  into every basis, the readout channel and Born sampling. The counts draw
+  from a ``torch.Generator`` derived from ``(seed, part)``, so they match
+  the JAX package in distribution, not bit for bit.
 """
 
 from __future__ import annotations

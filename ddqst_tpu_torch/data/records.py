@@ -63,18 +63,23 @@ def save_shard(path: str, records: list[CircuitRecord]) -> None:
 
 
 def load_shard(path: str) -> list[CircuitRecord]:
+    """The records of one shard. Each array is read (and decompressed) once;
+    a record's arrays are rows of the shard's."""
     with np.load(path, allow_pickle=False) as z:
-        return [
-            CircuitRecord(
-                id=int(z["ids"][i]),
-                hash=str(z["hashes"][i]),
-                depth=int(z["depths"][i]),
-                clean_state=z["states"][i],
-                basis_labels=z["basis_labels"][i],
-                counts=z["counts"][i],
-            )
-            for i in range(len(z["ids"]))
-        ]
+        ids, hashes, depths, states, labels, counts = (
+            z[k] for k in ("ids", "hashes", "depths", "states",
+                           "basis_labels", "counts"))
+    return [
+        CircuitRecord(
+            id=int(ids[i]),
+            hash=str(hashes[i]),
+            depth=int(depths[i]),
+            clean_state=states[i],
+            basis_labels=labels[i],
+            counts=counts[i],
+        )
+        for i in range(len(ids))
+    ]
 
 
 def load_dataset(path: str) -> list[CircuitRecord]:

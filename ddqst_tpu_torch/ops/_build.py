@@ -1,15 +1,18 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's native sources at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, under ``ddqst_tpu_torch/_build/`` (listed
-in ``.gitignore``). Sources include the shared headers ``csrc/*.cuh`` (the
-Philox generator). The file name carries a hash of the source, of every
-header and of the flags, so an edited source or header rebuilds and an
-unchanged one is reused. The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside the library as ``<lib>.log``.
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``, and each
+``csrc/<name>.cc`` (host code: the statevector engine) with ``g++``, into a
+shared library with a plain C interface under ``ddqst_tpu_torch/_build/``
+(listed in ``.gitignore``). CUDA sources include the shared headers
+``csrc/*.cuh`` (the Philox generator). The file name carries a hash of the
+flags, of the source and, for CUDA, of every header, so an edited source or
+header rebuilds, an unchanged one is reused, and a ``.cu`` and a ``.cc``
+never share a file. The compiler's output (for CUDA ``-Xptxas -v``:
+registers, shared memory, spills) is kept beside the library as
+``<lib>.log``. A missing or failing compiler raises ``RuntimeError``.
 
-Nothing is built at import time; the wrappers in ``cuda_kernels.py`` call
-:func:`load` on their first launch.
+Nothing is built at import time; the wrappers in ``cuda_kernels.py`` and
+``qsim/native_engine.py`` call :func:`load` on first use.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX = "g++"
+HOST_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -48,35 +53,63 @@ def _nvcc() -> str:
     )
 
 
+def _cxx() -> str:
+    found = shutil.which(CXX)
+    if found is None:
+        raise RuntimeError(
+            f"{CXX} not found on PATH; the statevector engine "
+            "(csrc/statevec.cc) is built with a C++ compiler"
+        )
+    return found
+
+
+def _source(name: str) -> tuple[str, tuple[str, ...], list[str]]:
+    """``(source, flags, files hashed)`` of ``csrc/<name>.cc`` if it exists,
+    else of ``csrc/<name>.cu``."""
+    host = os.path.join(CSRC, f"{name}.cc")
+    if os.path.exists(host):
+        return host, HOST_FLAGS, [host]
+    cuda = os.path.join(CSRC, f"{name}.cu")
+    return cuda, NVCC_FLAGS, [cuda, *sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh")))]
+
+
 def library_path(name: str) -> str:
-    """Path of the built library for ``csrc/<name>.cu`` (may not exist yet)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(CSRC, f"{name}.cu"),
-                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+    """Path of the built library for ``csrc/<name>.cc`` or ``.cu`` (may not
+    exist yet)."""
+    _, flags, hashed = _source(name)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in hashed:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> tuple[str, float]:
-    """Compile ``csrc/<name>.cu`` unless already built.
+    """Compile ``csrc/<name>.cc`` (g++) or ``csrc/<name>.cu`` (nvcc) unless
+    already built.
 
     Returns ``(library path, seconds spent compiling)`` (0.0 when reused).
-    Raises ``RuntimeError`` with the compiler's output if nvcc fails.
+    Raises ``RuntimeError`` with the compiler's output if the compiler is
+    missing or fails.
     """
     out = library_path(name)
     if os.path.exists(out):
         return out, 0.0
+    src, flags, _ = _source(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    if src.endswith(".cc"):
+        cmd = [_cxx(), *flags, "-o", tmp, src]
+    else:
+        cmd = [_nvcc(), *flags, "-I", CSRC, "-o", tmp, src]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     seconds = time.perf_counter() - t0
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(
+            f"{os.path.basename(cmd[0])} failed ({proc.returncode}):\n{log}")
     with open(f"{out}.log", "w") as f:
         f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
@@ -84,7 +117,8 @@ def build(name: str) -> tuple[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cc`` or ``.cu``; cached per
+    process."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -116,7 +116,7 @@ def test_build_dataset_matches_jax(seed, n, max_bases):
         assert (a.id, a.hash, a.depth) == (b.id, b.hash, b.depth)
         np.testing.assert_array_equal(a.basis_labels, b.basis_labels)
         assert b.basis_labels.shape == ((100, 5) if n == 5 else (3**n, n))
-        # JAX may take its native C++ engine, the port the numpy path.
+        # Both packages take their C++ statevector engines.
         np.testing.assert_allclose(a.clean_state, b.clean_state, atol=1e-6)
         assert b.counts.shape == a.counts.shape and b.counts.dtype == np.int32
         assert (b.counts.sum(axis=1) == 64).all()

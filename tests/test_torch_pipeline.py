@@ -194,7 +194,8 @@ def test_mitigate_train_data_path_runs(tmp_path):
 
 def test_port_imports_no_jax():
     """Every ddqst_tpu_torch module, and chip_smoke.py, import without jax,
-    flax, optax or ddqst_tpu."""
+    flax, optax or ddqst_tpu, and the C++ engine builds and runs without
+    them."""
     code = (
         "import pkgutil, importlib, sys, ddqst_tpu_torch\n"
         "for m in pkgutil.walk_packages(ddqst_tpu_torch.__path__, "
@@ -204,8 +205,11 @@ def test_port_imports_no_jax():
         "for name in ('ops.mle', 'ops.pauli', 'ops.diffusion', 'train', "
         "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
         "'utils.profiling', 'models.transformer', 'models.d3pm', "
-        "'parallel.mesh', 'parallel.tensor'):\n"
+        "'parallel.mesh', 'parallel.tensor', 'qsim.native_engine'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
+        "from ddqst_tpu_torch.qsim import native_engine, states\n"
+        "psi = native_engine.statevectors([states.prep_circuit('bell', 2)])\n"
+        "assert psi.shape == (1, 4), psi.shape\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ddqst_tpu')]\n"
         "assert not bad, bad\n"
