@@ -7,30 +7,42 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line is printed; nothing falls back to the CPU):
 
 1. build  — compile ``ddqst_tpu_torch/csrc/chain_walk.cu``,
-   ``chain_step.cu`` and the measuring tool ``int_rate.cu`` with nvcc for
-   sm_90a, and the host statevector engine ``statevec.cc`` with g++, from
-   the sources in this checkout, all at once, and print the build times and
-   the compiler's register / shared-memory report;
+   ``chain_step.cu`` and the measuring tools ``int_rate.cu`` and
+   ``walk_ablation.cu`` with nvcc for sm_90a, and the host statevector
+   engine ``statevec.cc`` with g++, from the sources in this checkout, all
+   at once, and print the build times and the compiler's register /
+   shared-memory report;
    rate   — measure the lane instructions a second the card issues for
    integer multiply-add, wide multiply-add, three-input logic, add, float32
    FMA and a multiply/logic mix (``int_rate.cu``), and hold them against
    the documented integer rate the bounds use; disassemble the built
    libraries with ``cuobjdump -sass`` and count, by pipe, the instructions
-   one chain and step issues in each kernel;
+   one chain and step issues in each kernel (the walk's staged body at N=3
+   and N=7, its ring body at N=10, its global body at N=12, and the
+   variants of ``walk_ablation.cu``, whose mode 2 is the global body at
+   N=10);
+   ablation — time the variants of the walk's global body at the shadow
+   shape (Philox and bits alone; loads without conversions; the body as it
+   stands, which must equal the plain version; 8-byte loads; 16-byte loads
+   from padded rows; loads and conversions without Philox), in turns,
+   beside the wrapper (the ring body);
 2. kernel — hold the CUDA ``fused_chain_walk`` against its plain PyTorch
    version on the card, bit for bit, at the main-path shape (T=100, C=27,
    N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128), at N = 1, 5
-   and 6 (with N=3 and N=7 the kernel's three ways of staging its tables)
-   and at the notebook presets' shape (T=100, C=3, N=1, S=1,024),
-   then in its global-memory body at the shadow route's shape (T=100,
-   C=100, N=10, S=5,000), at a ragged S there and at N = 8, 9 and 12, each
-   at every block size it can choose; check that the same seed repeats;
-   check the walk's distribution against the exact propagation of its
-   tables (TV within 4 shot-noise scales) at N = 3, 7 and 10; time kernel
-   and plain version with CUDA events at 135,000 and at 27 x 37,037 (about
-   10^6) chains, at N=7, at the shadow shape and at one call of the
-   chunked sampler at N = 8 (3^8 rows x 319 chains, 5.4 GB of tables), the
-   kernel also at each block size;
+   and 6 (with N=3 and N=7 the staged body's three ways of staging its
+   tables) and at the notebook presets' shape (T=100, C=3, N=1, S=1,024),
+   each at every block size; then from N = 8 on at the shadow route's shape
+   (T=100, C=100, N=10, S=5,000), at a ragged S there, at N = 8, 9, 11 and
+   12, and at the ring body's tails (T = 7, 3 and 1 at N = 8 and 10, T = 5
+   at N = 11): the plan's body (the ring body up to N = 11, the global body
+   at 12) at every block size and on tables that are not 16-byte aligned;
+   check that the same seed repeats; check the walk's
+   distribution against the exact propagation of its tables (TV within 4
+   shot-noise scales) at N = 3, 7 and 10; time kernel and plain version
+   with CUDA events at 135,000 and at 27 x 37,037 (about 10^6) chains, at
+   N=7, at the shadow shape, at one call of the chunked sampler at N = 8
+   (3^8 rows x 319 chains, 5.4 GB of tables) and at the shadow shape with
+   N = 11, the kernel also at other block sizes;
 3. main path — ``run_experiment(get_preset("rqc"), seed=0)`` at full width
    on the default (CUDA) device, with the kernel's launch count set to 0
    just before and read just after; print each stage's time and the
@@ -393,6 +405,28 @@ def hot_loop(instrs: list) -> list:
         1 for _, op, _ in b if op.startswith("IMAD")))
 
 
+def step_loop(instrs: list) -> list:
+    """The loop (a backward branch and what it jumps over) that holds the
+    most wide multiplies, the smallest of those, without the loops nested
+    in it: the ring body's step loop, whose waits spin in small loops of
+    their own."""
+    loops = []
+    for addr, op, args in instrs:
+        m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+
+    def wide(lo, hi):
+        return sum(1 for a, op, _ in instrs
+                   if lo <= a <= hi and op.startswith("IMAD.WIDE.U32"))
+
+    lo, hi = max(loops, key=lambda b: (wide(*b), b[0] - b[1]))
+    inner = [(a, b) for a, b in loops
+             if lo <= a and b <= hi and (a, b) != (lo, hi)]
+    return [i for i in instrs if lo <= i[0] <= hi
+            and not any(a <= i[0] <= b for a, b in inner)]
+
+
 def count_by_pipe(instrs: list) -> dict:
     counts: dict[str, int] = {}
     for _, op, _ in instrs:
@@ -470,15 +504,91 @@ def phase_rate(_build) -> dict:
         steps = max(1, sum(1 for _, op, _ in body if op.startswith("LDS")) // n)
         counts[key] = {k: v / steps for k, v in c.items()}
         counts[key]["steps_in_loop_body"] = steps
+    # N = 10, the shadow route's: the ring body's step loop (a stage of two
+    # steps; one conversion a bit and step); N = 12: the global body's hot
+    # loop (unrolled by 2); then the ablation's variants of the global body
+    # at N = 10 (the same loop; mode 2 is the body itself)
+    for key, tag, n in (("walk_n10_ring", "chain_walk_ring_kernelILi10E", 10),
+                        ("walk_n12_global", "chain_walk_global_kernelILi12E",
+                         12)):
+        fn = next(v for k, v in walk_sass.items() if tag in k)
+        body = step_loop(fn) if "ring" in key else hot_loop(fn)
+        c = count_by_pipe(body)
+        steps = max(1, sum(1 for _, op, _ in body if op.startswith("F2I")) // n)
+        counts[key] = {k: v / steps for k, v in c.items()}
+        counts[key]["steps_in_loop_body"] = steps
+    ablation_sass = disassemble(_build, "walk_ablation")
+    for mode, what in ABLATION_MODES:
+        body = hot_loop(next(v for k, v in ablation_sass.items()
+                             if f"walk_ablation_kernelILi{mode}E" in k))
+        counts[f"ablation_{mode}"] = {k: v / 2 for k, v in
+                                      count_by_pipe(body).items()}
     for key, c in counts.items():
         log("rate", f"SASS per chain and step, {key}: " + ", ".join(
             f"{k} {v:g}" for k, v in c.items()))
-        calls = 2 if key.endswith("n7") or "n7" in key else 1
+        if key.startswith("ablation"):
+            continue
+        calls = 3 if "n10" in key or "n12" in key else 2 if "n7" in key else 1
         check(c["multiply_highs"] <= 2 * calls and 0 < c["wide_multiplies"]
               <= PHILOX_MUL_OPS_SOURCE * calls,
               f"{key}: a Philox round's products are IMAD.WIDE.U32 (both "
               f"halves from one instruction), not an IMAD and an IMAD.HI")
     return {"rates": rates, "sass": counts}
+
+
+# Variants of the global body at N = 10 in csrc/walk_ablation.cu: (mode,
+# what it keeps of the body).
+ABLATION_MODES = (
+    (0, "Philox and bits only (no table read)"),
+    (1, "4-byte loads, no conversion"),
+    (2, "the body as it stands (4-byte loads, conversions)"),
+    (3, "8-byte loads, conversions"),
+    (4, "16-byte loads from rows padded to 12 words, conversions"),
+    (5, "4-byte loads and conversions, no Philox"),
+)
+
+
+def phase_ablation(_build, ck) -> dict:
+    """What each part of the global body costs at the shadow shape (T=100,
+    C=100, N=10, S=5,000; blocks of 512 threads, as its plan chose when it
+    walked N = 10): the variants of csrc/walk_ablation.cu in turns, beside
+    the wrapper (the ring body). No profiler runs on the card's machine."""
+    import ctypes
+
+    fn = _build.load("walk_ablation").ddqst_walk_ablation
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p]
+    t_steps, c, n, s = 100, 100, 10, 5000
+    tables, init = random_walk_inputs(t_steps, c, n, s, seed=20)
+    padded = torch.nn.functional.pad(tables, (0, 2)).contiguous()  # 12 words
+    out = torch.empty_like(init)
+    stream = torch.cuda.current_stream().cuda_stream
+    want = ck.fused_chain_walk_reference(5, tables, init, n)
+    ms: dict = {}
+    for rep in range(2):
+        for mode, _ in ABLATION_MODES:
+            src = padded if mode == 4 else tables
+
+            def launch():
+                err = fn(mode, src.data_ptr(), init.data_ptr(), out.data_ptr(),
+                         t_steps, c, s, 512, 5, stream)
+                check(err == 0, f"walk_ablation mode {mode} launched ({err})")
+            ms.setdefault(mode, []).append(cuda_ms(launch, 20))
+            if mode == 2 and rep == 0:
+                torch.cuda.synchronize()
+                check(torch.equal(out, want), "ablation mode 2 is the global "
+                      "body: its bits equal the plain version's")
+        ms.setdefault("ring", []).append(cuda_ms(
+            lambda: ck.fused_chain_walk(5, tables, init, n), 20))
+    bound, _ = walk_bound_ms(t_steps, c, n, s)
+    for mode, what in ABLATION_MODES:
+        log("ablation", f"mode {mode}, {what}: {ms[mode][0]:.4f} / "
+            f"{ms[mode][1]:.4f} ms ({min(ms[mode]) / bound:.2f} x bound)")
+    log("ablation", f"wrapper (the ring body): {ms['ring'][0]:.4f} / "
+        f"{ms['ring'][1]:.4f} ms ({min(ms['ring']) / bound:.2f} x bound)")
+    return {str(k): v for k, v in ms.items()}
 
 
 def exact_walk(tables: torch.Tensor, init_dist: torch.Tensor) -> torch.Tensor:
@@ -539,19 +649,31 @@ def random_walk_inputs(t_steps, c, n, s, seed):
     return (torch.from_numpy(tables).cuda(), torch.from_numpy(init).cuda())
 
 
+def _offset_by_one_word(t: torch.Tensor) -> torch.Tensor:
+    """The same values at an address 4 bytes off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
 def phase_kernel(ck) -> dict:
     """Kernel vs plain version on the card; returns the timing record."""
     # (T, C, N, S): the rqc preset's shape, the bench recipe's (50,000 shots
     # a basis), a ragged S, and N = 1 (plain loads), 5 (all T slices at
     # once, 64 KB), 6 and 7 (a ring of chunks), the notebook presets' (N = 1,
-    # 3 x 1,024 chains: fewer blocks than SMs); then the body that reads
-    # global memory: the shadow route's shape (N = 10, 100 sampled bases),
-    # a ragged S there, and N = 8, 9 and 12.
+    # 3 x 1,024 chains: fewer blocks than SMs); then from N = 8 on, the ring
+    # body: the shadow route's shape (N = 10, 100 sampled bases), a ragged S
+    # there, N = 8, 9 and 11, and its tails: an odd T (a short last stage
+    # load) and T below its stages x steps a stage (8 at N = 8, 4 at N = 10,
+    # 2 at N = 11); then N = 12 (the global body).
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
               (100, 27, 6, 1237), (100, 3, 1, 1024),
               (100, 100, 10, 5000), (100, 100, 10, 1237), (100, 40, 8, 3001),
-              (50, 30, 9, 2049), (20, 8, 12, 999)]
+              (50, 30, 9, 2049), (50, 20, 11, 1237),
+              (7, 30, 8, 1237), (3, 30, 8, 1237), (1, 30, 8, 319),
+              (7, 30, 10, 1237), (3, 30, 10, 5000), (1, 30, 10, 1237),
+              (5, 20, 11, 1237), (20, 8, 12, 999)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -563,19 +685,32 @@ def phase_kernel(ck) -> dict:
         torch.cuda.synchronize()
         err = float((out_k - out_r).abs().max())
         max_err = max(max_err, err)
+        where = f"T={t_steps} C={c} N={n} S={s}"
         check(torch.equal(out_k, out_r),
-              f"kernel == plain bit for bit at T={t_steps} C={c} N={n} S={s}")
-        check(torch.equal(out_k, again), f"same seed repeats at N={n} S={s}")
+              f"kernel == plain bit for bit at {where}")
+        check(torch.equal(out_k, again), f"same seed repeats at {where}")
         check(not torch.equal(ck.fused_chain_walk(seed + 1, tables, init, n),
-                              out_k), f"another seed differs at N={n} S={s}")
+                              out_k), f"another seed differs at {where}")
+        check(plan[3] == ("staged" if n <= 7 else "ring" if n <= 11
+                          else "global"), f"the plan's body at {where}: {plan}")
+        plans = []
         for threads in (64, 128, 256, 512):
-            check(torch.equal(ck.fused_chain_walk(seed, tables, init, n,
-                                                  threads=threads), out_r),
-                  f"blocks of {threads} give the same bits at N={n} S={s}")
-        log("kernel", f"T={t_steps} C={c} N={n} S={s}: kernel == plain "
-            f"(bit for bit) at the chosen and at every block size, "
-            f"repeatable; chose {plan[0]} threads, {plan[1]} steps a buffer, "
-            f"{plan[2]} B of shared memory")
+            out = ck.fused_chain_walk(seed, tables, init, n, threads=threads)
+            plans.append(ck.fused_chain_walk.last_plan)
+            check(torch.equal(out, out_r),
+                  f"{threads} threads give the same bits at {where}")
+        if n > 7:
+            shifted = _offset_by_one_word(tables)
+            check(torch.equal(ck.fused_chain_walk(seed, shifted, init, n),
+                              out_r),
+                  f"tables 4 bytes off alignment give the same bits at {where}")
+            del shifted
+        off = " and off alignment" if n > 7 else ""
+        log("kernel", f"{where}: kernel == plain (bit for bit) at the chosen "
+            f"plan and at every block size{off}, repeatable; chose "
+            f"{plan[0]} threads, {plan[1]} steps a buffer, "
+            f"{plan[2]} B of shared memory, body {plan[3]}; the block sizes' "
+            f"plans: {plans}")
 
     for n in (3, 7, 10):
         t_steps, c, s = 20, 4, 200_000
@@ -594,31 +729,33 @@ def phase_kernel(ck) -> dict:
     rec = {}
     # (label, C, N, S, kernel iterations, plain iterations): the shapes of
     # the paths: rqc, 10^6 chains, the bench recipes, N = 7, the shadow
-    # route (100 sampled bases at N = 10) and one walk call of
+    # route (100 sampled bases at N = 10), one walk call of
     # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
-    # a row, 5.4 GB of tables).
+    # a row, 5.4 GB of tables) and the shadow shape at N = 11. The parent's
+    # body at these shapes is timed by --time-kernels on its checkout.
     for label, c, n, s, it_k, it_r in (("main", 27, 3, 5000, 50, 3),
                                        ("1e6", 27, 3, 37037, 20, 2),
                                        ("bench", 27, 3, 50000, 20, 2),
                                        ("n7", 27, 7, 5000, 20, 2),
                                        ("shadow", 100, 10, 5000, 20, 1),
-                                       ("n8_grid", 3**8, 8, 319, 5, 1)):
+                                       ("n8_grid", 3**8, 8, 319, 5, 1),
+                                       ("n11", 100, 11, 5000, 10, 1)):
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
         plan = ck.fused_chain_walk.last_plan
-        sweep = {t: cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n,
-                                                        threads=t), it_k)
-                 for t in (64, 128, 256, 512)}
+        sweep = {t: cuda_ms(lambda: ck.fused_chain_walk(
+            5, tables, init, n, threads=t), it_k)
+            for t in ((64, 128, 256, 512) if n <= 7 else (256, 512))}
         ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(
             5, tables, init, n), it_r)
         bound, by = walk_bound_ms(100, c, n, s)
         log("kernel", f"{label}: N={n}, {c} x {s} chains x 100 steps: kernel "
-            f"{ms_k:.4f} ms ({plan[0]} threads chosen), plain {ms_r:.3f} ms, "
+            f"{ms_k:.4f} ms (plan {plan}), plain {ms_r:.3f} ms, "
             f"bound {bound:.4f} ms ({by}), {ms_k / bound:.2f} x bound; by "
             "block size: " + ", ".join(
                 f"{t}: {ms:.4f}" for t, ms in sweep.items()))
         rec[label] = dict(ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by,
-                          threads=plan[0], ms_by_threads=sweep)
+                          threads=plan[0], plan=list(plan), ms_by_threads=sweep)
         del tables, init
     rec["max_abs_err"] = max_err
     return rec
@@ -1398,9 +1535,12 @@ def phase_shadow(ck) -> dict:
         log("shadow", f"train: {res['train_steps']} steps, "
             f"{res['train_steps'] / tm['train']:.1f} steps/s")
         log("shadow", f"fused_chain_walk.launches = {walks} ({plan[0]} "
-            f"threads a block), fused_chain_step.launches = {steps}")
+            f"threads a block, body {plan[3]}), fused_chain_step.launches = "
+            f"{steps}")
         check(walks == 1 and steps == 0,
               "the shadow route launched the walk once and the step never")
+        check(plan[3] == "ring", f"the shadow route's walk took the ring "
+              f"body ({plan})")
         quality = ("mean_tv_to_target", "tv_shot_noise_floor",
                    "meas_tv_to_target", "mean_marginal_error",
                    "classical_fidelity")
@@ -1482,7 +1622,8 @@ def phase_shadow(ck) -> dict:
           "the shadow distillation ran its steps with finite losses")
     check(math.isfinite(info["train_ce_after"]) and walks2 == 1,
           "the warm-started run generated through one walk launch")
-    return dict(walk_launches=walks, walk_threads=plan[0], wall_s=wall,
+    return dict(walk_launches=walks, walk_threads=plan[0],
+                walk_plan=list(plan), wall_s=wall,
                 timings=tm, train_steps=res["train_steps"],
                 **{k: res[k] for k in quality}, max_tv_exact_chain=float(
                     tv.max()), table_err=tab_err, distill_ms_per_step=ms_step,
@@ -2463,17 +2604,19 @@ def phase_mesh() -> dict:
 
 
 def time_kernels(ck) -> dict:
-    """Both kernels' ms at their four shapes, in the forms every version of
-    the port has (the step kernel with ``rows``), for comparing two
-    checkouts on one card. The ``row_base`` form is timed where the package
-    has it."""
+    """Both kernels' ms at their shapes, in the forms every version of the
+    port has (the step kernel with ``rows``, the walk with the body its plan
+    chooses), for comparing two checkouts on one card. The ``row_base`` form
+    and the walk from N = 8 on are timed where the package has them."""
     import inspect
 
     out = {}
     shapes = [("walk_main", 27, 3, 5000, 50), ("walk_1e6", 27, 3, 37037, 20),
               ("walk_n7", 27, 7, 5000, 20)]
-    if getattr(ck, "_MAX_WALK_N", 7) >= 10:  # the walk takes N = 10
-        shapes.append(("walk_shadow", 100, 10, 5000, 20))
+    if getattr(ck, "_MAX_WALK_N", 7) >= 11:  # the walk takes N = 8 to 11
+        shapes += [("walk_shadow", 100, 10, 5000, 20),
+                   ("walk_n8_grid", 3**8, 8, 319, 5),
+                   ("walk_n11", 100, 11, 5000, 10)]
     for label, c, n, s, iters in shapes:
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         out[label] = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n),
@@ -2495,7 +2638,8 @@ def time_kernels(ck) -> dict:
 def build_all(_build) -> dict[str, float]:
     """Build every source at once, one compiler each (nvcc for the CUDA
     sources, g++ for the statevector engine); returns each one's seconds."""
-    names = ("chain_walk", "chain_step", "int_rate", "statevec")
+    names = ("chain_walk", "chain_step", "int_rate", "walk_ablation",
+             "statevec")
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build.build, names))
     for name, (path, seconds) in zip(names, built):
@@ -2552,6 +2696,7 @@ def main() -> int:
 
     build_s = build_all(_build)
     rate = phase_rate(_build)
+    ablation = phase_ablation(_build, ck)
     kernel = phase_kernel(ck)
     launches, res = phase_main_path(ck)
     step = phase_step(ck)
@@ -2609,9 +2754,13 @@ def main() -> int:
             "dp2_rqc": mesh["dp2_rqc"]["walk_launches"],
             "tp2_shadow": mesh["tp2_shadow"]["walk_launches"]},
         **{f"{k}_{label}": kernel[label][k]
-           for label in ("shadow", "n8_grid")
+           for label in ("shadow", "n8_grid", "n11")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
-                     "ms_by_threads")},
+                     "ms_by_threads", "plan")},
+        "sass_instructions_n10_ring": rate["sass"]["walk_n10_ring"],
+        "sass_instructions_n10_global": rate["sass"]["ablation_2"],
+        "sass_instructions_n12_global": rate["sass"]["walk_n12_global"],
+        "ablation_ms_shadow": ablation,
     }, {
         "name": "fused_chain_step",
         "route": "cuda",

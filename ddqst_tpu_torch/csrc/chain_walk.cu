@@ -24,10 +24,13 @@
 // It is bound by the integer multiplier, not by bytes. At the shadow
 // route's shape (T=100, C=100 sampled bases, 2^N=1024, N=10, S=5,000) it
 // moves 413.6 MB of tables, 0.124 ms, and its 1.5e8 Philox calls need
-// 0.305 ms of multiplier slots: bound by operations again. The measured
-// times stand in PERF.md.
+// 0.305 ms of multiplier slots: bound by operations again. One call of the
+// chunked sampler at N = 8 (3^8 rows of 319 chains) moves 5.4 GB of tables,
+// 1.61 ms: bound by bytes. The measured times stand in PERF.md.
 //
-// Design:
+// Three bodies walk the chains; each gives the same bits.
+//
+// The staged body, N = 1 to 7:
 // - One thread per chain, the state x in a register across the T-step loop
 //   (which takes the place of the TPU's sequential t grid axis), init read
 //   once and out written once. A block walks a tile of one conditioning
@@ -58,26 +61,51 @@
 //   chains. The counter is the chain's index, so the output cannot depend
 //   on the choice.
 //
-// N = 8 to 16 (2^N = 256 to 65,536 outcomes: the shadow route's tables at
-// N = 10, and the full grid's at N = 8) take a second body that stages
-// nothing. One step's slice is 2^N * N * 4 bytes, 8 KB at N = 8, 40 KB at
-// N = 10, 192 KB at N = 12, so a ring of 8-step chunks no longer fits a
-// block's 227 KB, and staging whole slices is the wrong trade anyway: a
-// chain reads N * 4 bytes of its slice a step, and a block's 64-512 chains
-// read a quarter to a half of what staging would copy. So each thread reads
-// its chain's N probabilities straight from global memory through the
-// read-only path (__ldg) and converts them with the same philox_threshold,
-// so the bits are those of the staged body and of the plain version. A block
-// walks a tile of one row's chains, and the blocks of one row read the same
-// slice at about the same step, so a slice is fetched from memory about
-// once and served from L2 (50 MB) to the rest. The loop is unrolled by 2:
-// the next step's Philox calls do not depend on the state and run under
-// this step's loads. The block size is the largest that still gives every
-// SM a block: the fewer rows an SM's resident chains come from, the more of
-// their reads its L1 serves. On an H100, 512-thread blocks took 0.79 ms at
-// the shadow shape against 1.16 ms for 64-thread ones, and 2.67 ms against
-// 2.91 ms at N = 8 over the full grid, where 319 chains a row leave 38% of
-// a 512-thread block idle (PERF.md).
+// The global body, N = 12 to 16, reads each chain's N probabilities of a
+// step straight from global memory (__ldg) and converts them with the same
+// philox_threshold: a slice of 192 KB or more cannot be double-buffered in a
+// block's 227 KB. Before the ring body it walked N = 8 to 11 too, and there
+// its loads held it back. At the shadow shape (chip_smoke.py phase
+// `ablation`, which times the variants of csrc/walk_ablation.cu; its mode 2
+// is this body) it takes 0.79 ms; its loads and conversions alone take
+// 0.75, its Philox and bits alone 0.44, and leaving out the conversions
+// saves 0.04. Every lane of a warp reads another row of a 40 KB slice, so
+// each of a step's ten 4-byte loads touches about 30 lines of 128 bytes:
+// some 300 line requests a warp-step through L1. Wider loads help a little:
+// 8-byte loads take 0.67 ms.
+//
+// The ring body, N = 8 to 11, takes those line requests off L1:
+// - A CTA walks up to 1,024 of one row's chains, one a thread, every warp
+//   at its own pace. Each step's slice lands once a CTA in a ring of
+//   shared-memory stages, 2 steps a stage up to N = 10 (two stages of 80 KB
+//   at N = 10) and 1 at N = 11 (two of 88 KB): one bulk copy a slice onto
+//   the stage's full barrier. A chain then reads its row from shared memory
+//   (8- or 16-byte loads where N allows) and converts its N probabilities:
+//   at 1,000 chains a CTA that is as many conversions as the slice has
+//   entries, and a conversion pass would cost a block barrier and a second
+//   trip of the slice through shared memory.
+// - No block barrier runs in the step loop. A warp waits only on the full
+//   barrier of its next stage. Its lane 0 counts it out of a stage it has
+//   finished (an acquire-release atomic on a shared word), and the last
+//   warp out refills the stage at once with the step `stages` loads ahead.
+//   Fewer, larger bulk copies took less time than 16 KB pieces, and 2-step
+//   stages less than 1-step ones (half the waits and counts).
+// - Thread-block clusters were tried and left out: the CTAs of a row in a
+//   cluster, one multicast bulk copy filling the stage of each, halve or
+//   better the slice traffic out of L2, but on an H100 every cluster size
+//   took longer (at the shadow shape 0.70 ms in clusters of 2 against 0.60
+//   alone): the CTAs of a cluster wait for each other, and clusters of 5
+//   leave SMs of a GPC idle (PERF.md).
+// - The block size fills whole CTAs: S = 5,000 takes 5 CTAs of 1,024
+//   threads a row (4 waves of 132), and the 319 chains of the N = 8 grid
+//   one CTA of 320, three to an SM. The plan costs each candidate with the
+//   card's own occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// - Measured on an H100 (chip_smoke.py phase `kernel`): 0.58 ms at the
+//   shadow shape, 1.9 x its bound, against the global body's 0.79; 1.76 ms
+//   at the N = 8 grid, 1.09 x its byte bound, against 2.68; 0.65 ms at
+//   N = 11 against 1.29. What is left at the shadow shape is the waits and
+//   counts (the warps of a CTA stay within a stage of each other) and 2 GB
+//   of slices out of L2, each copied once by each of a row's 5 CTAs.
 
 #include <algorithm>
 #include <cstdint>
@@ -87,16 +115,27 @@
 
 namespace {
 
-constexpr int kMaxStagedN = 7;   // N up to here stages its slices
-constexpr int kMaxN = 16;        // N up to here reads them from global memory
+constexpr int kMaxStagedN = 7;  // N up to here: the staged body
+constexpr int kMaxRingN = 11;   // N from 8 up to here: the ring body
+constexpr int kMaxN = 16;       // N from 12 up to here: the global body
 constexpr int kFullBytes = 64 * 1024;   // up to here all T slices are staged
 constexpr int kChunkBytes = 16 * 1024;  // a ring buffer's target size
 constexpr int kMinChunkSteps = 8;
+// The ring body: at most kMaxStages stages in at most kRingBytes; one bulk
+// copy moves at most kPieceBytes (a whole slice up to N = 10: fewer, larger
+// copies took less time on an H100).
+constexpr int kMaxStages = 4;
+constexpr int kRingBytes = 200 * 1024;
+// After the ring, in the same dynamic shared memory: a full barrier and a
+// count of warps out for each stage.
+constexpr int kRingTailBytes = kMaxStages * (8 + 4);
+constexpr uint32_t kPieceBytes = 48 * 1024;
 // The block-size model's units: what a Philox call, a bit and a staged table
 // entry cost (the last fitted on an H100, see make_plan).
 constexpr int kCallOps = 58;
 constexpr int kBitOps = 3;
 constexpr int kStageOps = 32;
+constexpr int kLandOps = 1;  // the ring body's landing of an entry
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -139,6 +178,50 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Add 1 to a shared word of this CTA; returns the old value. Acquire and
+// release: what the warp read before comes before what the last to count
+// does after.
+__device__ __forceinline__ uint32_t atom_add_cta(uint32_t* p) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "r"(smem_addr(p))
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The N probabilities of a row at `p` (shared memory), in the widest loads
+// its alignment allows: a row starts at x * N words.
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float (&p1)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + q);
+      p1[q] = v.x;
+      p1[q + 1] = v.y;
+      p1[q + 2] = v.z;
+      p1[q + 3] = v.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < N; q += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + q);
+      p1[q] = v.x;
+      p1[q + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; ++q) p1[q] = p[q];
+  }
 }
 
 // Shared memory: min(chunks, 2) buffers of `chunk` step slices each. `bulk`
@@ -236,8 +319,8 @@ __global__ void chain_walk_kernel(const float* __restrict__ tables,
   if (live) out[row] = static_cast<int32_t>(x);
 }
 
-// N >= 8: no staging; a chain's N probabilities of a step come straight from
-// global memory. Same counter, same thresholds, same bits.
+// The global body (N = 12 to 16): a chain's N probabilities of a step come
+// straight from global memory. Same counter, same thresholds, same bits.
 template <int N>
 __global__ void chain_walk_global_kernel(const float* __restrict__ tables,
                                          const int32_t* __restrict__ init,
@@ -279,24 +362,172 @@ __global__ void chain_walk_global_kernel(const float* __restrict__ tables,
   __stcs(out + row, static_cast<int32_t>(x));
 }
 
+// Steps a ring stage holds: two where two stages of two fit in kRingBytes
+// (N <= 10), so a warp waits and counts itself out once every two steps.
+template <int N>
+constexpr int kRingChunk = 4 * (1 << N) * N * 4 <= kRingBytes ? 2 : 1;
+
+// N = 8 to 11: the ring body. A CTA walks one conditioning row's chains,
+// one chain a thread, every warp at its own pace. Step n's slice lands in
+// ring stage n % stages: a bulk copy (the TMA unit) onto the stage's full
+// barrier, which counts the bytes. A table pointer that is not 16-byte
+// aligned takes plain loads by one warp instead (its 32 lanes arrive on the
+// full barrier). A warp waits for its step's slice, reads each chain's N
+// probabilities from shared memory and converts them as the global body
+// does. Then its lane 0 counts it out of the stage; the last warp of the CTA
+// out refills the stage with step n + stages at once. So no block barrier
+// runs in the step loop, and no warp waits for another except on a slice
+// that has not landed. Threads past the end of S walk dead chains: every
+// warp takes part in every step. The kernel has no static shared memory:
+// the ring starts at the base of the CTA's shared memory and its barriers
+// and counts follow it. On an H100 a ring placed after 48 bytes of static
+// barriers and counts took markedly longer, most of all at N = 11.
+template <int N>
+__global__ void __launch_bounds__(1024, 1)
+    chain_walk_ring_kernel(const float* __restrict__ tables,
+                           const int32_t* __restrict__ init,
+                           int32_t* __restrict__ out, int t_steps, int c_rows,
+                           int s_chains, int stages, int bulk,
+                           const __grid_constant__ ddqst::PhiloxKeys keys) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kSlice = (1 << N) * N;  // table entries a step
+  constexpr uint32_t kSliceBytes = kSlice * 4u;
+  constexpr int kCalls = (N + 3) / 4;  // Philox calls a chain and step
+  constexpr int kChunk = kRingChunk<N>;
+  float* const ring = reinterpret_cast<float*>(smem_raw);
+  uint64_t* const full_bar =
+      reinterpret_cast<uint64_t*>(smem_raw + stages * kChunk * kSliceBytes);
+  uint32_t* const warps_out =  // this CTA's warps out of a stage, all uses
+      reinterpret_cast<uint32_t*>(full_bar + kMaxStages);
+  const int c = blockIdx.y;
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = s < s_chains;
+  const int64_t row = static_cast<int64_t>(c) * s_chains + s;
+  const int64_t step_stride = static_cast<int64_t>(c_rows) * kSlice;
+  const float* const row_tables = tables + static_cast<int64_t>(c) * kSlice;
+  const uint32_t warps = blockDim.x / 32;
+  const int lane = threadIdx.x & 31;
+
+  const int units = (t_steps + kChunk - 1) / kChunk;  // stage loads
+  // The bytes of load n: its steps' slices.
+  auto unit_bytes = [&](int n) {
+    return static_cast<uint32_t>(min(kChunk, t_steps - n * kChunk)) *
+           kSliceBytes;
+  };
+  // One warp: load n (steps n * kChunk on) into stage k (= n % stages).
+  auto issue = [&](int n, int k) {
+    const int first = n * kChunk;
+    const int steps = min(kChunk, t_steps - first);
+    for (int i = 0; i < steps; ++i) {
+      float* dst = ring + (k * kChunk + i) * kSlice;
+      const float* src = row_tables + (first + i) * step_stride;
+      if (bulk) {
+        if (lane == 0) {
+          for (uint32_t off = 0; off < kSliceBytes; off += kPieceBytes) {
+            bulk_load(reinterpret_cast<unsigned char*>(dst) + off,
+                      reinterpret_cast<const unsigned char*>(src) + off,
+                      min(kPieceBytes, kSliceBytes - off), &full_bar[k]);
+          }
+        }
+      } else {
+#pragma unroll 8
+        for (int e = lane; e < kSlice; e += 32) dst[e] = __ldg(src + e);
+      }
+    }
+    if (!bulk) mbar_arrive(&full_bar[k]);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(&full_bar[k], bulk ? 1 : 32);
+      warps_out[k] = 0u;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers exist before the first copy
+  if (threadIdx.x < 32) {
+    for (int n = 0; n < min(stages, units); ++n) {
+      if (bulk && lane == 0) mbar_expect_tx(&full_bar[n], unit_bytes(n));
+      issue(n, n);
+    }
+  }
+
+  uint32_t x = live ? static_cast<uint32_t>(__ldcs(init + row)) : 0u;
+  auto draws = [&](int i, uint4 (&w)[kCalls]) {
+#pragma unroll
+    for (int qb = 0; qb < kCalls; ++qb) {
+      w[qb] = make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(c),
+                         static_cast<uint32_t>(i), static_cast<uint32_t>(qb));
+    }
+    ddqst::philox4x32_10<kCalls>(w, keys);
+  };
+  // Step j from the slice at `slice`.
+  auto walk = [&](int j, const float* slice) {
+    float p1[N];
+    load_row<N>(slice + x * N, p1);
+    uint4 w[kCalls];
+    draws(j, w);
+    uint32_t nx = 0u;
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      nx |= ddqst::philox_bit(ddqst::philox_word(w[q / 4], q % 4),
+                              ddqst::philox_threshold(p1[q]))
+            << q;
+    }
+    x = nx;
+  };
+  // Stage k holds load n in its use number `use` (from 0), whose full
+  // barrier phase has parity use & 1.
+  int k = 0;
+  uint32_t use = 0u;
+  const float* stage = ring;
+  for (int n = 0; n < units; ++n) {
+    mbar_wait(&full_bar[k], use & 1u);
+    const int j = n * kChunk;
+    walk(j, stage);
+    if (kChunk == 2 && j + 1 < t_steps) walk(j + 1, stage + kSlice);
+    if (n + stages < units) {
+      __syncwarp();  // the warp's reads of stage k are done
+      uint32_t last = 0u;
+      if (lane == 0) {
+        last = atom_add_cta(&warps_out[k]) == (use + 1u) * warps - 1u;
+        if (last && bulk) mbar_expect_tx(&full_bar[k], unit_bytes(n + stages));
+      }
+      if (__shfl_sync(0xFFFFFFFFu, last, 0)) issue(n + stages, k);
+    }
+    if (++k == stages) {
+      k = 0, ++use, stage = ring;
+    } else {
+      stage += kChunk * kSlice;
+    }
+  }
+  if (live) __stcs(out + row, static_cast<int32_t>(x));
+}
+
+// Which body walks the chains, as the plan reports it (from N alone).
+enum Body { kBodyStaged = 1, kBodyRing = 2, kBodyGlobal = 3 };
+
 struct Plan {
   int threads;  // block size
-  int chunk;    // steps a shared-memory buffer holds
+  int chunk;    // steps a shared-memory buffer (a ring stage) holds
+  int stages;   // the ring body's stages
   int smem;     // dynamic shared memory, bytes
+  int body;     // kBodyStaged, kBodyRing or kBodyGlobal
 };
 
-// The staging plan follows from the shape alone; the block size is the
-// candidate whose busiest SM has least to do, counted in lane instructions:
-// a block's chains' steps (kCallOps a Philox call, kBitOps a bit) plus the
-// staging of its T slices (kStageOps an entry: the copies' latency, the
-// conversion and the barrier, fitted to the times of all four block sizes
-// at two shapes), times the blocks that SM gets. A candidate that leaves an
-// SM under 768 resident threads pays for the latency it cannot hide. The
-// global-memory body (N > kMaxStagedN) stages nothing (chunk and shared
-// memory are 0) and takes the largest block size that fills every SM.
+// The staged and the global-memory bodies. The staging plan follows from
+// the shape alone; the block size is the candidate whose busiest SM has
+// least to do, counted in lane instructions: a block's chains' steps
+// (kCallOps a Philox call, kBitOps a bit) plus the staging of its T slices
+// (kStageOps an entry: the copies' latency, the conversion and the barrier,
+// fitted to the times of all four block sizes at two shapes), times the
+// blocks that SM gets. A candidate that leaves an SM under 768 resident
+// threads pays for the latency it cannot hide. The global-memory body
+// stages nothing (chunk and shared memory are 0) and takes the largest
+// block size that fills every SM.
 template <int N>
 int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
-              Plan* plan) {
+              int sms, Plan* plan) {
   constexpr bool kStaged = N <= kMaxStagedN;
   constexpr int kSliceBytes = (1 << N) * N * 4;
   const void* kernel;
@@ -305,6 +536,8 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
   } else {
     kernel = reinterpret_cast<const void*>(chain_walk_global_kernel<N>);
   }
+  plan->body = kStaged ? kBodyStaged : kBodyGlobal;
+  plan->stages = 0;
   const long long total = static_cast<long long>(t_steps) * kSliceBytes;
   if (!kStaged) {
     plan->chunk = 0;
@@ -321,12 +554,6 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (!kStaged) {
     if (threads_asked == 0) {
       plan->threads = 64;
@@ -352,7 +579,7 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
   for (int threads = 64; threads <= 512; threads *= 2) {
     if (threads_asked > 0 && threads != threads_asked) continue;
     int active = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &active, kernel, threads, plan->smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (active < 1) continue;
@@ -373,30 +600,106 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
                            : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
+// The ring body's plan. The ring holds kRingChunk<N> steps a stage and as
+// many stages as fit in kRingBytes (2 to kMaxStages). The block size is the
+// candidate that the card can place (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor) whose busiest SM has least to do, in lane instructions:
+// each CTA a step walks its threads' chains (dead ones too) and lands a
+// slice (kLandOps an entry), the card runs the CTAs in waves of as many as
+// it holds at once, and an SM with fewer than 768 resident threads pays for
+// the latency it cannot hide. The candidates split a row's chains evenly
+// over 0 to 7 more CTAs than the fewest of 1,024 threads that hold them. A
+// block size asked for is taken as it is.
+template <int N>
+int make_ring_plan(int c_rows, int s_chains, int threads_asked, int sms,
+                   Plan* plan) {
+  constexpr int kSliceBytes = (1 << N) * N * 4;
+  constexpr int kSlice = (1 << N) * N;
+  constexpr int kStageBytes = kRingChunk<N> * kSliceBytes;
+  const void* kernel = reinterpret_cast<const void*>(chain_walk_ring_kernel<N>);
+  plan->body = kBodyRing;
+  plan->chunk = kRingChunk<N>;
+  plan->stages = std::max(2, std::min(kMaxStages, kRingBytes / kStageBytes));
+  plan->smem = plan->stages * kStageBytes + kRingTailBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const double chain_ops = ((N + 3) / 4) * kCallOps + kBitOps * N;
+  const int fewest = (s_chains + 1023) / 1024;  // CTAs a row at 1,024 threads
+  double best = -1.0;
+  plan->threads = 0;
+  for (int extra = 0; extra < 8; ++extra) {
+    const int per_cta = (s_chains + fewest + extra - 1) / (fewest + extra);
+    const int threads = threads_asked > 0
+                            ? threads_asked
+                            : std::max(64, (per_cta + 31) / 32 * 32);
+    int active = 0;  // CTAs an SM holds at once
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&active, kernel,
+                                                        threads, plan->smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active >= 1) {
+      const long long ctas =
+          static_cast<long long>((s_chains + threads - 1) / threads) * c_rows;
+      const long long waves = (ctas + 1LL * active * sms - 1) /
+                              (1LL * active * sms);
+      const double cost = static_cast<double>(waves) * active *
+                          (threads * chain_ops + kSlice * kLandOps) *
+                          std::max(1.0, 768.0 / (active * threads));
+      if (best < 0.0 || cost < best) {
+        best = cost;
+        plan->threads = threads;
+      }
+    }
+    if (threads_asked > 0) break;
+  }
+  return plan->threads > 0 ? 0
+                           : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// The body follows from N alone: staged up to kMaxStagedN, the ring up to
+// kMaxRingN, the global body above.
 template <int N>
 int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
            int c_rows, int s_chains, unsigned long long seed, int threads_asked,
            int* plan_out, cudaStream_t stream) {
+  constexpr bool kRing = N > kMaxStagedN && N <= kMaxRingN;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   Plan plan;
-  const int err = make_plan<N>(t_steps, c_rows, s_chains, threads_asked, &plan);
-  if (err != 0) return err;
+  int status;
+  if constexpr (kRing) {
+    status = make_ring_plan<N>(c_rows, s_chains, threads_asked, sms, &plan);
+  } else {
+    status = make_plan<N>(t_steps, c_rows, s_chains, threads_asked, sms, &plan);
+  }
+  if (status != 0) return status;
   if (plan_out != nullptr) {
     plan_out[0] = plan.threads;
     plan_out[1] = plan.chunk;
     plan_out[2] = plan.smem;
+    plan_out[3] = plan.body;
   }
+  const ddqst::PhiloxKeys keys = ddqst::philox_keys(seed);
+  const bool aligned = (reinterpret_cast<uintptr_t>(tables) & 15u) == 0;
   const dim3 grid((s_chains + plan.threads - 1) / plan.threads, c_rows);
   if constexpr (N <= kMaxStagedN) {
     constexpr int kSliceBytes = (1 << N) * N * 4;
-    const int bulk = kSliceBytes % 16 == 0 &&
-                     (reinterpret_cast<uintptr_t>(tables) & 15u) == 0;
+    const int bulk = kSliceBytes % 16 == 0 && aligned;
     chain_walk_kernel<N><<<grid, plan.threads, plan.smem, stream>>>(
-        tables, init, out, t_steps, c_rows, s_chains, plan.chunk, bulk,
-        ddqst::philox_keys(seed));
+        tables, init, out, t_steps, c_rows, s_chains, plan.chunk, bulk, keys);
+  } else if constexpr (kRing) {
+    // a slice is a multiple of 16 bytes from N = 8 on
+    chain_walk_ring_kernel<N><<<grid, plan.threads, plan.smem, stream>>>(
+        tables, init, out, t_steps, c_rows, s_chains, plan.stages,
+        aligned ? 1 : 0, keys);
   } else {
     chain_walk_global_kernel<N><<<grid, plan.threads, 0, stream>>>(
-        tables, init, out, t_steps, c_rows, s_chains,
-        ddqst::philox_keys(seed));
+        tables, init, out, t_steps, c_rows, s_chains, keys);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -405,12 +708,12 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
 
 // Plain C entry point, loaded with ctypes. Launches on `stream` (PyTorch's
 // current stream), does not synchronise, and returns the first CUDA error of
-// the set-up or cudaGetLastError() of the launch (0 = launched). Shapes are
-// checked by the Python wrapper; this re-checks the limits the kernel's
-// shared memory relies on. `threads` is 0 (the block size is chosen from the
-// shape) or one of 64, 128, 256, 512; `plan_out`, if not null, receives
-// {threads, steps a buffer, shared-memory bytes} (0 and 0 for N >= 8, which
-// stages nothing). 1 <= N <= 16.
+// the set-up or of the launch (0 = launched). Shapes are checked by the
+// Python wrapper; this re-checks the limits the kernels rely on. `threads`
+// is 0 (chosen from the shape) or one of 64, 128, 256, 512. A shape the card
+// cannot place returns its error (no other body is tried). `plan_out`, if
+// not null, receives {threads, steps a buffer, shared-memory bytes, body}
+// (body 1 staged, 2 ring, 3 global). 1 <= N <= 16.
 extern "C" int ddqst_fused_chain_walk(const float* tables, const int32_t* init,
                                       int32_t* out, int t_steps, int c_rows,
                                       int g, int n, int s_chains,

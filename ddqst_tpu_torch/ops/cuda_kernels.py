@@ -33,8 +33,10 @@ from ddqst_tpu_torch.ops import _build
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
-# The walk kernel's largest N: up to 7 it stages its table slices in shared
-# memory, from 8 to 16 it reads them from global memory (csrc/chain_walk.cu).
+# The walk kernel's largest N: up to 7 it stages a block's table slices in
+# shared memory, from 8 to 11 it lands them in a ring of shared-memory
+# stages, and from 12 to 16 it reads them from global memory
+# (csrc/chain_walk.cu).
 _MAX_WALK_N = 16
 
 
@@ -144,10 +146,14 @@ def _chain_walk_fn():
         ctypes.c_int,  # S
         ctypes.c_uint64,  # seed
         ctypes.c_int,  # threads (0 = chosen from the shape)
-        ctypes.c_void_p,  # plan_out: int[3] or null
+        ctypes.c_void_p,  # plan_out: int[4] or null
         ctypes.c_void_p,  # stream
     ]
     return fn
+
+
+# The walk's bodies, as the kernel's plan numbers them (csrc/chain_walk.cu).
+_WALK_BODY_NAMES = {1: "staged", 2: "ring", 3: "global"}
 
 
 def fused_chain_walk(
@@ -161,11 +167,13 @@ def fused_chain_walk(
       tables: ``[T, C, 2^N, N]`` float32 P(bit=1) per (step, conditioning
         row, current outcome); index 0 = the first reverse step (t = T).
       init: ``[C, S]`` int32 initial outcome indices.
-      num_qubits: N, with 1 <= N <= 16. Up to N = 7 the kernel stages each
-        step's ``[2^N, N]`` slices in shared memory; from N = 8 (a slice of
-        8 KB, 40 KB at N = 10) each chain reads its N probabilities from
-        global memory, since a chain reads only N of a slice's 2^N·N
-        entries a step. Both give the same bits.
+      num_qubits: N, with 1 <= N <= 16. N chooses one of three bodies,
+        which give the same bits: up to N = 7 a block stages its step
+        slices in shared memory; from 8 to 11 each step's ``[2^N, N]``
+        slice lands once a block in a ring of shared-memory stages (bulk
+        copies, 40 KB a step at N = 10), from which each chain reads its N
+        probabilities; from 12 on (a slice of 192 KB or more) each chain
+        reads them from global memory.
       threads: the kernel's block size: 0 (chosen from the shape) or 64,
         128, 256 or 512, for measurements. The result does not depend on it
         (the Philox counter is the chain's index), and the plain version
@@ -175,10 +183,11 @@ def fused_chain_walk(
       ``[C, S]`` int32 final outcome indices (samples of x_0).
 
     CPU tensors take :func:`fused_chain_walk_reference`; CUDA tensors launch
-    the kernel on the current stream, or raise. After a launch,
+    the kernel on the current stream, or raise: a shape the card cannot
+    place raises, and no other body is tried. After a launch,
     ``fused_chain_walk.last_plan`` holds what the kernel chose: ``(threads a
-    block, steps a shared-memory buffer, shared-memory bytes)``, the last
-    two 0 for N >= 8.
+    block, steps a shared-memory buffer, shared-memory bytes, body)``; the
+    global body stages nothing (0, 0).
     """
     _check_walk_args(seed, tables, init, num_qubits)
     if threads not in (0, 64, 128, 256, 512):
@@ -199,7 +208,7 @@ def fused_chain_walk(
     s = init.shape[1]
     out = torch.empty_like(init)
     fn = _chain_walk_fn()
-    plan = (ctypes.c_int * 3)()
+    plan = (ctypes.c_int * 4)()
     stream = torch.cuda.current_stream(tables.device).cuda_stream
     with torch.cuda.device(tables.device):
         err = fn(tables.data_ptr(), init.data_ptr(), out.data_ptr(),
@@ -208,7 +217,8 @@ def fused_chain_walk(
     if err != 0:
         raise RuntimeError(f"chain_walk kernel launch failed: cudaError {err}")
     fused_chain_walk.launches += 1
-    fused_chain_walk.last_plan = tuple(plan)
+    fused_chain_walk.last_plan = (plan[0], plan[1], plan[2],
+                                  _WALK_BODY_NAMES[plan[3]])
     return out
 
 

@@ -52,26 +52,46 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
                             init.cpu(), 3)  # mixed devices
 
 
-@pytest.mark.parametrize("n,c,s", [(8, 5, 1237), (10, 7, 3001),
-                                   (12, 3, 777)])
-def test_global_memory_walk_equals_plain_version(cuda, n, c, s):
-    """N >= 8 reads its slices from global memory: the same bits, at every
-    block size, from tables that are and are not 16-byte aligned."""
+@pytest.mark.parametrize("n,t,c,s", [
+    (8, 12, 5, 1237), (9, 12, 4, 2049), (10, 12, 7, 3001), (11, 12, 3, 777),
+    (12, 12, 3, 777),
+    # the ring body's tails: an odd T (a short last stage load), T = 1, and
+    # T below its stages x steps a stage (8 at N = 8, 4 at N = 10); 319
+    # chains a row as in the chunked sampler's N = 8 grid
+    (8, 7, 3, 1237), (8, 1, 3, 1237), (8, 3, 3, 1237), (8, 7, 4, 319),
+    (10, 7, 3, 1237), (10, 1, 3, 1237), (10, 3, 2, 5000), (11, 5, 2, 1237),
+])
+def test_global_memory_walk_equals_plain_version(cuda, n, t, c, s):
+    """From N = 8 on: the plan's body (the ring body up to N = 11, the
+    global-memory body at 12) at every block size gives the plain version's
+    bits at a ragged S and at odd and short T, from tables that are and are
+    not 16-byte aligned."""
     rng = np.random.default_rng(n)
     g = 2**n
     tables = torch.from_numpy(
-        rng.uniform(0.05, 0.95, (12, c, g, n)).astype(np.float32)).to(cuda)
+        rng.uniform(0.05, 0.95, (t, c, g, n)).astype(np.float32)).to(cuda)
     init = torch.from_numpy(rng.integers(0, g, (c, s)).astype(np.int32)).to(cuda)
     want = ck.fused_chain_walk_reference(2**33 + n, tables, init, n)
     before = ck.fused_chain_walk.launches
     out = ck.fused_chain_walk(2**33 + n, tables, init, n)
     torch.cuda.synchronize()
     assert ck.fused_chain_walk.launches == before + 1
-    assert ck.fused_chain_walk.last_plan[1:] == (0, 0)  # nothing staged
+    threads, steps, smem, body = ck.fused_chain_walk.last_plan
+    if n <= 11:  # a ring of 2 to 4 stages of 1 or 2 step slices, then
+        # a barrier and a count a stage
+        stage_bytes = steps * g * n * 4
+        assert body == "ring"
+        assert threads % 32 == 0 and 64 <= threads <= 1024
+        assert steps in (1, 2) and 2 <= smem // stage_bytes <= 4
+        assert smem % stage_bytes == 4 * (8 + 4)
+    else:  # nothing staged
+        assert (body, steps, smem) == ("global", 0, 0)
     assert torch.equal(out, want)
     for threads in (64, 128, 256, 512):
         assert torch.equal(ck.fused_chain_walk(2**33 + n, tables, init, n,
-                                               threads=threads), want)
+                                               threads=threads), want), threads
+        plan = ck.fused_chain_walk.last_plan
+        assert (plan[0], plan[3]) == (threads, body), plan
     assert torch.equal(ck.fused_chain_walk(
         2**33 + n, _offset_by_one_word(tables), init, n), want)
 
