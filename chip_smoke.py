@@ -156,7 +156,7 @@ result line is printed; nothing falls back to the CPU):
    recompute of the same bf16 model (mean absolute difference within
    ``BF16_TABLE_TOL``, which the same weights' float32 tables on the card
    must exceed); then the ``rqc`` and
-   the ``shadow_transformer`` widths' training, cut to about 300 steps,
+   the ``shadow_transformer`` widths' training, cut to 162 and 200 steps,
    warm, at float32 and at bfloat16 in turns, steps/s of each.
 13. train_profile — 20 training steps of ``fit`` inside the port's
    ``utils.profiling.trace``, after a warm-up, at the
@@ -186,6 +186,29 @@ result line is printed; nothing falls back to the CPU):
    the share of its time inside the collectives (host clock, the card
    synchronised around each call). A rank that raises or exits non-zero,
    or a world past ``MESH_WORLD_TIMEOUT_S``, fails the phase.
+15. scaling — the JAX campaign's scaling ladder (``scripts/run_scaling_ghz.py``,
+   copied here as ``quality_cfg``, ``auto_recipe`` and ``scaling_rung``) at
+   full width (the ``rqc`` preset's FiLM model, T=100, cosine schedule,
+   renoise, readout-noisy mitigated data, MLE) over the whole canonical
+   grid, depth cut (``SCALING_CUTS``, ``SCALING_SHOTS_CUT``,
+   ``SCALING_MLE_ITERS``; each cut printed): GHZ-5 ``ghz5_auto`` and GHZ-7
+   ``ghz7_mle_hot`` in one ``run_experiment`` each, GHZ-8 ``ghz8_mle_hot``
+   through the segment protocol of ``scripts/run_frontier_segments.py``
+   (a CE role, a uniform and a hard-mining distillation segment on shared
+   data and MLE-target caches with the Adam state chained, the eval role).
+   Each run has its launch counts and peak memory set to 0 just before and
+   read just after, and must launch as ``SCALING_PLAN`` says (3 walks at
+   N=5, 600 step launches at N=7, 10 ring walks at N=8). Per rung: the
+   samples within 4 shot-noise scales (TV) of the model's exact chain in
+   every basis (at N=8 the float64 propagation of the tables the walks read,
+   a few rows held against a recompute), the fidelity within 0.02 of the
+   MLE of that distribution, ρ a state, MLE on the raw counts at least 0.999
+   where the data is uncut; at N=8 the CE role's parameters load back, the
+   segments share the target cache, segment 1 starts where segment 0 ended,
+   the chained mining segment lowers the chain CE and draws non-uniformly.
+   Then both kernels at the rungs' shapes, each against its plain version
+   bit for bit and timed beside it and its bound. It prints the stage
+   seconds, the peak memory and the fidelities beside the reference's.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -200,6 +223,16 @@ JSON line; run it in turns (old, new, new, old) on one card.
 uncut (300 epochs, up to 800 distillation steps): GHZ-3 and RQC-3 at seed
 0, then GHZ-3 at seeds 1 to SEEDS-1 (default: none), with the same checks;
 it prints each run's result as it ends and all of them as one JSON line.
+
+``python3 chip_smoke.py --scaling TAG [TAG ...]`` runs only the named rungs
+of the ladder (``ghz5_auto``, ``rqc6_auto``, ``ghz7_mle_hot``,
+``ghz8_mle_hot``), uncut, each in one ``run_experiment`` call with the
+rung's checks (every 25th training epoch logged), and prints one JSON line.
+
+``python3 chip_smoke.py --scaling-costs`` measures the stages of the GHZ-7
+and GHZ-8 rungs alone (the data step, MLE on the raw counts at 50, 200 and
+1,000 iterations, a CE epoch, two full-grid chain passes, four chained
+distillation segments of the hot recipe) and prints one JSON line.
 
 ``python3 chip_smoke.py --profile-distill`` times one distillation step at
 full width (with and without the per-step checkpoint, and a forward alone)
@@ -1317,8 +1350,9 @@ REFERENCE_FIDELITY = {
 FULL_DEPTH = (300, 800)
 # Sized for a slow host: a distillation step is bound by the host's launches
 # and took 0.67 to 1.48 s on the machines it was measured on. Cut to this
-# depth so the script, with the phases after `shadow`, stays near 450 s on
-# such a host.
+# depth so the script stays near 450 s on such a host before its `scaling`
+# phase. At 10 epochs and 10 steps GHZ-3's held-out selection kept step 0
+# on the card and its chain CE did not fall.
 DISTILL_DEPTH = {"ghz": (20, 25), "rqc": (3, 25)}
 
 
@@ -1883,9 +1917,9 @@ def phase_denoise(ck, res_main: dict) -> dict:
                 wall_s=wall, walk_launches=walks, step_launches=steps)
 
 
-# Epochs of the cut trainings the bf16 phase times at each dtype, about 300
-# steps each (the presets train 30 epochs of 27 and of 100 steps).
-TIMING_EPOCHS = {"rqc": 11, "shadow_transformer": 3}
+# Epochs of the cut trainings the bf16 phase times at each dtype, 162 and
+# 200 steps (the presets train 30 epochs of 27 and of 100 steps).
+TIMING_EPOCHS = {"rqc": 6, "shadow_transformer": 2}
 # bf16 grid tables, card against the CPU's recompute of the same model: the
 # mean absolute difference. Each side accumulates its products in its own
 # order, so a few roundings to bfloat16's 8 significant bits differ and
@@ -2603,6 +2637,659 @@ def phase_mesh() -> dict:
         tp_forward_err=[a["tp_forward_err"], b["tp_forward_err"]])
 
 
+# The scaling ladder: the JAX campaign's full canonical-grid recipes beyond
+# N = 3 (RESULTS.md:237-456), copied from its scripts as plain functions of
+# ddqst_tpu_torch.config; this script imports nothing of scripts/.
+
+
+def quality_cfg(name: str, *, num_qubits: int, state: str, shots_train: int,
+                shots_infer: int, noise: str = "readout", depth: int = 5,
+                epochs: int = 300):
+    """The quality stack of ``scripts/run_parity_suite.py:60-81``: the ``rqc``
+    preset's FiLM ``ConditionalD3PM`` (128 / 512 / 4 blocks), T = 100, cosine
+    schedule, renoise sampler, readout-mitigated training data and
+    reconstruction, MLE."""
+    from ddqst_tpu_torch.config import get_preset
+
+    base = get_preset("rqc")
+    return base.replace(
+        name=name,
+        diffusion=type(base.diffusion)(num_timesteps=100, schedule="cosine",
+                                       sampler="renoise"),
+        train=type(base.train)(batch_size=1024, learning_rate=1e-3,
+                               optimizer="adam", num_epochs=epochs,
+                               lr_schedule="cosine", log_every=0,
+                               eval_every=0, chain_finetune_steps=400,
+                               chain_lr=3e-4),
+        data=type(base.data)(num_qubits=num_qubits, state_type=state,
+                             noise_type=noise, shots_train=shots_train,
+                             shots_infer=shots_infer, rqc_depth=depth,
+                             mitigate_readout=True, mitigate_train_data=True,
+                             reconstruction="mle"),
+    )
+
+
+def auto_recipe(cfg, *, basis_batch: int = 0, steps_per_call: int = 25,
+                epochs: int | None = None, target: str = "counts",
+                val_patience: int = 4, val_fraction: float = 0.15,
+                steps: int = 800, accum: int = 1):
+    """The automated distillation recipe of
+    ``scripts/run_scaling_ghz.py:46-66``."""
+    tr = cfg.train
+    return cfg.replace(train=type(tr)(
+        batch_size=1024, learning_rate=1e-3, optimizer="adam",
+        num_epochs=tr.num_epochs if epochs is None else epochs,
+        lr_schedule="cosine", log_every=0, eval_every=0,
+        chain_finetune_steps=steps, chain_lr=1e-3,
+        chain_val_fraction=val_fraction, chain_val_patience=val_patience,
+        chain_basis_batch=basis_batch, chain_steps_per_call=steps_per_call,
+        chain_target=target, chain_accum=accum))
+
+
+def scaling_rung(tag: str):
+    """One rung of ``scripts/run_scaling_ghz.py``, uncut: ``ghz5_auto``
+    (:206-210), ``rqc6_auto`` (:230-235), ``ghz7_mle_hot`` (:267-272) or
+    ``ghz8_mle_hot`` (:296-305, generating with ``gen_tables_once``)."""
+    import dataclasses
+
+    if tag == "ghz5_auto":
+        return auto_recipe(quality_cfg(tag, num_qubits=5, state="ghz",
+                                       shots_train=5000, shots_infer=20000))
+    if tag == "rqc6_auto":
+        return auto_recipe(quality_cfg(tag, num_qubits=6, state="rqc",
+                                       shots_train=5000, shots_infer=10000),
+                           basis_batch=96, epochs=150)
+    if tag == "ghz7_mle_hot":
+        return auto_recipe(quality_cfg(tag, num_qubits=7, state="ghz",
+                                       shots_train=3000, shots_infer=5000),
+                           basis_batch=128, epochs=60, steps_per_call=10,
+                           target="mle", val_fraction=0.0, steps=1600)
+    if tag == "ghz8_mle_hot":
+        cfg = auto_recipe(quality_cfg(tag, num_qubits=8, state="ghz",
+                                      shots_train=2000, shots_infer=3000),
+                          basis_batch=64, epochs=40, steps_per_call=10,
+                          target="mle", val_fraction=0.0, steps=1600)
+        return cfg.replace(diffusion=dataclasses.replace(
+            cfg.diffusion, gen_tables_once=True))
+    raise ValueError(f"unknown rung {tag!r}; options: {SCALING_RUNGS}")
+
+
+SCALING_RUNGS = ("ghz5_auto", "rqc6_auto", "ghz7_mle_hot", "ghz8_mle_hot")
+# The JAX package's records of each rung uncut, on a TPU (quality only):
+# RESULTS.md:249, :426, :272; GHZ-8 after its 1600 uniform steps (:398),
+# 0.87904 / 0.91254 after one / two 800-step mining segments (:400-401).
+REFERENCE_SCALING = {
+    "ghz5_auto": dict(fidelity=0.97031, raw_fidelity=0.84628,
+                      raw_fidelity_mitigated=0.99994),
+    "rqc6_auto": dict(fidelity=0.99059, raw_fidelity=0.76961,
+                      raw_fidelity_mitigated=0.99982),
+    "ghz7_mle_hot": dict(fidelity=0.96752, raw_fidelity=0.55760,
+                         raw_fidelity_mitigated=0.99993),
+    "ghz8_mle_hot": dict(fidelity=0.47733, raw_fidelity=0.35480,
+                         raw_fidelity_mitigated=0.99984),
+}
+# (walk launches, step launches) of one run's generation, as
+# pipeline._generate and diffusion.sample_all_bases choose them: at most
+# 2^21 chains a sample_all_bases call, the table walk from 32·6^N chains.
+# N = 5: 2^21 // 243 = 8,630 shots a call, 20,000 in 3 calls of 6,667;
+# N = 6: 10,000 in 4 calls of 2,500; N = 7: 5,000 in 6 calls of 834, each
+# 2,187 x 834 = 1,823,958 chains < 32·6^7, so the 'seq' walk: T step
+# launches a call; N = 8 (gen_tables_once): the tables once, 3,000 in 10
+# walks of 300 (2^21 // 6,561 = 319 a walk).
+SCALING_PLAN = {"ghz5_auto": (3, 0), "rqc6_auto": (4, 0),
+                "ghz7_mle_hot": (0, 600), "ghz8_mle_hot": (10, 0)}
+# Each launch's shape: the walk's (C, N, S), the step's (G, N, B).
+SCALING_WALK_SHAPES = {"ghz5_auto": (243, 5, 6667),
+                       "rqc6_auto": (729, 6, 2500),
+                       "ghz8_mle_hot": (3**8, 8, 300)}
+SCALING_STEP_SHAPES = {"ghz7_mle_hot": (3**7 * 2**7, 7, 3**7 * 834)}
+# The default run's cuts of depth (``scaling`` phase): CE epochs and
+# distillation steps; GHZ-8 runs the segment protocol, a uniform segment and
+# a mining segment of SCALING_SEGMENT_STEPS each. Width, bases, T and
+# generated shots are never cut. What is left is set by work no depth cut
+# removes: at N = 8 a full-grid chain pass (168 M grid rows, about 42 s on
+# the card) before and after each segment and for the tables, at N = 7 the
+# 'seq' walk's 600 grid forwards (about 34 s).
+SCALING_CUTS = {
+    "ghz5_auto": dict(num_epochs=1, chain_finetune_steps=10),
+    "ghz7_mle_hot": dict(num_epochs=1, chain_finetune_steps=3),
+    "ghz8_mle_hot": dict(num_epochs=1),
+}
+SCALING_SEGMENT_STEPS = 3
+# Cuts of the training shots a basis, for the phase's budget: an epoch is
+# then 1,068 steps at N = 7 and 3,203 at N = 8 (6-12 ms a step, bound by the
+# host). The data is cut, so MLE on the raw counts is not held to 0.999.
+SCALING_SHOTS_CUT = {"ghz7_mle_hot": 500, "ghz8_mle_hot": 500}
+# Every MLE solve of a rung (the target, the samples', the raw counts', the
+# exact chain's) stops after this many iterations (the package's cap is
+# 4,000, with a tolerance of 3e-7). On the card an iteration takes 3-4 ms
+# at N = 5, 60 ms at N = 7 and 48 ms at N = 8, and a solve 380 to 3,200
+# iterations to its tolerance; GHZ-5's raw counts reach it in about 380, so
+# that rung still holds MLE on the raw counts to 0.999.
+SCALING_MLE_ITERS = {"ghz5_auto": 500, "ghz7_mle_hot": 100,
+                     "ghz8_mle_hot": 100}
+
+
+def cut_rung(tag: str):
+    """The rung's recipe with the default run's cuts, each one printed."""
+    import dataclasses
+
+    cfg = scaling_rung(tag)
+    for k, v in SCALING_CUTS[tag].items():
+        log("scaling", f"{tag}: CUT {k} {getattr(cfg.train, k)} -> {v}")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                **SCALING_CUTS[tag]))
+    if tag in SCALING_SHOTS_CUT:
+        log("scaling", f"{tag}: CUT shots_train {cfg.data.shots_train} -> "
+            f"{SCALING_SHOTS_CUT[tag]}")
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, shots_train=SCALING_SHOTS_CUT[tag]))
+    return cfg
+
+
+class _MleCapped:
+    """Within the block, ``ops.mle.make_mle`` (as the pipeline calls it)
+    stops every solve after ``iterations`` unless told otherwise."""
+
+    def __init__(self, iterations: int):
+        self.iterations = iterations
+
+    def __enter__(self):
+        from ddqst_tpu_torch.ops import mle
+
+        self.make = make = mle.make_mle
+
+        def capped(*args, **kw):
+            kw.setdefault("iterations", self.iterations)
+            return make(*args, **kw)
+
+        mle.make_mle = capped
+        return self
+
+    def __exit__(self, *exc):
+        from ddqst_tpu_torch.ops import mle
+
+        mle.make_mle = self.make
+
+
+class _TablesKept:
+    """Within the block, the tables ``ops.diffusion._assembled_tables`` makes
+    (``sample_all_bases_chunked``'s, walked by the kernel) are kept in
+    ``self.tables``, for checking the samples against their exact
+    propagation without building them again."""
+
+    def __enter__(self):
+        from ddqst_tpu_torch.ops import diffusion as diff
+
+        self.make = make = diff._assembled_tables
+        self.tables = None
+
+        def keep(*args, **kw):
+            self.tables = make(*args, **kw)
+            return self.tables
+
+        diff._assembled_tables = keep
+        return self
+
+    def __exit__(self, *exc):
+        from ddqst_tpu_torch.ops import diffusion as diff
+
+        diff._assembled_tables = self.make
+
+
+def _role(ck, what: str, cfg, **kw) -> tuple[dict, dict]:
+    """One ``run_experiment`` on the card, with the launch counts and the
+    peak memory set to 0 just before and read just after. The record holds
+    the stage seconds where the result has them (a ``stop_after`` result
+    has JAX's three keys only) and the run's log lines."""
+    from ddqst_tpu_torch.pipeline import run_experiment
+
+    lines = []
+
+    def say(m):
+        lines.append(m)
+        log("scaling", m)
+
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, seed=0, log_fn=say, **kw)
+    torch.cuda.synchronize()
+    rec = dict(wall_s=time.perf_counter() - t0, log=lines,
+               walk_launches=ck.fused_chain_walk.launches,
+               step_launches=ck.fused_chain_step.launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    tm = res.get("timings")
+    if tm is not None:
+        rec["timings"] = dict(tm)
+    log("scaling", f"{what}: wall {rec['wall_s']:.2f} s, peak "
+        f"{rec['peak_gb']:.2f} GB allocated, launches: walk "
+        f"{rec['walk_launches']}, step {rec['step_launches']}" + (
+            "; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
+            if tm else ""))
+    return res, rec
+
+
+def scaling_checks(ck, tag: str, cfg, res: dict, rec: dict,
+                   data_cut: bool, tables: torch.Tensor | None = None) -> dict:
+    """A rung's checks on its ``run_experiment`` result: the launch plan, the
+    samples against the model's exact chain distribution over every basis
+    (TV within 4 shot-noise scales), the fidelity against the MLE of that
+    distribution (within 0.02), ρ a state, and MLE on the raw counts at
+    0.999 or more when the data is uncut. The exact distribution is the
+    model's ``chain_distribution``, or, given the ``[T, 3^N, 2^N, N]``
+    tables the walks read, their float64 propagation (a few rows of which
+    are held against a recompute from the model)."""
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import mle, pauli
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    n, shots = cfg.data.num_qubits, cfg.data.shots_infer
+    walks, steps = rec["walk_launches"], rec["step_launches"]
+    check((walks, steps) == SCALING_PLAN[tag],
+          f"{tag}: launches (walk, step) {(walks, steps)} equal the plan "
+          f"{SCALING_PLAN[tag]}")
+    if walks:
+        body = ck.fused_chain_walk.last_plan[3]
+        check(body == ("staged" if n <= 7 else "ring"),
+              f"{tag}: the walk took its body for N={n} ({body})")
+    samples = res["samples"]
+    check(tuple(samples.shape) == (3**n, shots, n) and samples.is_cuda,
+          f"{tag}: samples [{3**n}, {shots}, {n}] on the card")
+    check_rho(torch.from_numpy(res["rho"]), f"{tag}: rho")
+    for k in ("fidelity", "raw_fidelity", "raw_fidelity_mitigated",
+              "trace_distance", "purity"):
+        check(math.isfinite(res[k]), f"{tag}: {k} finite")
+
+    dev = samples.device
+    sched = make_schedule("cosine", cfg.diffusion.num_timesteps, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if tables is None:
+        # The model's exact chain over all 3^N bases, 2^18 grid rows a
+        # forward.
+        dist = diff.chain_distribution_all_bases(
+            res["state"], n, sched, cfg.diffusion.exact, max_rows=1 << 18)
+    else:
+        g, t_steps = 2**n, cfg.diffusion.num_timesteps
+        rows, ts = [0, 3**n // 2, 3**n - 1], [t_steps, t_steps // 2, 1]
+        grid = (diff._unpack(torch.arange(g, device=dev), n).repeat(3, 1),
+                torch.tensor(rows, device=dev).repeat_interleave(g))
+        with torch.no_grad():
+            again = diff._tables_for_ts(
+                res["state"], torch.tensor(ts, device=dev), n, sched,
+                cfg.diffusion.exact, grid=grid)
+        kept = tables[[t_steps - t for t in ts]][:, rows].reshape(3, -1, n)
+        err = float((kept - again).abs().max())
+        log("scaling", f"{tag}: the walks' tables at bases {rows}, t = "
+            f"{ts} vs a recompute from the model: max abs err {err:.2e}")
+        check(err < 1e-5, f"{tag}: the walks' tables are the model's")
+        dist = exact_walk(tables, torch.full((3**n, g), 1 / g, device=dev))
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    idx = (samples.long() * (1 << torch.arange(n, device=dev))).sum(-1)
+    tv = tv_rows(idx, dist.double())
+    del idx
+    bound = 4 * math.sqrt(2**n / (2 * math.pi * shots))
+    # The all-X/Y bases (no Z): the coherence sector of RESULTS.md:363-377.
+    xy = torch.from_numpy(~(pauli.all_basis_labels(n) == 2).any(-1)).to(dev)
+    log("scaling", f"{tag}: samples vs the model's exact chain "
+        f"({t_exact:.2f} s): "
+        f"TV mean {float(tv.mean()):.5f}, max {float(tv.max()):.5f} (all-X/Y "
+        f"bases: {int(xy.sum())}, max {float(tv[xy].max()):.5f}) < bound "
+        f"{bound:.5f} over {3**n} bases")
+    check(bool((tv < bound).all()), f"{tag}: samples TV {float(tv.max())} < "
+          f"{bound} in every basis")
+    solve: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rho_exact = mle.make_mle(n)(dist * shots, solve)
+    torch.cuda.synchronize()
+    t_mle = time.perf_counter() - t0
+    target = torch.from_numpy(res["target"]).to(dev)
+    fid_exact = float(M.state_fidelity(target, rho_exact))
+    log("scaling", f"{tag}: fidelity {res['fidelity']:.5f} vs the MLE of the "
+        f"exact chain {fid_exact:.5f} ({solve['iterations']} iterations, "
+        f"{t_mle:.2f} s); raw {res['raw_fidelity']:.5f}, MLE on raw "
+        f"{res['raw_fidelity_mitigated']:.5f}; MLE iterations "
+        f"{res['mle_iterations']}")
+    check(abs(res["fidelity"] - fid_exact) < 0.02,
+          f"{tag}: fidelity within 0.02 of the exact chain's MLE")
+    if not data_cut:
+        check(res["raw_fidelity_mitigated"] >= 0.999,
+              f"{tag}: MLE on the raw counts scores at least 0.999")
+    ref = REFERENCE_SCALING[tag]
+    log("scaling", f"{tag}: " + ", ".join(
+        f"{k} {res[k]:.5f} (reference, uncut: {v:.5f})"
+        for k, v in ref.items()))
+    out = dict(tag=tag, num_qubits=n, fidelity=res["fidelity"],
+               raw_fidelity=res["raw_fidelity"],
+               raw_fidelity_mitigated=res["raw_fidelity_mitigated"],
+               trace_distance=res["trace_distance"], purity=res["purity"],
+               fidelity_exact_chain=fid_exact, max_tv_exact_chain=float(
+                   tv.max()), tv_bound=bound,
+               mle_iterations=res["mle_iterations"],
+               exact_chain_s=t_exact, exact_chain_mle_s=t_mle,
+               exact_chain_mle_iterations=solve["iterations"],
+               train_steps=res["train_steps"],
+               **{k: v for k, v in rec.items() if k != "log"})
+    if "chain_info" in res:
+        info = res["chain_info"]
+        out.update(ce_before=info["train_ce_before"],
+                   ce_after=info["train_ce_after"],
+                   distill_steps_run=len(res["ft_losses"]))
+        if "best_step" in info:
+            out.update(best_step=info["best_step"],
+                       best_val_ce=info["best_val_ce"])
+    return out
+
+
+def scaling_run(ck, tag: str, cfg, data_cut: bool) -> dict:
+    """One rung in one ``run_experiment`` call, with its checks. A
+    distillation without a held-out split is held to finite losses only:
+    from a fresh Adam state the hot recipe's first steps raise the chain CE
+    (at N = 7 for its first 10 to 30 steps on the card), which later steps
+    bring down."""
+    res, rec = _role(ck, tag, cfg)
+    if "chain_info" in res:
+        info = res["chain_info"]
+        steps = len(res["ft_losses"])
+        log("scaling", f"{tag}: distillation ran {steps} of "
+            f"{cfg.train.chain_finetune_steps} steps, "
+            f"{rec['timings']['distill'] * 1e3 / max(steps, 1):.1f} ms a step "
+            f"(its full-grid CE evaluations included); chain CE "
+            f"{info['train_ce_before']:.5f} -> {info['train_ce_after']:.5f}"
+            + (f"; held-out best {info['best_val_ce']:.5f} at step "
+               f"{info['best_step']}" if "best_step" in info else ""))
+        check(np.isfinite(res["ft_losses"]).all(), f"{tag}: finite losses")
+        if "best_step" in info:
+            check(info["best_val_ce"] <= info["val_history"][0][1]
+                  and info["train_ce_after"] <= info["train_ce_before"] + 1e-6,
+                  f"{tag}: the held-out selection is no worse than step 0")
+    out = scaling_checks(ck, tag, cfg, res, rec, data_cut)
+    log("scaling", "result " + json.dumps(out))
+    return out
+
+
+def scaling_segments(ck, tag: str, cfg, tmp: str,
+                     data_cut: bool) -> dict:
+    """The segment protocol of ``scripts/run_frontier_segments.py:130-205``
+    through ``run_experiment``: a CE role (``params_save``,
+    ``stop_after='distill'``, no distillation), a uniform distillation
+    segment and a hard-mining one (``chain_accum`` 4, ``chain_hard_frac``
+    0.5, the Adam state chained), each warm-started from the last's
+    parameters on the shared data and MLE-target caches, then the eval role
+    (the full tail, no distillation). The mining segment, whose Adam state
+    is chained, must lower the full-grid chain CE; the uniform segment
+    starts a fresh Adam state, whose first hot steps raise it (recorded)."""
+    import dataclasses
+
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.utils.checkpoint import restore_params
+
+    n = cfg.data.num_qubits
+    def snap(name: str, kind: str = "params") -> str:
+        return os.path.join(tmp, f"{tag}_{name}_{kind}")
+    dcache, tcache = (os.path.join(tmp, f"{tag}_data.npz"),
+                      os.path.join(tmp, f"{tag}_target.npz"))
+    roles = {}
+
+    res, roles["ce"] = _role(
+        ck, f"{tag} CE role", cfg.replace(train=dataclasses.replace(
+            cfg.train, chain_finetune_steps=0)),
+        params_save=snap("ce"), stop_after="distill", data_cache=dcache)
+    check(res["ft_info"] is None and np.isfinite(res["losses"]).all(),
+          f"{tag}: the CE role trained ({len(res['losses'])} epochs), no "
+          "distillation")
+    model = restore_params(snap("ce"), build_model(
+        cfg.model, n, cfg.diffusion.num_timesteps).cuda())
+    check(all(bool(p.isfinite().all()) for p in model.parameters()),
+          f"{tag}: the CE role's parameters load back, finite")
+    del model
+
+    prev, infos = snap("ce"), []
+    for seg, (accum, hard) in enumerate(((1, 0.0), (4, 0.5))):
+        scfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, chain_finetune_steps=SCALING_SEGMENT_STEPS,
+            chain_key_salt=cfg.train.chain_key_salt + seg,
+            chain_accum=accum, chain_hard_frac=hard))
+        res, roles[f"seg{seg}"] = _role(
+            ck, f"{tag} segment {seg} (accum {accum}, hard_frac "
+            f"{hard})", scfg, params_load=prev, params_save=snap(f"seg{seg}"),
+            target_cache=tcache, stop_after="distill",
+            opt_load=snap(f"seg{seg - 1}", "opt") if seg else "",
+            opt_save=snap(f"seg{seg}", "opt"), data_cache=dcache)
+        info = res["ft_info"]
+        infos.append(info)
+        roles[f"seg{seg}"].update(ce_before=info["train_ce_before"],
+                                  ce_after=info["train_ce_after"])
+        log("scaling", f"{tag} segment {seg}: chain CE "
+            f"{info['train_ce_before']:.6f} -> {info['train_ce_after']:.6f}")
+        check(len(res["ft_losses"]) == SCALING_SEGMENT_STEPS
+              and np.isfinite(res["ft_losses"]).all(),
+              f"{tag} segment {seg}: {SCALING_SEGMENT_STEPS} finite steps")
+        if seg:
+            check(info["train_ce_after"] < info["train_ce_before"],
+                  f"{tag} segment {seg}: the full-grid chain CE fell")
+        opt = torch.load(snap(f"seg{seg}", "opt"), weights_only=True)
+        check(int(opt["count"]) == SCALING_SEGMENT_STEPS * (seg + 1),
+              f"{tag} segment {seg}: the Adam state saved after "
+              f"{int(opt['count'])} steps, chained")
+        prev = snap(f"seg{seg}")
+    check(os.path.exists(tcache), f"{tag}: the MLE target was cached")
+    check(abs(infos[1]["train_ce_before"] - infos[0]["train_ce_after"])
+          <= 1e-5 * infos[0]["train_ce_after"],
+          f"{tag}: segment 1 starts from segment 0's saved parameters (CE "
+          f"{infos[1]['train_ce_before']:.6f} vs "
+          f"{infos[0]['train_ce_after']:.6f})")
+    check(any("(cached," in m for m in roles["seg1"]["log"])
+          and not any("(cached," in m for m in roles["seg0"]["log"]),
+          f"{tag}: segment 0 solved the MLE target, segment 1 read its cache")
+    p = infos[1].get("hard_draw_p")
+    check(p is not None and float(p.max()) > 1.01 * float(p.min()),
+          f"{tag}: the mining segment's draw weights are not uniform")
+    log("scaling", f"{tag}: mining draw weights min {float(p.min()):.3e}, max "
+        f"{float(p.max()):.3e} (uniform {1 / 3**n:.3e})")
+    for seg in range(2):
+        check(roles[f"seg{seg}"]["walk_launches"] == 0
+              and roles[f"seg{seg}"]["step_launches"] == 0,
+              f"{tag} segment {seg}: no kernel launch")
+
+    with _TablesKept() as kept:
+        res, rec = _role(ck, f"{tag} eval role", cfg.replace(
+            train=dataclasses.replace(cfg.train, chain_finetune_steps=0)),
+            params_load=prev, data_cache=dcache)
+    out = scaling_checks(ck, tag, cfg, res, rec, data_cut,
+                         tables=kept.tables)
+    del kept.tables
+    for r in roles.values():
+        del r["log"]
+    out["roles"] = roles
+    out["hard_draw_p_max_over_min"] = float(p.max() / p.min())
+    log("scaling", "result " + json.dumps(out))
+    return out
+
+
+def scaling_kernel_rows(ck) -> dict:
+    """Both kernels at the rungs' shapes: each held against its plain version
+    bit for bit on the card, then timed (CUDA events) beside the plain
+    version and its bound."""
+    rows = {}
+    for i, (tag, (c, n, s)) in enumerate(SCALING_WALK_SHAPES.items()):
+        tables, init = random_walk_inputs(100, c, n, s, seed=60 + i)
+        out = ck.fused_chain_walk(9, tables, init, n)
+        plan = ck.fused_chain_walk.last_plan
+        check(torch.equal(out, ck.fused_chain_walk_reference(9, tables, init,
+                                                             n)),
+              f"walk kernel == plain bit for bit at {tag}'s shape")
+        ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), 10)
+        ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(
+            5, tables, init, n), 1)
+        bound, by = walk_bound_ms(100, c, n, s)
+        rows[tag] = dict(kernel="fused_chain_walk", shape=[100, c, n, s],
+                         ms=ms_k, plain_ms=ms_r, bound_ms=bound, bound_by=by,
+                         x_bound=ms_k / bound, plan=list(plan))
+        del tables, init
+    for tag, (g, n, b) in SCALING_STEP_SHAPES.items():
+        # The path's inputs: 834 neighbouring chains a basis share its 2^N
+        # table rows, a random state each.
+        table, x, base = route_like_step_inputs(1, n, b // 3**n, seed=70)
+        check(table.shape[0] == g and x.shape[0] == b,
+              f"{tag}'s step shape [{g}, {n}], B = {b}")
+        check(torch.equal(
+            ck.fused_chain_step(9, table, x, n, 3, row_base=base),
+            ck.fused_chain_step_reference(9, table, x, n, 3, row_base=base)),
+            f"step kernel == plain bit for bit at {tag}'s shape")
+        ms_k = cuda_ms(lambda: ck.fused_chain_step(5, table, x, n, 1,
+                                                   row_base=base), 50)
+        ms_r = cuda_ms(lambda: ck.fused_chain_step_reference(
+            5, table, x, n, 1, row_base=base), 2)
+        bound, by = step_bound_ms(b, n, g, row_base=True)
+        rows[tag] = dict(kernel="fused_chain_step", shape=[g, n, b], ms=ms_k,
+                         plain_ms=ms_r, bound_ms=bound, bound_by=by,
+                         x_bound=ms_k / bound)
+    for tag, r in rows.items():
+        log("scaling", f"{r['kernel']} at {tag}'s shape {r['shape']}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['x_bound']:.2f} x "
+            "bound" + (f", plan {r['plan']}" if "plan" in r else ""))
+    return rows
+
+
+def phase_scaling(ck) -> dict:
+    """The scaling ladder at full width with the default run's cuts: GHZ-5
+    and GHZ-7 in one ``run_experiment`` each, GHZ-8 through the segment
+    protocol; then both kernels at the rungs' shapes."""
+    t_phase = time.perf_counter()
+    rungs = {}
+    for tag in ("ghz5_auto", "ghz7_mle_hot", "ghz8_mle_hot"):
+        cfg, cut = cut_rung(tag), tag in SCALING_SHOTS_CUT
+        log("scaling", f"{tag}: CUT every MLE solve to "
+            f"{SCALING_MLE_ITERS[tag]} iterations (uncut: to its tolerance, "
+            "at most 4,000)")
+        with _MleCapped(SCALING_MLE_ITERS[tag]):
+            if tag != "ghz8_mle_hot":
+                rungs[tag] = scaling_run(ck, tag, cfg, cut)
+                continue
+            log("scaling", f"{tag}: CUT the distillation to one uniform and "
+                f"one mining segment of {SCALING_SEGMENT_STEPS} steps (the "
+                "recipe: 1600 steps; its campaign: 4 uniform and 2 mining "
+                "segments of 800)")
+            with tempfile.TemporaryDirectory() as tmp:
+                rungs[tag] = scaling_segments(ck, tag, cfg, tmp,
+                                              cut)
+    path_s = time.perf_counter() - t_phase
+    kernels = scaling_kernel_rows(ck)
+    phase_s = time.perf_counter() - t_phase
+    log("scaling", f"phase time {phase_s:.1f} s ({path_s:.1f} s the rungs and "
+        "their checks; the budget is about 300 s)")
+    return dict(rungs=rungs, kernels=kernels, phase_s=phase_s, path_s=path_s)
+
+
+def scaling_uncut(ck, tags: list[str]) -> list[dict]:
+    """``--scaling TAG ...``: each named rung uncut, in one
+    ``run_experiment`` call, with the rung's checks."""
+    import dataclasses
+
+    runs = []
+    for tag in tags:
+        cfg = scaling_rung(tag)
+        # The recipe logs no epoch; every 25th is logged here, so a run cut
+        # by a time limit shows how far it got.
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, log_every=25))
+        log("scaling", f"{tag}: uncut: {cfg.train.num_epochs} CE epochs, "
+            f"{cfg.train.chain_finetune_steps} distillation steps, "
+            f"{cfg.data.shots_train} / {cfg.data.shots_infer} shots a basis")
+        runs.append(scaling_run(ck, tag, cfg, data_cut=False))
+    return runs
+
+
+def scaling_costs() -> dict:
+    """``--scaling-costs``: what the stages of the GHZ-7 and GHZ-8 rungs cost
+    on the card, each measured alone on the recipe's data (seed 0): the
+    data step and its peak memory; MLE on the raw counts capped at 50, 200
+    and 1,000 iterations (ms an iteration, fidelity); one CE epoch on the
+    first 500 shots a basis; two full-grid chain passes; then the hot
+    recipe's distillation (``chain_lr`` 1e-3, the recipe's basis batch)
+    against the raw counts in four chained segments, 5 uniform, 5 mining
+    (accum 4, hard_frac 0.5), 10 and 10 uniform steps, with the Adam state
+    carried over, each segment's full-grid chain CE before and after."""
+    import dataclasses
+
+    from ddqst_tpu_torch import pipeline, train
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import mle
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    def now() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    out = {}
+
+    def say(key: str, rec: dict) -> None:
+        out[key] = rec
+        log("costs", f"{key} {json.dumps(rec)}")
+
+    for n, tag in ((7, "ghz7_mle_hot"), (8, "ghz8_mle_hot")):
+        cfg = scaling_rung(tag)
+        torch.cuda.reset_peak_memory_stats()
+        t = now()
+        g_data, g_train, _ = pipeline._generators(0, torch.device("cuda"))
+        data = pipeline.generate_training_data(cfg, g_data,
+                                               np.random.default_rng(0))
+        say(f"n{n}_datagen", dict(
+            s=now() - t, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        target = torch.from_numpy(data.target).cuda()
+        raw = mle.bits_to_counts(data.bits)
+        for cap in (50, 200, 1000):
+            info: dict = {}
+            t = now()
+            rho = mle.make_mle(n, data.basis_labels, readout_p=0.01,
+                               iterations=cap)(raw, info)
+            dt = now() - t
+            say(f"n{n}_mle_raw_cap{cap}", dict(
+                s=dt, ms_per_iter=dt * 1e3 / info["iterations"],
+                it=info["iterations"],
+                fid=float(M.state_fidelity(target, rho))))
+        sched = make_schedule("cosine", 100, "cuda")
+        model = build_model(cfg.model, n, 100).cuda()
+        x, basis = pipeline.flatten_for_training(data.bits[:, :500],
+                                                 data.basis_idx)
+        t = now()
+        model, _ = train.fit(g_train, model, x, basis, dataclasses.replace(
+            cfg.train, num_epochs=1), sched, log_fn=lambda m: None)
+        steps = x.shape[0] // cfg.train.batch_size
+        dt = now() - t
+        say(f"n{n}_fit_500shots", dict(s=dt, steps=steps,
+                                       ms_per_step=dt * 1e3 / steps))
+        t = now()
+        _, _, info = train.finetune_chain(model, raw, sched, n, steps=0,
+                                          exact=False)
+        say(f"n{n}_grid_ce_two_passes", dict(s=now() - t,
+                                             ce=info["train_ce_before"]))
+        opt = None
+        for seg, (steps, accum, hard) in enumerate(
+                ((5, 1, 0.0), (5, 4, 0.5), (10, 1, 0.0), (10, 1, 0.0))):
+            t = now()
+            model, _, info = train.finetune_chain(
+                model, raw, sched, n, steps=steps, learning_rate=1e-3,
+                exact=False, basis_batch=cfg.train.chain_basis_batch,
+                steps_per_call=10, accum=accum, hard_frac=hard,
+                init_opt_state=opt,
+                generator=torch.Generator(device="cuda").manual_seed(seg))
+            opt = info.pop("final_opt_state")
+            say(f"n{n}_distill_seg{seg}", dict(
+                s=now() - t, steps=steps, accum=accum, hard=hard,
+                ce_before=info["train_ce_before"],
+                ce_after=info["train_ce_after"]))
+        del data, raw, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(ck) -> dict:
     """Both kernels' ms at their shapes, in the forms every version of the
     port has (the step kernel with ``rows``, the walk with the body its plan
@@ -2685,6 +3372,22 @@ def main() -> int:
         print(json.dumps({"profile_distill": profile_distill(), "card": smi}),
               flush=True)
         return 0
+    if sys.argv[1:2] == ["--scaling"]:
+        # python3 chip_smoke.py --scaling TAG [TAG ...]: only the named
+        # rungs of the scaling ladder, uncut, and one JSON line.
+        tags = sys.argv[2:]
+        for tag in tags:
+            scaling_rung(tag)  # an unknown tag raises before any work
+        build_all(_build)
+        print(json.dumps({"scaling_uncut": scaling_uncut(ck, tags),
+                          "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--scaling-costs"]:
+        # python3 chip_smoke.py --scaling-costs: the stages of the N = 7 and
+        # 8 rungs measured alone, and one JSON line.
+        print(json.dumps({"scaling_costs": scaling_costs(), "card": smi}),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--full-depth"]:
         # python3 chip_smoke.py --full-depth [SEEDS]: only the bench
         # recipes, uncut, and one JSON line of their results.
@@ -2694,23 +3397,33 @@ def main() -> int:
                           "card": smi}), flush=True)
         return 0
 
-    build_s = build_all(_build)
-    rate = phase_rate(_build)
-    ablation = phase_ablation(_build, ck)
-    kernel = phase_kernel(ck)
-    launches, res = phase_main_path(ck)
-    step = phase_step(ck)
-    phase_seq_walk(ck, res["state"])
-    step_launches, path_ms = phase_route(ck)
-    phase_generate(build_s["statevec"])
-    distill = phase_distill(ck, DISTILL_DEPTH)
-    chunked_launches = phase_chunked(ck, res["state"])
-    shadow = phase_shadow(ck)
-    notebook = phase_notebook(ck)
-    denoise = phase_denoise(ck, res)
-    bf16 = phase_bf16(ck, res)
-    train_profile = phase_train_profile()
-    mesh = phase_mesh()
+    phase_s: dict[str, float] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log("time", f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    build_s = timed("build", build_all, _build)
+    rate = timed("rate", phase_rate, _build)
+    ablation = timed("ablation", phase_ablation, _build, ck)
+    kernel = timed("kernel", phase_kernel, ck)
+    launches, res = timed("main", phase_main_path, ck)
+    step = timed("step", phase_step, ck)
+    timed("seq_walk", phase_seq_walk, ck, res["state"])
+    step_launches, path_ms = timed("route", phase_route, ck)
+    timed("generate", phase_generate, build_s["statevec"])
+    distill = timed("distill", phase_distill, ck, DISTILL_DEPTH)
+    chunked_launches = timed("chunked", phase_chunked, ck, res["state"])
+    shadow = timed("shadow", phase_shadow, ck)
+    notebook = timed("notebook", phase_notebook, ck)
+    denoise = timed("denoise", phase_denoise, ck, res)
+    bf16 = timed("bf16", phase_bf16, ck, res)
+    train_profile = timed("train_profile", phase_train_profile)
+    mesh = timed("mesh", phase_mesh)
+    scaling = timed("scaling", phase_scaling, ck)
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -2761,6 +3474,11 @@ def main() -> int:
         "sass_instructions_n10_global": rate["sass"]["ablation_2"],
         "sass_instructions_n12_global": rate["sass"]["walk_n12_global"],
         "ablation_ms_shadow": ablation,
+        "launches_scaling": {
+            tag: scaling["rungs"][tag]["walk_launches"]
+            for tag in SCALING_WALK_SHAPES if tag in scaling["rungs"]},
+        "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
+                           if r["kernel"] == "fused_chain_walk"},
     }, {
         "name": "fused_chain_step",
         "route": "cuda",
@@ -2783,10 +3501,15 @@ def main() -> int:
         "path_ms_per_step": path_ms,
         "int_ops_per_s_measured": int_rate,
         "sass_instructions": rate["sass"]["step_n3_row_base"],
+        "launches_scaling": {
+            tag: scaling["rungs"][tag]["step_launches"]
+            for tag in SCALING_STEP_SHAPES},
+        "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
+                           if r["kernel"] == "fused_chain_step"},
     }], "lane_instructions_per_s": rate["rates"],
         "bench_recipes": distill, "shadow": shadow, "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
-        "mesh": mesh}),
+        "mesh": mesh, "scaling": scaling, "phase_seconds": phase_s}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -712,7 +712,8 @@ def sample_all_bases(
 
     ``timings``: if given, the seconds spent on the table precompute and the
     walk are stored under ``'tables'`` and ``'walk'`` (the device is
-    synchronised around each).
+    synchronised around each); the paths without a precompute store their
+    whole time, model forwards included, under ``'walk'``.
     """
     dev = _check_generator(generator, device)
     num_bases = 3**num_qubits
@@ -736,6 +737,7 @@ def sample_all_bases(
                                              num_bases, g, num_qubits),
             lambda tables: _walk_shot_chunks(generator, tables, shots, chains),
             dev, timings)
+    t0 = time.perf_counter()
     basis = torch.arange(num_bases, device=dev).repeat_interleave(shots)
     if use_grid:
         out = p_sample_grid(generator, denoise_fn, basis, num_qubits,
@@ -743,6 +745,9 @@ def sample_all_bases(
     else:
         out = p_sample(generator, denoise_fn, basis, num_qubits, schedule,
                        exact=exact)
+    if timings is not None:
+        synchronize(dev)
+        timings["walk"] = time.perf_counter() - t0
     return out.reshape(num_bases, shots, num_qubits)
 
 

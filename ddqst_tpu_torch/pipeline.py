@@ -99,14 +99,13 @@ class GeneratedData:
 
 
 def noisy_basis_probs(
-    circuit: states.Circuit, ncfg: noise.NoiseConfig, labels: np.ndarray,
-    device,
+    circuit: states.Circuit, ncfg: noise.NoiseConfig, rots: torch.Tensor,
 ) -> torch.Tensor:
-    """Outcome probabilities ``[B, 2^N]`` of the noisy state in each basis,
+    """Outcome probabilities ``[B, 2^N]`` of the noisy state in each basis of
+    the ``[B, 2^N, 2^N]`` rotation stack ``rots`` (on the working device),
     readout channel included: what the shots are drawn from."""
     kind, state = noise.noisy_state(circuit, ncfg)
-    rots = torch.from_numpy(measure.rotation_unitaries(labels)).to(device)
-    state = torch.from_numpy(state).to(device)
+    state = torch.from_numpy(state).to(rots.device)
     if kind == "pure":
         probs = measure.batched_probs_pure(state[None], rots)[0]
     else:
@@ -137,8 +136,10 @@ def generate_training_data(
     else:
         sel = np.arange(len(all_labels))
     labels = all_labels[sel]
-    probs = noisy_basis_probs(circuit, ncfg, labels, dev)
+    # One rotation stack for the noisy and the clean probabilities, as the
+    # JAX package builds it (3.4 GB at N = 8).
     rots = torch.from_numpy(measure.rotation_unitaries(labels)).to(dev)
+    probs = noisy_basis_probs(circuit, ncfg, rots)
     clean_probs = measure.batched_probs_pure(
         torch.from_numpy(target).to(dev)[None], rots
     )[0].cpu().numpy()

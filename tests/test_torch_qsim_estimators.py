@@ -55,8 +55,9 @@ def test_noisy_basis_probs_match_jax(noise_type):
     ref = jnoise.apply_readout_to_probs(fn(from_complex(state[None]), rots)[0],
                                         n, ncfg.readout_p)
     tcirc = tstates.prep_circuit("rqc", n, 5, np.random.default_rng(0))
-    out = tpipe.noisy_basis_probs(tcirc, tnoise.get_noise_config(noise_type),
-                                  labels, "cpu")
+    out = tpipe.noisy_basis_probs(
+        tcirc, tnoise.get_noise_config(noise_type),
+        torch.from_numpy(tmeasure.rotation_unitaries(labels)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
