@@ -42,7 +42,7 @@ result line is printed; nothing falls back to the CPU):
    with CUDA events at 135,000 and at 27 x 37,037 (about 10^6) chains, at
    N=7, at the shadow shape, at one call of the chunked sampler at N = 8
    (3^8 rows x 319 chains, 5.4 GB of tables) and at the shadow shape with
-   N = 11, the kernel also at other block sizes;
+   N = 11 and 12, the kernel also at other block sizes;
 3. main path — ``run_experiment(get_preset("rqc"), seed=0)`` at full width
    on the default (CUDA) device, with the kernel's launch count set to 0
    just before and read just after; print each stage's time and the
@@ -130,6 +130,28 @@ result line is printed; nothing falls back to the CPU):
    ``params_save``) with 3 distillation steps over minibatches of 10 bases
    and no held-out split, printing ms a step and the chain CE before and
    after.
+9b. reference_shadow — the port's shadow route at full width on the
+   reference's own model, data and recipe: ``run_experiment`` of
+   ``reference_shadow_cfg()`` (``scripts/run_shadow_scale.py``'s
+   ``make_cfg("dist_seg", max_bases=300)`` written out: N=10, 300 sampled
+   bases, 5,000 generated shots a basis, the transformer 128 / 512 / 4
+   blocks / 4 heads, T=100, cosine, renoise) with ``params_load`` of the
+   reference's 150-epoch CE snapshot (``REFERENCE_SHADOW_PARAMS``,
+   converted by ``tools/flax_to_torch.py``) and ``data_cache`` a temporary
+   copy of its data (``REFERENCE_SHADOW_DATA``), with the launch counts set
+   to 0 just before and read just after. Checks: (a) one walk launch (the
+   ring body, 300 x 5,000 chains, 1.23 GB of tables) and no step launch;
+   (b) the shot-noise floor and the measured-data TV, which depend on the
+   data alone, round to the reference's (``examples/results_shadow.jsonl``
+   row 11) at 5 decimals; (c) every basis' samples within 4 shot-noise
+   scales (TV) of the exact chain of the tables the walk read; (d) the mean
+   TV, marginal error and classical fidelity each within 4 sigma + delta of
+   row 11's, sigma the metric's standard deviation over
+   ``REFERENCE_SHADOW_WALKS`` further walks of those tables, delta the
+   exact chain's metric at float32 against the model at bfloat16 compute
+   (printed with the margins); (e) table rows of bases 0, 150 and 299 at
+   t = 100, 50, 1 within 1e-5 of a CPU recompute. Then the walk at this
+   shape against its plain version, bit for bit, and timed.
 
 10. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
    ``notebook_upgraded``, uncut (PlainMLP, 200 / 300 epochs, N=1, 1,024
@@ -234,6 +256,14 @@ and GHZ-8 rungs alone (the data step, MLE on the raw counts at 50, 200 and
 1,000 iterations, a CE epoch, two full-grid chain passes, four chained
 distillation segments of the hot recipe) and prints one JSON line.
 
+``python3 chip_smoke.py --shadow-reference-train`` trains the reference's
+N=10 recipe (``reference_shadow_cfg()``, 150 epochs of 300 steps) uncut
+from seed 0 on the reference's data cache, generates and scores as phase
+reference_shadow does (checks (a) and (c)), and holds the mean TV within
+``REFERENCE_TRAIN_TV_TOL`` of the reference's two trainings at this recipe,
+the marginal error at most ``REFERENCE_TRAIN_MARGINAL_MAX`` and the
+classical fidelity at least ``REFERENCE_TRAIN_CF_MIN``; one JSON line.
+
 ``python3 chip_smoke.py --profile-distill`` times one distillation step at
 full width (with and without the per-step checkpoint, and a forward alone)
 and counts its device kernels and the device's busy time with
@@ -246,6 +276,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -657,12 +688,17 @@ def exact_transitions(tables: torch.Tensor) -> torch.Tensor:
                       eye.repeat(c, 1)).reshape(c, g, g)
 
 
+def hist_rows(idx: torch.Tensor, g: int,
+              dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Outcome indices ``[C, S]`` -> counts ``[C, g]``."""
+    hist = torch.zeros((idx.shape[0], g), dtype=dtype, device=idx.device)
+    return hist.scatter_add_(1, idx.long(), torch.ones(
+        idx.shape, dtype=dtype, device=idx.device))
+
+
 def tv_rows(idx: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
-    g = dist.shape[-1]
-    s = idx.shape[-1]
-    hist = torch.zeros_like(dist).scatter_add_(
-        1, idx.long(), torch.ones(idx.shape, dtype=dist.dtype, device=idx.device))
-    return 0.5 * (hist / s - dist).abs().sum(-1)
+    hist = hist_rows(idx, dist.shape[-1], dist.dtype)
+    return 0.5 * (hist / idx.shape[-1] - dist).abs().sum(-1)
 
 
 def random_walk_inputs(t_steps, c, n, s, seed):
@@ -764,7 +800,8 @@ def phase_kernel(ck) -> dict:
     # the paths: rqc, 10^6 chains, the bench recipes, N = 7, the shadow
     # route (100 sampled bases at N = 10), one walk call of
     # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
-    # a row, 5.4 GB of tables) and the shadow shape at N = 11. The parent's
+    # a row, 5.4 GB of tables), the shadow shape at N = 11 and, for the
+    # global body, at N = 12 (no path runs N >= 11). The parent's
     # body at these shapes is timed by --time-kernels on its checkout.
     for label, c, n, s, it_k, it_r in (("main", 27, 3, 5000, 50, 3),
                                        ("1e6", 27, 3, 37037, 20, 2),
@@ -772,7 +809,8 @@ def phase_kernel(ck) -> dict:
                                        ("n7", 27, 7, 5000, 20, 2),
                                        ("shadow", 100, 10, 5000, 20, 1),
                                        ("n8_grid", 3**8, 8, 319, 5, 1),
-                                       ("n11", 100, 11, 5000, 10, 1)):
+                                       ("n11", 100, 11, 5000, 10, 1),
+                                       ("n12", 100, 12, 5000, 5, 1)):
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
         plan = ck.fused_chain_walk.last_plan
@@ -1533,7 +1571,22 @@ REFERENCE_SHADOW = {
         mean_tv_to_target=0.213, tv_shot_noise_floor=0.118,
         meas_tv_to_target=0.264, mean_marginal_error=0.015,
         classical_fidelity=0.893),
+    # The 300-basis recipe of scripts/run_shadow_scale.py (its TPU runs):
+    # examples/results_shadow.jsonl:6, a training of its own, and :11, the
+    # CE snapshot shadow_work/dist_seg_ce_params on the data cache
+    # shadow_work/dist_seg_data.npz, which phase reference_shadow loads.
+    "300 bases, 150 epochs (results_shadow.jsonl:6)": dict(
+        mean_tv_to_target=0.1969, tv_shot_noise_floor=0.11949,
+        meas_tv_to_target=0.2663, mean_marginal_error=0.01115,
+        classical_fidelity=0.90386),
+    "300 bases, the CE snapshot (results_shadow.jsonl:11)": dict(
+        mean_tv_to_target=0.1983, tv_shot_noise_floor=0.11954,
+        meas_tv_to_target=0.26626, mean_marginal_error=0.01144,
+        classical_fidelity=0.90284),
 }
+REFERENCE_SNAPSHOT_ROW = "300 bases, the CE snapshot (results_shadow.jsonl:11)"
+REFERENCE_TRAINING_ROWS = ("300 bases, 150 epochs (results_shadow.jsonl:6)",
+                           REFERENCE_SNAPSHOT_ROW)
 SHADOW_DISTILL_STEPS = 3
 
 
@@ -1584,7 +1637,7 @@ def phase_shadow(ck) -> dict:
             f"{res['max_marginal_error']:.5f}, z_bias {res['z_bias']}")
         for what, ref in REFERENCE_SHADOW.items():
             log("shadow", f"reference ({what}): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in ref.items()))
+                f"{k} {v:g}" for k, v in ref.items()))
         for k in quality + ("max_tv_to_target", "max_marginal_error"):
             check(math.isfinite(res[k]), f"shadow {k} finite")
         samples = res["samples"]
@@ -1663,6 +1716,288 @@ def phase_shadow(ck) -> dict:
                     tv.max()), table_err=tab_err, distill_ms_per_step=ms_step,
                 distill_ce=(info["train_ce_before"], info["train_ce_after"]),
                 distill_timings=tm2)
+
+
+# The reference's own N=10 shadow recipe, model and data.
+# ``reference_shadow_cfg`` is ``scripts/run_shadow_scale.py``'s
+# ``make_cfg("dist_seg", max_bases=300)`` written out (this script imports
+# nothing of the JAX package); the model is that recipe's 150-epoch CE
+# snapshot, converted from orbax by ``tools/flax_to_torch.py``.
+REFERENCE_SHADOW_PARAMS = "examples/reference_params/dist_seg_ce_params.pt"
+REFERENCE_SHADOW_DATA = "shadow_work/dist_seg_data.npz"
+# Further walks of the same tables; their spread is each metric's shot-noise
+# standard deviation.
+REFERENCE_SHADOW_WALKS = 8
+SHADOW_METRICS = ("mean_tv_to_target", "mean_marginal_error",
+                  "classical_fidelity")
+# --shadow-reference-train against the mean of REFERENCE_TRAINING_ROWS: the
+# mean TV within REFERENCE_TRAIN_TV_TOL, the marginal error at most, the
+# classical fidelity at least.
+REFERENCE_TRAIN_TV_TOL = 0.01
+REFERENCE_TRAIN_MARGINAL_MAX = 0.015
+REFERENCE_TRAIN_CF_MIN = 0.89
+
+
+def reference_shadow_cfg():
+    """``make_cfg("dist_seg", max_bases=300)`` of
+    ``scripts/run_shadow_scale.py``: the ``shadow_transformer`` preset with
+    new model, diffusion, train and data sections (the fields not named
+    here take their classes' defaults, as there)."""
+    from ddqst_tpu_torch.config import (DataConfig, DiffusionConfig,
+                                        ModelConfig, TrainConfig, get_preset)
+
+    return get_preset("shadow_transformer").replace(
+        name="shadow_dist_seg",
+        diffusion=DiffusionConfig(num_timesteps=100, schedule="cosine",
+                                  sampler="renoise"),
+        model=ModelConfig(arch="transformer", input_encoding="token",
+                          embed_dim=128, hidden_dim=512, num_blocks=4,
+                          num_heads=4),
+        train=TrainConfig(
+            batch_size=1024, learning_rate=1e-3, optimizer="adam",
+            num_epochs=150, lr_schedule="cosine", ema_decay=0.0,
+            log_every=0, eval_every=0, chain_finetune_steps=0, chain_lr=1e-3,
+            chain_basis_batch=16, chain_steps_per_call=5,
+            chain_val_fraction=0.15, chain_key_salt=0, chain_hard_frac=0.0),
+        data=DataConfig(num_qubits=10, state_type="rqc", noise_type="readout",
+                        shots_train=1024, shots_infer=5000, rqc_depth=8,
+                        max_bases=300, mitigate_readout=False,
+                        mitigate_train_data=False),
+    )
+
+
+def repo_file(rel: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def reference_shadow_run(ck, phase: str, **kw) -> dict:
+    """``run_experiment(reference_shadow_cfg(), seed=0, **kw)`` on a
+    temporary copy of the reference's data cache, with the launch counts set
+    to 0 just before and read just after. Returns the results (``res``),
+    the tables the walk read (kept from ``_assembled_tables``), the data,
+    the launches and the wall seconds; checks the plan (one walk launch,
+    the ring body, no step launch) and every basis' samples against the
+    exact chain of those tables (TV within 4 shot-noise scales)."""
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.pipeline import load_data_cache, run_experiment
+
+    kept = []
+    assembled = diff._assembled_tables
+
+    def keep(*args, **kwargs):
+        kept.append(assembled(*args, **kwargs))
+        return kept[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "data.npz")
+        shutil.copyfile(repo_file(REFERENCE_SHADOW_DATA), cache)
+        diff._assembled_tables = keep
+        try:
+            ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+            t0 = time.perf_counter()
+            res = run_experiment(reference_shadow_cfg(), seed=0,
+                                 data_cache=cache,
+                                 log_fn=lambda m: log(phase, m), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walks = ck.fused_chain_walk.launches
+            steps = ck.fused_chain_step.launches
+            plan = ck.fused_chain_walk.last_plan
+        finally:
+            diff._assembled_tables = assembled
+        data = load_data_cache(cache)
+    tm = res["timings"]
+    log(phase, f"wall {wall:.2f} s; stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tm.items()))
+    log(phase, f"fused_chain_walk.launches = {walks} ({plan[0]} threads a "
+        f"block, body {plan[3]}), fused_chain_step.launches = {steps}")
+    check(walks == 1 and steps == 0 and len(kept) == 1,
+          f"{phase}: one walk launch ({walks}), no step launch ({steps}), "
+          f"one table build ({len(kept)})")
+    check(plan[3] == "ring", f"{phase}: the walk took the ring body ({plan})")
+    tables = kept[0]
+    c, shots, n = res["samples"].shape
+    check(tuple(tables.shape) == (100, 300, 2**n, n) and c == 300
+          and shots == 5000 and res["samples"].is_cuda,
+          f"{phase}: tables {tuple(tables.shape)} and samples "
+          f"{tuple(res['samples'].shape)} cover all 300 bases on the card")
+    for k in SHADOW_METRICS + ("tv_shot_noise_floor", "meas_tv_to_target"):
+        check(math.isfinite(res[k]), f"{phase}: {k} finite")
+    dist = samples_vs_tables(phase, "the run's samples", res["samples"],
+                             tables, torch.full((c, 2**n), 2.0**-n,
+                                                device="cuda"))
+    return dict(res=res, tables=tables, dist=dist, data=data, wall=wall,
+                walks=walks, plan=plan)
+
+
+def phase_reference_shadow(ck) -> dict:
+    """The port's shadow route at full width on the reference's own model
+    (``params_load``), data cache and recipe; see the module docstring."""
+    import dataclasses
+
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.mle import bits_to_counts
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import shadow_metrics
+    from ddqst_tpu_torch.utils.checkpoint import restore_params
+
+    phase = "reference_shadow"
+    cfg = reference_shadow_cfg()
+    params = repo_file(REFERENCE_SHADOW_PARAMS)
+    run = reference_shadow_run(ck, phase, params_load=params)
+    res, tables, data = run["res"], run["tables"], run["data"]
+    ref = REFERENCE_SHADOW[REFERENCE_SNAPSHOT_ROW]
+    _, c, g, n = tables.shape
+    t_steps, shots = cfg.diffusion.num_timesteps, cfg.data.shots_infer
+
+    # (b) What depends on the data cache alone equals the reference's row.
+    for k in ("tv_shot_noise_floor", "meas_tv_to_target"):
+        log(phase, f"{k}: {res[k]:.7f} (reference {ref[k]})")
+        check(round(res[k], 5) == ref[k], f"{phase}: {k} {res[k]:.7f} rounds "
+              f"to the reference's {ref[k]}")
+
+    # (d) The sampled metrics against the reference's row, within 4 sigma
+    # (sigma: the spread over further walks of these tables) plus delta
+    # (the exact chain's metric at float32 against bfloat16 compute, which
+    # brackets the precision of the reference's matmuls on its TPU).
+    meas = bits_to_counts(data.bits).cpu().numpy()
+    clean = np.asarray(data.clean_probs)
+
+    def metrics(counts: np.ndarray) -> dict:
+        return shadow_metrics(counts, meas, clean, shots, n)
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    walks = []
+    for _ in range(REFERENCE_SHADOW_WALKS):
+        init = torch.randint(0, g, (c, shots), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=gen,
+                                 device="cuda"))
+        idx = ck.fused_chain_walk(seed, tables, init, n)
+        walks.append(metrics(hist_rows(idx, g).cpu().numpy()))
+    sigma = {k: float(np.std([w[k] for w in walks], ddof=1))
+             for k in SHADOW_METRICS}
+    exact32 = metrics(run["dist"].cpu().numpy())
+    model_bf = build_model(dataclasses.replace(cfg.model, dtype="bfloat16"),
+                           n, t_steps).cuda()
+    restore_params(params, model_bf).eval()
+    sched = make_schedule(cfg.diffusion.schedule, t_steps, "cuda")
+    lab = torch.from_numpy(np.asarray(data.basis_labels, np.int64)).cuda()
+    grid = (diff._unpack(torch.arange(g, device="cuda"), n).repeat(c, 1),
+            lab.repeat_interleave(g, dim=0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables_bf = diff._assembled_tables(model_bf, n, sched,
+                                       cfg.diffusion.exact, grid, 1 << 18,
+                                       1 << 16)
+    torch.cuda.synchronize()
+    t_bf = time.perf_counter() - t0
+    dist_bf = exact_walk(tables_bf, torch.full((c, g), 1 / g, device="cuda"))
+    exact_bf = metrics(dist_bf.cpu().numpy())
+    del tables_bf, dist_bf, model_bf
+    delta = {k: abs(exact32[k] - exact_bf[k]) for k in SHADOW_METRICS}
+    margin = {k: 4 * sigma[k] + delta[k] for k in SHADOW_METRICS}
+    log(phase, f"bfloat16 tables in {t_bf:.2f} s")
+    for k in SHADOW_METRICS:
+        log(phase, f"{k}: port {res[k]:.5f}, reference {ref[k]} (row 11), "
+            f"|diff| {abs(res[k] - ref[k]):.5f} <= margin {margin[k]:.5f} "
+            f"(4 sigma {4 * sigma[k]:.5f}, sigma over "
+            f"{REFERENCE_SHADOW_WALKS} walks {sigma[k]:.5f}; delta "
+            f"{delta[k]:.5f}: exact chain float32 {exact32[k]:.5f}, "
+            f"bfloat16 {exact_bf[k]:.5f})")
+    for what, row in REFERENCE_SHADOW.items():
+        log(phase, f"reference ({what}): " + ", ".join(
+            f"{k} {v:g}" for k, v in row.items()))
+    for k in SHADOW_METRICS:
+        check(abs(res[k] - ref[k]) <= margin[k],
+              f"{phase}: {k} {res[k]:.5f} within {margin[k]:.5f} of the "
+              f"reference's {ref[k]}")
+
+    # (e) A few table rows on the card against a CPU recompute of the
+    # snapshot.
+    cpu_model = restore_params(params, build_model(cfg.model, n, t_steps))
+    rows = [0, 150, 299]
+    ts = torch.tensor([t_steps, t_steps // 2, 1])
+    cpu_grid = (grid[0][:g].cpu().repeat(len(rows), 1),
+                lab[rows].cpu().repeat_interleave(g, dim=0))
+    with torch.no_grad():
+        cpu_tab = diff._tables_for_ts(cpu_model.eval(), ts, n,
+                                      sched.to("cpu"), cfg.diffusion.exact,
+                                      grid=cpu_grid)
+    card = tables[(t_steps - ts).tolist()][:, rows].reshape(len(ts), -1, n)
+    tab_err = float((card.cpu() - cpu_tab).abs().max())
+    log(phase, f"tables card vs CPU, bases {rows} at t = {ts.tolist()}: max "
+        f"abs err {tab_err:.2e}")
+    check(tab_err < 1e-5, f"{phase}: tables on the card match the CPU's")
+
+    # The walk kernel at this shape against its plain version, and timed.
+    init = torch.randint(0, g, (c, shots), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(ck.fused_chain_walk_reference(
+        5, tables, init, n)), 1)
+    out = ck.fused_chain_walk(5, tables, init, n)
+    kernel_plan = ck.fused_chain_walk.last_plan
+    err = float((out - plain[-1]).abs().max())
+    check(torch.equal(out, plain[-1]), f"{phase}: kernel == plain bit for "
+          f"bit at T={t_steps} C={c} N={n} S={shots}")
+    ms = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), 20)
+    bound, by = walk_bound_ms(t_steps, c, n, shots)
+    log(phase, f"walk at T={t_steps}, C={c}, N={n}, S={shots} "
+        f"({tables.numel() * 4 / 1e9:.3f} GB of tables): kernel {ms:.4f} ms "
+        f"(plan {kernel_plan}), plain {plain_ms:.3f} ms, bound {bound:.4f} "
+        f"ms ({by}), {ms / bound:.2f} x bound; == plain bit for bit")
+    return dict(walk_launches=run["walks"], walk_plan=list(run["plan"]),
+                wall_s=run["wall"], timings=res["timings"],
+                **{k: res[k] for k in SHADOW_METRICS + (
+                    "tv_shot_noise_floor", "meas_tv_to_target",
+                    "max_tv_to_target", "max_marginal_error")},
+                sigma=sigma, delta=delta, margin=margin,
+                exact_chain_float32=exact32, exact_chain_bfloat16=exact_bf,
+                bf16_tables_s=t_bf, table_err=tab_err,
+                kernel=dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, max_abs_err=err,
+                            threads=kernel_plan[0], plan=list(kernel_plan)))
+
+
+def shadow_reference_train(ck) -> dict:
+    """``--shadow-reference-train``: the reference's recipe trained by the
+    port from seed 0 on the reference's data cache, uncut (150 epochs of
+    300 steps), then generated and scored as phase reference_shadow does,
+    and held against the reference's two trainings at this recipe."""
+    phase = "reference_train"
+    run = reference_shadow_run(ck, phase)
+    res = run["res"]
+    tm = res["timings"]
+    rows = [REFERENCE_SHADOW[k] for k in REFERENCE_TRAINING_ROWS]
+    want_tv = float(np.mean([r["mean_tv_to_target"] for r in rows]))
+    losses = res["losses"]
+    out = dict(train_steps=res["train_steps"], wall_s=run["wall"],
+               timings=tm, steps_per_s=res["train_steps"] / tm["train"],
+               walk_launches=run["walks"], walk_plan=list(run["plan"]),
+               **{k: res[k] for k in SHADOW_METRICS + (
+                   "tv_shot_noise_floor", "meas_tv_to_target",
+                   "max_tv_to_target", "max_marginal_error")},
+               loss_every_15_epochs=[float(v) for v in losses[14::15]],
+               reference_mean_tv=want_tv)
+    log(phase, f"{res['train_steps']} steps in {tm['train']:.1f} s "
+        f"({out['steps_per_s']:.1f} steps/s); losses every 15 epochs: "
+        + ", ".join(f"{v:.4f}" for v in out["loss_every_15_epochs"]))
+    for what in REFERENCE_TRAINING_ROWS:
+        log(phase, f"reference ({what}): " + ", ".join(
+            f"{k} {v:g}" for k, v in REFERENCE_SHADOW[what].items()))
+    log(phase, "result " + json.dumps(out))
+    check(abs(res["mean_tv_to_target"] - want_tv) <= REFERENCE_TRAIN_TV_TOL,
+          f"{phase}: mean TV {res['mean_tv_to_target']:.5f} within "
+          f"{REFERENCE_TRAIN_TV_TOL} of the reference's {want_tv:.5f}")
+    check(res["mean_marginal_error"] <= REFERENCE_TRAIN_MARGINAL_MAX,
+          f"{phase}: marginal error {res['mean_marginal_error']:.5f} <= "
+          f"{REFERENCE_TRAIN_MARGINAL_MAX}")
+    check(res["classical_fidelity"] >= REFERENCE_TRAIN_CF_MIN,
+          f"{phase}: classical fidelity {res['classical_fidelity']:.5f} >= "
+          f"{REFERENCE_TRAIN_CF_MIN}")
+    return out
 
 
 def phase_chunked(ck, model) -> int:
@@ -3388,6 +3723,14 @@ def main() -> int:
         print(json.dumps({"scaling_costs": scaling_costs(), "card": smi}),
               flush=True)
         return 0
+    if sys.argv[1:2] == ["--shadow-reference-train"]:
+        # python3 chip_smoke.py --shadow-reference-train: the reference's
+        # N=10 recipe trained uncut by the port, and one JSON line.
+        build_all(_build)
+        out = shadow_reference_train(ck)
+        print(json.dumps({"shadow_reference_train": out, "card": smi}),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--full-depth"]:
         # python3 chip_smoke.py --full-depth [SEEDS]: only the bench
         # recipes, uncut, and one JSON line of their results.
@@ -3418,6 +3761,7 @@ def main() -> int:
     distill = timed("distill", phase_distill, ck, DISTILL_DEPTH)
     chunked_launches = timed("chunked", phase_chunked, ck, res["state"])
     shadow = timed("shadow", phase_shadow, ck)
+    reference = timed("reference_shadow", phase_reference_shadow, ck)
     notebook = timed("notebook", phase_notebook, ck)
     denoise = timed("denoise", phase_denoise, ck, res)
     bf16 = timed("bf16", phase_bf16, ck, res)
@@ -3435,7 +3779,8 @@ def main() -> int:
         "source": "ddqst_tpu_torch/csrc/chain_walk.cu",
         "replaces": "ddqst_tpu/ops/pallas_kernels.py:158",
         "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
+        "max_abs_err": max(kernel["max_abs_err"],
+                           reference["kernel"]["max_abs_err"]),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],
@@ -3458,6 +3803,10 @@ def main() -> int:
         "plain_ms_n7": kernel["n7"]["plain_ms"],
         "bound_ms_n7": kernel["n7"]["bound_ms"],
         "launches_shadow_route": shadow["walk_launches"],
+        "launches_reference_shadow": reference["walk_launches"],
+        **{f"{k}_reference_shadow": reference["kernel"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
+                     "plan")},
         "launches_chunked_sampler": chunked_launches,
         "launches_notebook_presets": {k: v["walk_launches"]
                                       for k, v in notebook.items()},
@@ -3467,7 +3816,7 @@ def main() -> int:
             "dp2_rqc": mesh["dp2_rqc"]["walk_launches"],
             "tp2_shadow": mesh["tp2_shadow"]["walk_launches"]},
         **{f"{k}_{label}": kernel[label][k]
-           for label in ("shadow", "n8_grid", "n11")
+           for label in ("shadow", "n8_grid", "n11", "n12")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
                      "ms_by_threads", "plan")},
         "sass_instructions_n10_ring": rate["sass"]["walk_n10_ring"],
@@ -3507,7 +3856,8 @@ def main() -> int:
         "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
                            if r["kernel"] == "fused_chain_step"},
     }], "lane_instructions_per_s": rate["rates"],
-        "bench_recipes": distill, "shadow": shadow, "notebook": notebook,
+        "bench_recipes": distill, "shadow": shadow,
+        "reference_shadow": reference, "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
         "mesh": mesh, "scaling": scaling, "phase_seconds": phase_s}),
         flush=True)

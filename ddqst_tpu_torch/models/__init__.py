@@ -1,7 +1,10 @@
 """Denoiser networks: the FiLM residual MLP, the phase-1 notebook MLP, the
 transformer of the shadow route, and the flax-params converter."""
 
-from ddqst_tpu_torch.models.convert import params_from_flax  # noqa: F401
+from ddqst_tpu_torch.models.convert import (  # noqa: F401
+    chain_opt_from_flax,
+    params_from_flax,
+)
 from ddqst_tpu_torch.models.d3pm import (  # noqa: F401
     ConditionalD3PM,
     FiLMResBlock,

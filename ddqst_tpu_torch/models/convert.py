@@ -76,3 +76,15 @@ def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected flax param group {name!r}")
     return sd
+
+
+def chain_opt_from_flax(tree_np: Mapping) -> dict:
+    """A distillation Adam state of the JAX package (``{'count', 'mu',
+    'nu'}``, the moments flax params trees with numpy leaves, as
+    ``ddqst_tpu/pipeline.py``'s ``_save_chain_opt`` writes it) -> the port's
+    (``train.chain_opt_template``'s form: the moments keyed by parameter
+    name). Each moment is laid out as its parameter is, by
+    :func:`params_from_flax`."""
+    return {"count": torch.from_numpy(np.array(tree_np["count"])),
+            "mu": params_from_flax(tree_np["mu"]),
+            "nu": params_from_flax(tree_np["nu"])}

@@ -668,6 +668,44 @@ def _distill_only(losses, ft_losses, ft_info) -> dict:
     }
 
 
+def shadow_metrics(gen_counts: np.ndarray, meas_counts: np.ndarray,
+                   exact_p: np.ndarray, shots_gen: int, n: int) -> dict:
+    """The shadow route's scores of generated counts ``[B, 2^N]`` against
+    the exact Born probabilities ``exact_p`` ``[B, 2^N]``, in numpy, as
+    :func:`_run_shadow_experiment` reports them: ``mean/max_tv_to_target``,
+    ``tv_shot_noise_floor`` (mean TV of 4 multinomial draws of ``shots_gen``
+    a basis from ``exact_p``, ``default_rng(0)``), ``meas_tv_to_target``
+    (of the measured counts), ``mean/max_marginal_error`` and
+    ``classical_fidelity``. A row of ``gen_counts`` may also be a
+    distribution (a row that sums to 1)."""
+    gen_p = gen_counts / np.maximum(gen_counts.sum(-1, keepdims=True), 1.0)
+    meas_p = meas_counts / np.maximum(meas_counts.sum(-1, keepdims=True), 1.0)
+    tv_gen = 0.5 * np.abs(gen_p - exact_p).sum(-1)
+    tv_meas = 0.5 * np.abs(meas_p - exact_p).sum(-1)
+    # Shot-noise floor: the TV an ideal sampler scores at this shot count.
+    rng = np.random.default_rng(0)
+    exact64 = exact_p.astype(np.float64)
+    exact64 /= exact64.sum(-1, keepdims=True)  # an exact simplex for pvals
+    floor = np.mean([
+        0.5 * np.abs(rng.multinomial(shots_gen, p) / shots_gen - p).sum()
+        for p in exact64
+        for _ in range(4)
+    ])
+    outcomes = np.arange(exact_p.shape[-1])
+    bit_table = ((outcomes[:, None] >> np.arange(n)) & 1).astype(np.float32)
+    marg_err = np.abs((gen_p - exact_p) @ bit_table)  # [B, N]
+    cf = np.sqrt(gen_p * exact_p).sum(-1) ** 2  # Bhattacharyya per basis
+    return {
+        "mean_tv_to_target": float(tv_gen.mean()),
+        "max_tv_to_target": float(tv_gen.max()),
+        "tv_shot_noise_floor": float(floor),
+        "meas_tv_to_target": float(tv_meas.mean()),
+        "mean_marginal_error": float(marg_err.mean()),
+        "max_marginal_error": float(marg_err.max()),
+        "classical_fidelity": float(cf.mean()),
+    }
+
+
 def _run_shadow_experiment(
     cfg: ExperimentConfig, seed: int, data: GeneratedData, dev: torch.device,
     g_train: torch.Generator, g_sample: torch.Generator, timings: dict,
@@ -756,39 +794,17 @@ def _run_shadow_experiment(
     timings.update(part or {"sample": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    gen_counts = bits_to_counts(samples).cpu().numpy()
-    meas_counts = bits_to_counts(data.bits).cpu().numpy()
-    gen_p = gen_counts / np.maximum(gen_counts.sum(-1, keepdims=True), 1.0)
-    meas_p = meas_counts / np.maximum(meas_counts.sum(-1, keepdims=True), 1.0)
-    exact_p = np.asarray(data.clean_probs)  # [B, 2^N]
-    tv_gen = 0.5 * np.abs(gen_p - exact_p).sum(-1)
-    tv_meas = 0.5 * np.abs(meas_p - exact_p).sum(-1)
-    # Shot-noise floor: the TV an ideal sampler scores at this shot count.
-    rng = np.random.default_rng(0)
-    exact64 = exact_p.astype(np.float64)
-    exact64 /= exact64.sum(-1, keepdims=True)  # an exact simplex for pvals
-    floor = np.mean([
-        0.5 * np.abs(rng.multinomial(shots_gen, p) / shots_gen - p).sum()
-        for p in exact64
-        for _ in range(4)
-    ])
-    outcomes = np.arange(exact_p.shape[-1])
-    bit_table = ((outcomes[:, None] >> np.arange(n)) & 1).astype(np.float32)
-    marg_err = np.abs((gen_p - exact_p) @ bit_table)  # [B, N]
-    cf = np.sqrt(gen_p * exact_p).sum(-1) ** 2  # Bhattacharyya per basis
+    results = {
+        "fidelity": None,  # no density matrix at this scale
+        **shadow_metrics(bits_to_counts(samples).cpu().numpy(),
+                         bits_to_counts(data.bits).cpu().numpy(),
+                         np.asarray(data.clean_probs), shots_gen, n),
+    }
     zz_rows = np.nonzero((np.asarray(data.basis_labels) == 2).all(axis=1))[0]
     # None: the Z...Z basis was not sampled (a missing diagnostic is
     # reported as missing, not as its ideal value).
     zb = float(M.z_bias(samples[int(zz_rows[0])])) if len(zz_rows) else None
-    results = {
-        "fidelity": None,  # no density matrix at this scale
-        "mean_tv_to_target": float(tv_gen.mean()),
-        "max_tv_to_target": float(tv_gen.max()),
-        "tv_shot_noise_floor": float(floor),
-        "meas_tv_to_target": float(tv_meas.mean()),
-        "mean_marginal_error": float(marg_err.mean()),
-        "max_marginal_error": float(marg_err.max()),
-        "classical_fidelity": float(cf.mean()),
+    results.update({
         "z_bias": zb,
         "losses": losses.detach().cpu().numpy(),
         "target": np.asarray(data.target),
@@ -796,7 +812,7 @@ def _run_shadow_experiment(
         "samples": samples,
         "train_steps": train_steps,
         "timings": timings,
-    }
+    })
     if ft_info is not None:
         results["chain_info"] = ft_info
         results["ft_losses"] = ft_losses.cpu().numpy()
@@ -804,8 +820,8 @@ def _run_shadow_experiment(
     log_fn(
         f"[{cfg.name}] shadow-scale vs exact Born probs: "
         f"TV {results['mean_tv_to_target']:.4f} "
-        f"(shot-noise floor {floor:.4f}, measured-data TV "
-        f"{results['meas_tv_to_target']:.4f}), marginal err "
+        f"(shot-noise floor {results['tv_shot_noise_floor']:.4f}, "
+        f"measured-data TV {results['meas_tv_to_target']:.4f}), marginal err "
         f"{results['mean_marginal_error']:.4f}, classical fidelity "
         f"{results['classical_fidelity']:.4f} over {b_bases} bases"
     )

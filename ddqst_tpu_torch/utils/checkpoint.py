@@ -9,7 +9,9 @@ The port's counterpart of ``ddqst_tpu/utils/checkpoint.py``:
   directory, then a rename), the 3 newest kept, as the orbax manager's
   ``max_to_keep=3`` keeps them, and a step at or below the newest kept one
   not written again (orbax's ``should_save``);
-- ``save_params`` / ``restore_params`` — strict params snapshots;
+- ``save_params`` / ``restore_params`` — strict params snapshots
+  (``save_state_dict`` writes one from a state dict, as
+  ``tools/flax_to_torch.py`` does for the JAX package's snapshots);
 - ``save_chain_opt`` / ``restore_chain_opt`` — the distillation Adam state
   (``_save_chain_opt`` / ``_load_chain_opt`` in ``ddqst_tpu/pipeline.py``).
 """
@@ -76,9 +78,14 @@ def restore_checkpoint(ckpt_dir: str,
 
 def save_params(path: str, model: nn.Module) -> None:
     """Write ``model``'s state dict (tensors moved to the CPU) atomically."""
+    save_state_dict(path, model.state_dict())
+
+
+def save_state_dict(path: str, state_dict: dict) -> None:
+    """Write a state dict (tensors moved to the CPU) atomically, in the
+    form :func:`restore_params` reads."""
     tmp = f"{path}.tmp"
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               tmp)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
     os.replace(tmp, path)
 
 
