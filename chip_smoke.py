@@ -18,31 +18,39 @@ result line is printed; nothing falls back to the CPU):
    the documented integer rate the bounds use; disassemble the built
    libraries with ``cuobjdump -sass`` and count, by pipe, the instructions
    one chain and step issues in each kernel (the walk's staged body at N=3
-   and N=7, its ring body at N=10, its global body at N=12, and the
-   variants of ``walk_ablation.cu``, whose mode 2 is the global body at
-   N=10);
-   ablation — time the variants of the walk's global body at the shadow
-   shape (Philox and bits alone; loads without conversions; the body as it
-   stands, which must equal the plain version; 8-byte loads; 16-byte loads
-   from padded rows; loads and conversions without Philox), in turns,
-   beside the wrapper (the ring body);
+   and N=7, its ring body at N=10, its gather body at N=12, and the
+   variants of ``walk_ablation.cu``, whose mode 2 is the plain global body
+   the walk once took from N = 8 on);
+   ablation — time the variants of that plain global body at the shadow
+   shape at N = 10 and N = 12 (Philox and bits alone; loads without
+   conversions; the body as it stands, which must equal the plain version;
+   8-byte loads; 16-byte loads; loads and conversions without Philox; at
+   N = 12 also 16-byte loads alone and with an L2 prefetch of the next
+   step's slice), in turns, beside the wrapper (the ring body at N = 10,
+   the gather body at 12) and the bound, then at N = 12 the lockstep
+   variants (chains a thread, block size, a barrier a step, the prefetch,
+   shared memory reserved and the L1 carveout), each equal to the plain
+   version;
 2. kernel — hold the CUDA ``fused_chain_walk`` against its plain PyTorch
    version on the card, bit for bit, at the main-path shape (T=100, C=27,
    N=3, S=5,000), at a ragged S (1,237), at N=7 (2^N = 128), at N = 1, 5
    and 6 (with N=3 and N=7 the staged body's three ways of staging its
    tables) and at the notebook presets' shape (T=100, C=3, N=1, S=1,024),
    each at every block size; then from N = 8 on at the shadow route's shape
-   (T=100, C=100, N=10, S=5,000), at a ragged S there, at N = 8, 9, 11 and
-   12, and at the ring body's tails (T = 7, 3 and 1 at N = 8 and 10, T = 5
-   at N = 11): the plan's body (the ring body up to N = 11, the global body
-   at 12) at every block size and on tables that are not 16-byte aligned;
+   (T=100, C=100, N=10, S=5,000), at a ragged S there, at N = 8, 9 and 11,
+   at the ring body's tails (T = 7, 3 and 1 at N = 8 and 10, T = 5 at
+   N = 11), and at N = 12 to 16 with a ragged S, an odd T and T = 1 at
+   each N (S >= 2^N at N = 12 and 13): the plan's body (the ring body up to
+   N = 11, the gather body from 12) at every block size and on tables 4
+   bytes (from N = 12 also 8 bytes) off 16-byte alignment;
    check that the same seed repeats; check the walk's
    distribution against the exact propagation of its tables (TV within 4
    shot-noise scales) at N = 3, 7 and 10; time kernel and plain version
    with CUDA events at 135,000 and at 27 x 37,037 (about 10^6) chains, at
    N=7, at the shadow shape, at one call of the chunked sampler at N = 8
-   (3^8 rows x 319 chains, 5.4 GB of tables) and at the shadow shape with
-   N = 11 and 12, the kernel also at other block sizes;
+   (3^8 rows x 319 chains, 5.4 GB of tables), at the shadow shape with
+   N = 11 and 12 and at 5,000 chains a row with N = 13 to 16 (50, 25, 12
+   and 6 rows), the kernel also at other block sizes;
 3. main path — ``run_experiment(get_preset("rqc"), seed=0)`` at full width
    on the default (CUDA) device, with the kernel's launch count set to 0
    just before and read just after; print each stage's time and the
@@ -152,6 +160,21 @@ result line is printed; nothing falls back to the CPU):
    (printed with the margins); (e) table rows of bases 0, 150 and 299 at
    t = 100, 50, 1 within 1e-5 of a CPU recompute. Then the walk at this
    shape against its plain version, bit for bit, and timed.
+9c. shadow_n12 — the shadow route at N = 12: ``run_experiment`` on the
+   ``shadow_transformer`` preset with only ``data.num_qubits`` set to 12,
+   at full width and uncut (100 sampled bases of 1,024 shots, RQC depth 8,
+   readout noise, transformer 128 / 512 / 4 blocks / 4 heads, T=100,
+   cosine, renoise, 30 epochs, 5,000 generated shots a basis), with the
+   launch counts set to 0 just before and read just after: the tables over
+   the 409,600-row label grid (1.97 GB), then one walk of 500,000 chains on
+   the gather body and no step launch. Checks: every basis' samples
+   against the exact chain of the tables the walk read (TV within 4
+   shot-noise scales, every per-qubit marginal within
+   ``SHADOW_N12_MARGINAL_SCALES``, the mean TV less a multinomial draw's
+   within 4 standard errors of 0), table rows of three bases against a CPU
+   recompute (1e-5), the walk on the route's tables bit for bit against
+   its plain version, and timed. It prints the stage seconds, the peak
+   memory and the quality metrics beside phase shadow's at N = 10.
 
 10. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
    ``notebook_upgraded``, uncut (PlainMLP, 200 / 300 epochs, N=1, 1,024
@@ -331,9 +354,12 @@ def _bound_ms(nbytes: int, mul_slots: int, alu_ops: int) -> tuple[float, str]:
 
 
 def walk_bound_ms(t_steps: int, c: int, n: int, s: int) -> tuple[float, str]:
-    """Least time for the walk: tables, init and out, each moved once; one
-    Philox call per 4 bits and the bit work, per chain and step."""
-    nbytes = 4 * (t_steps * c * 2**n * n + 2 * c * s)
+    """Least time for the walk: the table rows its chains can reach, init
+    and out, each moved once; one Philox call per 4 bits and the bit work,
+    per chain and step. A step's S chains of a row read at most min(2^N, S)
+    of its 2^N table rows, so where S < 2^N (N >= 13 at S = 5,000) only S
+    rows a (step, row) count; where S >= 2^N the whole slice does."""
+    nbytes = 4 * (t_steps * c * min(2**n, s) * n + 2 * c * s)
     calls = c * s * t_steps * math.ceil(n / 4)
     bits = c * s * t_steps * n
     return _bound_ms(nbytes, calls * PHILOX_MUL_SLOTS,
@@ -569,24 +595,26 @@ def phase_rate(_build) -> dict:
         counts[key] = {k: v / steps for k, v in c.items()}
         counts[key]["steps_in_loop_body"] = steps
     # N = 10, the shadow route's: the ring body's step loop (a stage of two
-    # steps; one conversion a bit and step); N = 12: the global body's hot
-    # loop (unrolled by 2); then the ablation's variants of the global body
-    # at N = 10 (the same loop; mode 2 is the body itself)
+    # steps; one conversion a bit and step); N = 12: the gather body's step
+    # loop (one step); then the ablation's variants of the plain global body
+    # at N = 10 and 12 (its loop, unrolled by 2, without the L2 prefetch's
+    # loop nested in it; mode 2 is the plain global body itself)
     for key, tag, n in (("walk_n10_ring", "chain_walk_ring_kernelILi10E", 10),
-                        ("walk_n12_global", "chain_walk_global_kernelILi12E",
-                         12)):
-        fn = next(v for k, v in walk_sass.items() if tag in k)
-        body = step_loop(fn) if "ring" in key else hot_loop(fn)
+                        ("walk_n12_gather",
+                         "chain_walk_gather_kernelILi12ELi4E", 12)):
+        body = step_loop(next(v for k, v in walk_sass.items() if tag in k))
         c = count_by_pipe(body)
         steps = max(1, sum(1 for _, op, _ in body if op.startswith("F2I")) // n)
         counts[key] = {k: v / steps for k, v in c.items()}
         counts[key]["steps_in_loop_body"] = steps
     ablation_sass = disassemble(_build, "walk_ablation")
-    for mode, what in ABLATION_MODES:
-        body = hot_loop(next(v for k, v in ablation_sass.items()
-                             if f"walk_ablation_kernelILi{mode}E" in k))
-        counts[f"ablation_{mode}"] = {k: v / 2 for k, v in
-                                      count_by_pipe(body).items()}
+    for n, modes in ABLATION_MODES_BY_N.items():
+        for mode in modes:
+            body = step_loop(next(
+                v for k, v in ablation_sass.items()
+                if f"walk_ablation_kernelILi{n}ELi{mode}E" in k))
+            counts[f"ablation_n{n}_{mode}"] = {
+                k: v / 2 for k, v in count_by_pipe(body).items()}
     for key, c in counts.items():
         log("rate", f"SASS per chain and step, {key}: " + ", ".join(
             f"{k} {v:g}" for k, v in c.items()))
@@ -600,59 +628,138 @@ def phase_rate(_build) -> dict:
     return {"rates": rates, "sass": counts}
 
 
-# Variants of the global body at N = 10 in csrc/walk_ablation.cu: (mode,
-# what it keeps of the body).
+# Variants of the plain global body in csrc/walk_ablation.cu: (mode, what it
+# keeps of the body), the modes timed at each N, and the modes that give the
+# walk's bits.
 ABLATION_MODES = (
     (0, "Philox and bits only (no table read)"),
     (1, "4-byte loads, no conversion"),
-    (2, "the body as it stands (4-byte loads, conversions)"),
+    (2, "the plain global body (4-byte loads, conversions)"),
     (3, "8-byte loads, conversions"),
-    (4, "16-byte loads from rows padded to 12 words, conversions"),
+    (4, "16-byte loads (rows padded to a multiple of 4 words), conversions"),
     (5, "4-byte loads and conversions, no Philox"),
+    (6, "16-byte loads and conversions, no Philox"),
+    (7, "16-byte loads, L2 prefetch of the next step's slice"),
+    (8, "16-byte loads, L2 prefetch two steps ahead"),
+    (9, "16-byte loads through L2 only, L2 prefetch of the next step"),
 )
+ABLATION_MODES_BY_N = {10: (0, 1, 2, 3, 4, 5), 12: tuple(range(10))}
+ABLATION_EXACT_MODES = (2, 3, 4, 7, 8, 9)
+# The lockstep variants at N = 12 (ddqst_walk_lockstep): (chains a thread,
+# block size, a block barrier a step, prefetch: 0 none, 1 the block's share
+# of the next slice, 2 the whole next slice, unused shared memory a block in
+# bytes, the preferred carveout in percent: -1 left to CUDA, 0 the most L1).
+# The gather body launches as (1, 1024, 0, 0, 9216, 0) at the shadow shape.
+LOCKSTEP_VARIANTS = ((1, 1024, 0, 0, 0, -1), (1, 1024, 0, 0, 9216, 0),
+                     (1, 1024, 0, 0, 116736, -1), (1, 1024, 0, 0, 0, 0),
+                     (1, 512, 0, 0, 0, -1), (1, 512, 0, 0, 9216, 0),
+                     (1, 512, 0, 0, 77824, -1), (1, 256, 0, 0, 9216, 0),
+                     (1, 1024, 1, 0, 9216, 0), (1, 1024, 0, 1, 9216, 0),
+                     (1, 1024, 1, 1, 9216, 0), (1, 1024, 1, 2, 9216, 0),
+                     (2, 512, 1, 0, 0, -1), (4, 256, 0, 0, 0, -1))
 
 
 def phase_ablation(_build, ck) -> dict:
-    """What each part of the global body costs at the shadow shape (T=100,
-    C=100, N=10, S=5,000; blocks of 512 threads, as its plan chose when it
-    walked N = 10): the variants of csrc/walk_ablation.cu in turns, beside
-    the wrapper (the ring body). No profiler runs on the card's machine."""
+    """What each part of the plain global body costs at the shadow shape
+    (T=100, C=100, S=5,000) at N = 10 and N = 12 (blocks of 512 threads, as
+    its plan chose there): the variants of csrc/walk_ablation.cu in turns,
+    beside the wrapper (the ring body at N = 10, the gather body at 12) and
+    the bound; then at N = 12 the lockstep variants (``LOCKSTEP_VARIANTS``),
+    each held to the plain version's bits. No profiler runs on the card's
+    machine."""
     import ctypes
 
     fn = _build.load("walk_ablation").ddqst_walk_ablation
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p]
-    t_steps, c, n, s = 100, 100, 10, 5000
-    tables, init = random_walk_inputs(t_steps, c, n, s, seed=20)
-    padded = torch.nn.functional.pad(tables, (0, 2)).contiguous()  # 12 words
-    out = torch.empty_like(init)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
+                   ctypes.c_void_p]
+    t_steps, c, s = 100, 100, 5000
     stream = torch.cuda.current_stream().cuda_stream
-    want = ck.fused_chain_walk_reference(5, tables, init, n)
+    what = dict(ABLATION_MODES)
+    rec: dict = {}
+    for n, modes in ABLATION_MODES_BY_N.items():
+        tables, init = random_walk_inputs(t_steps, c, n, s, seed=20)
+        wide = -(-n // 4) * 4  # rows of the 16-byte-load modes
+        padded = (torch.nn.functional.pad(tables, (0, wide - n)).contiguous()
+                  if wide > n else tables)
+        out = torch.empty_like(init)
+        want = ck.fused_chain_walk_reference(5, tables, init, n)
+        ms: dict = {}
+        for rep in range(2):
+            for mode in modes:
+                src = padded if mode == 4 or mode >= 6 else tables
+
+                def launch():
+                    err = fn(n, mode, src.data_ptr(), init.data_ptr(),
+                             out.data_ptr(), t_steps, c, s, 512, 5, stream)
+                    check(err == 0, f"walk_ablation N={n} mode {mode} "
+                          f"launched ({err})")
+                ms.setdefault(mode, []).append(cuda_ms(launch, 20))
+                if mode in ABLATION_EXACT_MODES and rep == 0:
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, want), f"ablation N={n} mode "
+                          f"{mode} gives the plain version's bits")
+            ms.setdefault("wrapper", []).append(cuda_ms(
+                lambda: ck.fused_chain_walk(5, tables, init, n), 20))
+        body = ck.fused_chain_walk.last_plan[3]
+        bound, by = walk_bound_ms(t_steps, c, n, s)
+        for mode in modes:
+            log("ablation", f"N={n} mode {mode}, {what[mode]}: "
+                f"{ms[mode][0]:.4f} / {ms[mode][1]:.4f} ms "
+                f"({min(ms[mode]) / bound:.2f} x bound)")
+        log("ablation", f"N={n} wrapper (the {body} body): "
+            f"{ms['wrapper'][0]:.4f} / {ms['wrapper'][1]:.4f} ms "
+            f"({min(ms['wrapper']) / bound:.2f} x bound); bound "
+            f"{bound:.5f} ms ({by})")
+        rec[f"n{n}"] = dict({str(k): v for k, v in ms.items()},
+                            bound_ms=bound, bound_by=by, wrapper_body=body)
+        if n == 12:
+            rec["lockstep_n12"] = lockstep_variants(
+                _build, tables, init, want, bound)
+        del tables, init, padded, out, want
+    return rec
+
+
+def lockstep_variants(_build, tables, init, want, bound) -> dict:
+    """``LOCKSTEP_VARIANTS`` at N = 12 on these inputs: ms of each, in
+    turns, each first held to the plain version's bits ``want``, and the
+    blocks an SM held."""
+    import ctypes
+
+    fn = _build.load("walk_ablation").ddqst_walk_lockstep
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_void_p,
+                             ctypes.c_void_p]
+    t_steps, c, _, _ = tables.shape
+    s = init.shape[1]
+    out = torch.empty_like(init)
+    resident = ctypes.c_int(0)
+    stream = torch.cuda.current_stream().cuda_stream
     ms: dict = {}
+    held: dict = {}
     for rep in range(2):
-        for mode, _ in ABLATION_MODES:
-            src = padded if mode == 4 else tables
+        for k, threads, barrier, prefetch, smem, carve in LOCKSTEP_VARIANTS:
+            key = (f"k{k}_t{threads}_b{barrier}_p{prefetch}_smem{smem}"
+                   f"_carve{carve}")
 
             def launch():
-                err = fn(mode, src.data_ptr(), init.data_ptr(), out.data_ptr(),
-                         t_steps, c, s, 512, 5, stream)
-                check(err == 0, f"walk_ablation mode {mode} launched ({err})")
-            ms.setdefault(mode, []).append(cuda_ms(launch, 20))
-            if mode == 2 and rep == 0:
+                err = fn(k, barrier, prefetch, smem, carve, tables.data_ptr(),
+                         init.data_ptr(), out.data_ptr(), t_steps, c, s,
+                         threads, 5, ctypes.addressof(resident), stream)
+                check(err == 0, f"walk_lockstep {key} launched ({err})")
+            ms.setdefault(key, []).append(cuda_ms(launch, 10))
+            held[key] = resident.value
+            if rep == 0:
                 torch.cuda.synchronize()
-                check(torch.equal(out, want), "ablation mode 2 is the global "
-                      "body: its bits equal the plain version's")
-        ms.setdefault("ring", []).append(cuda_ms(
-            lambda: ck.fused_chain_walk(5, tables, init, n), 20))
-    bound, _ = walk_bound_ms(t_steps, c, n, s)
-    for mode, what in ABLATION_MODES:
-        log("ablation", f"mode {mode}, {what}: {ms[mode][0]:.4f} / "
-            f"{ms[mode][1]:.4f} ms ({min(ms[mode]) / bound:.2f} x bound)")
-    log("ablation", f"wrapper (the ring body): {ms['ring'][0]:.4f} / "
-        f"{ms['ring'][1]:.4f} ms ({min(ms['ring']) / bound:.2f} x bound)")
-    return {str(k): v for k, v in ms.items()}
+                check(torch.equal(out, want), f"lockstep {key} gives the "
+                      "plain version's bits")
+    for key, v in ms.items():
+        log("ablation", f"N=12 lockstep {key}: {v[0]:.4f} / {v[1]:.4f} ms "
+            f"({min(v) / bound:.2f} x bound), {held[key]} blocks an SM")
+    return dict(ms=ms, blocks_per_sm=held)
 
 
 def exact_walk(tables: torch.Tensor, init_dist: torch.Tensor) -> torch.Tensor:
@@ -718,11 +825,12 @@ def random_walk_inputs(t_steps, c, n, s, seed):
     return (torch.from_numpy(tables).cuda(), torch.from_numpy(init).cuda())
 
 
-def _offset_by_one_word(t: torch.Tensor) -> torch.Tensor:
-    """The same values at an address 4 bytes off 16-byte alignment."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    buf[1:] = t.reshape(-1)
-    return buf[1:].view(t.shape)
+def _offset_by_one_word(t: torch.Tensor, words: int = 1) -> torch.Tensor:
+    """The same values at an address 4 bytes (4 x ``words``) off 16-byte
+    alignment."""
+    buf = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)
+    buf[words:] = t.reshape(-1)
+    return buf[words:].view(t.shape)
 
 
 def phase_kernel(ck) -> dict:
@@ -734,7 +842,8 @@ def phase_kernel(ck) -> dict:
     # body: the shadow route's shape (N = 10, 100 sampled bases), a ragged S
     # there, N = 8, 9 and 11, and its tails: an odd T (a short last stage
     # load) and T below its stages x steps a stage (8 at N = 8, 4 at N = 10,
-    # 2 at N = 11); then N = 12 (the global body).
+    # 2 at N = 11); then the gather body from N = 12 to 16: ragged S, odd T
+    # and T = 1 at each N, S >= 2^N at N = 12 and 13.
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
               (100, 27, 6, 1237), (100, 3, 1, 1024),
@@ -742,7 +851,11 @@ def phase_kernel(ck) -> dict:
               (50, 30, 9, 2049), (50, 20, 11, 1237),
               (7, 30, 8, 1237), (3, 30, 8, 1237), (1, 30, 8, 319),
               (7, 30, 10, 1237), (3, 30, 10, 5000), (1, 30, 10, 1237),
-              (5, 20, 11, 1237), (20, 8, 12, 999)]
+              (5, 20, 11, 1237), (20, 8, 12, 999), (7, 6, 12, 4097),
+              (1, 3, 12, 5000), (9, 5, 13, 1237), (3, 2, 13, 8193),
+              (1, 4, 13, 999), (8, 3, 14, 1237), (1, 3, 14, 777),
+              (7, 2, 15, 1001), (1, 2, 15, 513), (6, 2, 16, 1237),
+              (3, 1, 16, 999), (1, 2, 16, 4097)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -761,20 +874,21 @@ def phase_kernel(ck) -> dict:
         check(not torch.equal(ck.fused_chain_walk(seed + 1, tables, init, n),
                               out_k), f"another seed differs at {where}")
         check(plan[3] == ("staged" if n <= 7 else "ring" if n <= 11
-                          else "global"), f"the plan's body at {where}: {plan}")
+                          else "gather"), f"the plan's body at {where}: {plan}")
         plans = []
         for threads in (64, 128, 256, 512):
             out = ck.fused_chain_walk(seed, tables, init, n, threads=threads)
             plans.append(ck.fused_chain_walk.last_plan)
             check(torch.equal(out, out_r),
                   f"{threads} threads give the same bits at {where}")
-        if n > 7:
-            shifted = _offset_by_one_word(tables)
+        for words in (1, 2) if n > 11 else (1,) if n > 7 else ():
+            shifted = _offset_by_one_word(tables, words)
             check(torch.equal(ck.fused_chain_walk(seed, shifted, init, n),
-                              out_r),
-                  f"tables 4 bytes off alignment give the same bits at {where}")
+                              out_r), f"tables {4 * words} bytes off "
+                  f"alignment give the same bits at {where}")
             del shifted
-        off = " and off alignment" if n > 7 else ""
+        off = (" and 4 and 8 bytes off alignment" if n > 11
+               else " and off alignment" if n > 7 else "")
         log("kernel", f"{where}: kernel == plain (bit for bit) at the chosen "
             f"plan and at every block size{off}, repeatable; chose "
             f"{plan[0]} threads, {plan[1]} steps a buffer, "
@@ -800,9 +914,11 @@ def phase_kernel(ck) -> dict:
     # the paths: rqc, 10^6 chains, the bench recipes, N = 7, the shadow
     # route (100 sampled bases at N = 10), one walk call of
     # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
-    # a row, 5.4 GB of tables), the shadow shape at N = 11 and, for the
-    # global body, at N = 12 (no path runs N >= 11). The parent's
-    # body at these shapes is timed by --time-kernels on its checkout.
+    # a row, 5.4 GB of tables), the shadow shape at N = 11 (no path runs
+    # it) and, for the gather body, at N = 12 (phase shadow_n12's shape), 13
+    # (50 rows), 14 (25), 15 (12) and 16 (6), each at most 2.6 GB of tables.
+    # The parent's body at these shapes is timed by --time-kernels on its
+    # checkout.
     for label, c, n, s, it_k, it_r in (("main", 27, 3, 5000, 50, 3),
                                        ("1e6", 27, 3, 37037, 20, 2),
                                        ("bench", 27, 3, 50000, 20, 2),
@@ -810,13 +926,17 @@ def phase_kernel(ck) -> dict:
                                        ("shadow", 100, 10, 5000, 20, 1),
                                        ("n8_grid", 3**8, 8, 319, 5, 1),
                                        ("n11", 100, 11, 5000, 10, 1),
-                                       ("n12", 100, 12, 5000, 5, 1)):
+                                       ("n12", 100, 12, 5000, 5, 1),
+                                       ("n13", 50, 13, 5000, 5, 1),
+                                       ("n14", 25, 14, 5000, 5, 1),
+                                       ("n15", 12, 15, 5000, 5, 1),
+                                       ("n16", 6, 16, 5000, 5, 1)):
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
         plan = ck.fused_chain_walk.last_plan
         sweep = {t: cuda_ms(lambda: ck.fused_chain_walk(
             5, tables, init, n, threads=t), it_k)
-            for t in ((64, 128, 256, 512) if n <= 7 else (256, 512))}
+            for t in ((256, 512) if 7 < n < 12 else (64, 128, 256, 512))}
         ms_r = cuda_ms(lambda: ck.fused_chain_walk_reference(
             5, tables, init, n), it_r)
         bound, by = walk_bound_ms(100, c, n, s)
@@ -1716,6 +1836,222 @@ def phase_shadow(ck) -> dict:
                     tv.max()), table_err=tab_err, distill_ms_per_step=ms_step,
                 distill_ce=(info["train_ce_before"], info["train_ce_after"]),
                 distill_timings=tm2)
+
+
+# Phase shadow_n12: the shadow_transformer preset with only its qubit count
+# raised, and what it checks.
+SHADOW_N12_QUBITS = 12
+SHADOW_N12_TABLE_BASES = (0, 50, 99)
+# 1,200 marginals (100 bases x 12 qubits) a run: at 4 scales a right sampler
+# would fail about one run in 13, at 5 one in 1,700.
+SHADOW_N12_MARGINAL_SCALES = 5
+
+
+def exact_walk_by_products(tables: torch.Tensor,
+                           init_dist: torch.Tensor) -> torch.Tensor:
+    """:func:`exact_walk` as one float64 matrix product a (step, row): the
+    transition's log is ``sum_q log(1 - p_q(x)) + y_q log(p_q(x) / (1 -
+    p_q(x)))``, a ``[2^N, N] x [N, 2^N]`` product, so a step costs a few
+    passes over ``[2^N, 2^N]`` where :func:`exact_walk` makes several for
+    each of the N qubits. A probability of exactly 0 or 1 becomes 1e-300
+    in the logarithms, which moves no mass a float64 sum keeps."""
+    t_steps, c, g, n = tables.shape
+    y = ((torch.arange(g, device=tables.device)[:, None]
+          >> torch.arange(n, device=tables.device)) & 1).double()
+    rows = max(1, (1 << 26) // (g * g))
+    dist = init_dist.double().clone()
+    for t in range(t_steps):
+        for lo in range(0, c, rows):
+            p1 = tables[t, lo:lo + rows].double()  # [rows, x, N]
+            log1 = p1.clamp_min(1e-300).log_()
+            log0 = (1 - p1).clamp_min_(1e-300).log_()
+            trans = torch.matmul(log1 - log0, y.T)  # [rows, x, y]
+            trans.add_(log0.sum(-1, keepdim=True)).exp_()
+            dist[lo:lo + rows] = torch.einsum("cx,cxy->cy", dist[lo:lo + rows],
+                                              trans)
+    return dist
+
+
+def phase_shadow_n12(ck, shadow: dict) -> dict:
+    """The shadow route at N = 12 on the card: ``run_experiment`` on the
+    ``shadow_transformer`` preset with only ``data.num_qubits`` set to 12,
+    everything else the preset's, at full width and uncut (100 sampled
+    bases of 1,024 shots, RQC depth 8, readout noise, transformer 128 / 512
+    / 4 blocks / 4 heads, T=100, cosine, renoise, 30 epochs, 5,000
+    generated shots a basis), with the launch counts set to 0 just before
+    and read just after. Since 5,000 shots >= 2^12 the route builds the
+    tables over the 409,600-row label grid (1.97 GB) and walks them in one
+    launch of the gather body. Checks: (a) one walk launch on the gather
+    body and no step launch; (b) every basis' samples
+    against the exact chain of the tables the walk read: TV within 4
+    shot-noise scales (at 2^12 outcomes and 5,000 shots that bound exceeds
+    1 and says nothing), every per-qubit marginal within
+    ``SHADOW_N12_MARGINAL_SCALES`` noise scales,
+    and the mean over the bases of the TV less that of a multinomial draw
+    of the same size from the exact chain within 4 standard errors of 0;
+    (c) table rows of a few bases at t = 100, 50, 1 within 1e-5 of a CPU
+    recompute; (d) the walk on the route's tables bit for bit against its
+    plain version, and timed. It prints the stage seconds, the peak memory
+    and the quality metrics beside phase shadow's at N = 10."""
+    import dataclasses
+
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.pipeline import load_data_cache, run_experiment
+
+    phase = "shadow_n12"
+    base = get_preset("shadow_transformer")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, num_qubits=SHADOW_N12_QUBITS))
+    n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
+                         cfg.data.shots_infer)
+    g = 2**n
+    kept = []
+    assembled = diff._assembled_tables
+
+    def keep(*args, **kwargs):
+        kept.append(assembled(*args, **kwargs))
+        return kept[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "data.npz")
+        diff._assembled_tables = keep
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+            t0 = time.perf_counter()
+            res = run_experiment(cfg, seed=0, data_cache=cache,
+                                 log_fn=lambda m: log(phase, m))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walks = ck.fused_chain_walk.launches
+            steps = ck.fused_chain_step.launches
+            plan = ck.fused_chain_walk.last_plan
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            diff._assembled_tables = assembled
+        labels = load_data_cache(cache).basis_labels
+    tm = res["timings"]
+    log(phase, f"wall {wall:.2f} s; stages (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tm.items()))
+    log(phase, f"train: {res['train_steps']} steps, "
+        f"{res['train_steps'] / tm['train']:.1f} steps/s; peak memory "
+        f"{peak_gb:.3f} GB")
+    log(phase, f"fused_chain_walk.launches = {walks} (plan {plan}), "
+        f"fused_chain_step.launches = {steps}")
+    # (a)
+    check(walks == 1 and steps == 0 and len(kept) == 1,
+          f"{phase}: one walk launch ({walks}), no step launch ({steps}), "
+          f"one table build ({len(kept)})")
+    check(plan[3] == "gather", f"{phase}: the walk took the gather body "
+          f"({plan})")
+    tables, samples = kept[0], res["samples"]
+    c = samples.shape[0]
+    check(tuple(tables.shape) == (t_steps, 100, g, n)
+          and tuple(samples.shape) == (100, shots, n) and samples.is_cuda,
+          f"{phase}: tables {tuple(tables.shape)} and samples "
+          f"{tuple(samples.shape)} cover the 100 bases on the card")
+    quality = ("mean_tv_to_target", "tv_shot_noise_floor",
+               "meas_tv_to_target", "mean_marginal_error",
+               "classical_fidelity", "max_tv_to_target", "max_marginal_error")
+    for k in quality:
+        check(math.isfinite(res[k]), f"{phase}: {k} finite")
+    log(phase, "quality at N=12: " + ", ".join(
+        f"{k} {res[k]:.5f}" for k in quality) + f", z_bias {res['z_bias']}")
+    log(phase, "quality at N=10 (phase shadow): " + ", ".join(
+        f"{k} {shadow[k]:.5f}" for k in quality if k in shadow))
+
+    # (b) The samples against the exact chain of the tables the walk read;
+    # the matrix-product propagation first held against exact_walk's on two
+    # bases.
+    uniform = torch.full((c, g), 1.0 / g, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = exact_walk_by_products(tables, uniform)
+    torch.cuda.synchronize()
+    t_exact = time.perf_counter() - t0
+    check_err = float((exact_walk(tables[:, :2], uniform[:2])
+                       - dist[:2]).abs().max())
+    log(phase, f"exact chain by products in {t_exact:.2f} s; against "
+        f"exact_walk on bases 0-1: max abs diff {check_err:.2e}")
+    check(check_err < 1e-9, f"{phase}: the two exact propagations agree")
+    idx = (samples.long() * (1 << torch.arange(n, device="cuda"))).sum(-1)
+    tv = tv_rows(idx, dist)
+    bound = 4 * math.sqrt(g / (2 * math.pi * shots))
+    check(bool((tv < bound).all()), f"{phase}: samples TV {float(tv.max())} "
+          f"< {bound} for every basis")
+    bits = ((torch.arange(g, device="cuda")[:, None]
+             >> torch.arange(n, device="cuda")) & 1).double()
+    want = dist @ bits  # [C, N] exact per-qubit marginals
+    got = samples.double().mean(1)
+    scale = ((want * (1 - want)).clamp_min(1.0 / shots) / shots).sqrt()
+    z = ((got - want).abs() / scale).max()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    draws = torch.multinomial(dist.float(), shots, replacement=True,
+                              generator=gen)
+    excess = tv - tv_rows(draws, dist)
+    mean_ex = float(excess.mean())
+    se_ex = float(excess.std()) / math.sqrt(c)
+    log(phase, f"samples vs the exact chain: TV mean {float(tv.mean()):.5f}, "
+        f"max {float(tv.max()):.5f} (bound {bound:.5f}); marginals within "
+        f"{float(z):.3f} noise scales (bound {SHADOW_N12_MARGINAL_SCALES}); "
+        f"TV less a multinomial "
+        f"draw's: mean {mean_ex:.5f}, standard error {se_ex:.5f}")
+    check(float(z) < SHADOW_N12_MARGINAL_SCALES, f"{phase}: every per-qubit "
+          f"marginal within {SHADOW_N12_MARGINAL_SCALES} noise scales of the "
+          "exact chain's")
+    check(abs(mean_ex) < 4 * se_ex, f"{phase}: the samples' TV exceeds a "
+          f"multinomial draw's by {mean_ex:.5f}, within 4 x {se_ex:.5f}")
+
+    # (c) A few table rows against a CPU recompute.
+    model = res["state"]
+    sched = make_schedule(cfg.diffusion.schedule, t_steps, "cuda")
+    lab = torch.from_numpy(np.asarray(labels, np.int64))
+    cpu_model = build_model(cfg.model, n, t_steps)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    rows = list(SHADOW_N12_TABLE_BASES)
+    ts = torch.tensor([t_steps, t_steps // 2, 1])
+    cpu_grid = (diff._unpack(torch.arange(g), n).repeat(len(rows), 1),
+                lab[rows].repeat_interleave(g, dim=0))
+    with torch.no_grad():
+        cpu_tab = diff._tables_for_ts(cpu_model.eval(), ts, n,
+                                      sched.to("cpu"), cfg.diffusion.exact,
+                                      grid=cpu_grid)
+    card = tables[(t_steps - ts).tolist()][:, rows].reshape(len(ts), -1, n)
+    tab_err = float((card.cpu() - cpu_tab).abs().max())
+    log(phase, f"tables card vs CPU, bases {rows} at t = {ts.tolist()}: max "
+        f"abs err {tab_err:.2e}")
+    check(tab_err < 1e-5, f"{phase}: tables on the card match the CPU's")
+
+    # (d) The walk on the route's tables against its plain version.
+    init = torch.randint(0, g, (c, shots), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    plain = []
+    plain_ms = cuda_ms(lambda: plain.append(ck.fused_chain_walk_reference(
+        5, tables, init, n)), 1)
+    out = ck.fused_chain_walk(5, tables, init, n)
+    kernel_plan = ck.fused_chain_walk.last_plan
+    err = float((out - plain[-1]).abs().max())
+    check(torch.equal(out, plain[-1]), f"{phase}: kernel == plain bit for "
+          f"bit on the route's tables")
+    ms = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), 10)
+    wb, by = walk_bound_ms(t_steps, c, n, shots)
+    log(phase, f"walk on the route's tables (T={t_steps}, C={c}, N={n}, "
+        f"S={shots}): kernel {ms:.4f} ms (plan {kernel_plan}), plain "
+        f"{plain_ms:.3f} ms, bound {wb:.4f} ms ({by}), {ms / wb:.2f} x "
+        "bound; == plain bit for bit")
+    return dict(walk_launches=walks, step_launches=steps, walk_plan=list(plan),
+                wall_s=wall, timings=tm, train_steps=res["train_steps"],
+                peak_gb=peak_gb, **{k: res[k] for k in quality},
+                max_tv_exact_chain=float(tv.max()), marginal_z=float(z),
+                tv_excess=mean_ex, tv_excess_se=se_ex, exact_s=t_exact,
+                table_err=tab_err,
+                kernel=dict(ms=ms, plain_ms=plain_ms, bound_ms=wb, bound_by=by,
+                            max_abs_err=err, plan=list(kernel_plan)))
 
 
 # The reference's own N=10 shadow recipe, model and data.
@@ -3639,6 +3975,12 @@ def time_kernels(ck) -> dict:
         shapes += [("walk_shadow", 100, 10, 5000, 20),
                    ("walk_n8_grid", 3**8, 8, 319, 5),
                    ("walk_n11", 100, 11, 5000, 10)]
+    if getattr(ck, "_MAX_WALK_N", 7) >= 12:  # and N = 12 to 16
+        shapes += [("walk_n12", 100, 12, 5000, 5),
+                   ("walk_n13", 50, 13, 5000, 5),
+                   ("walk_n14", 25, 14, 5000, 5),
+                   ("walk_n15", 12, 15, 5000, 5),
+                   ("walk_n16", 6, 16, 5000, 5)]
     for label, c, n, s, iters in shapes:
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         out[label] = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n),
@@ -3762,6 +4104,7 @@ def main() -> int:
     chunked_launches = timed("chunked", phase_chunked, ck, res["state"])
     shadow = timed("shadow", phase_shadow, ck)
     reference = timed("reference_shadow", phase_reference_shadow, ck)
+    shadow_n12 = timed("shadow_n12", phase_shadow_n12, ck, shadow)
     notebook = timed("notebook", phase_notebook, ck)
     denoise = timed("denoise", phase_denoise, ck, res)
     bf16 = timed("bf16", phase_bf16, ck, res)
@@ -3780,7 +4123,8 @@ def main() -> int:
         "replaces": "ddqst_tpu/ops/pallas_kernels.py:158",
         "launches": launches,
         "max_abs_err": max(kernel["max_abs_err"],
-                           reference["kernel"]["max_abs_err"]),
+                           reference["kernel"]["max_abs_err"],
+                           shadow_n12["kernel"]["max_abs_err"]),
         "ms": main_rec["ms"],
         "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"],
@@ -3807,6 +4151,9 @@ def main() -> int:
         **{f"{k}_reference_shadow": reference["kernel"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
                      "plan")},
+        "launches_shadow_n12": shadow_n12["walk_launches"],
+        **{f"{k}_shadow_n12": shadow_n12["kernel"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "plan")},
         "launches_chunked_sampler": chunked_launches,
         "launches_notebook_presets": {k: v["walk_launches"]
                                       for k, v in notebook.items()},
@@ -3816,13 +4163,15 @@ def main() -> int:
             "dp2_rqc": mesh["dp2_rqc"]["walk_launches"],
             "tp2_shadow": mesh["tp2_shadow"]["walk_launches"]},
         **{f"{k}_{label}": kernel[label][k]
-           for label in ("shadow", "n8_grid", "n11", "n12")
+           for label in ("shadow", "n8_grid", "n11", "n12", "n13", "n14",
+                         "n15", "n16")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
                      "ms_by_threads", "plan")},
         "sass_instructions_n10_ring": rate["sass"]["walk_n10_ring"],
-        "sass_instructions_n10_global": rate["sass"]["ablation_2"],
-        "sass_instructions_n12_global": rate["sass"]["walk_n12_global"],
-        "ablation_ms_shadow": ablation,
+        "sass_instructions_n10_global": rate["sass"]["ablation_n10_2"],
+        "sass_instructions_n12_global": rate["sass"]["ablation_n12_2"],
+        "sass_instructions_n12_gather": rate["sass"]["walk_n12_gather"],
+        "ablation_ms": ablation,
         "launches_scaling": {
             tag: scaling["rungs"][tag]["walk_launches"]
             for tag in SCALING_WALK_SHAPES if tag in scaling["rungs"]},
@@ -3857,7 +4206,8 @@ def main() -> int:
                            if r["kernel"] == "fused_chain_step"},
     }], "lane_instructions_per_s": rate["rates"],
         "bench_recipes": distill, "shadow": shadow,
-        "reference_shadow": reference, "notebook": notebook,
+        "reference_shadow": reference, "shadow_n12": shadow_n12,
+        "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
         "mesh": mesh, "scaling": scaling, "phase_seconds": phase_s}),
         flush=True)

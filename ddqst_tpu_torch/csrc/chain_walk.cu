@@ -26,7 +26,10 @@
 // moves 413.6 MB of tables, 0.124 ms, and its 1.5e8 Philox calls need
 // 0.305 ms of multiplier slots: bound by operations again. One call of the
 // chunked sampler at N = 8 (3^8 rows of 319 chains) moves 5.4 GB of tables,
-// 1.61 ms: bound by bytes. The measured times stand in PERF.md.
+// 1.61 ms: bound by bytes; so does the shadow route at N = 12 (1.97 GB,
+// 0.588 ms). From N = 13 at 5,000 chains a row the chains can reach at most
+// S of a step's 2^N table rows, and only those count. The measured times
+// stand in PERF.md.
 //
 // Three bodies walk the chains; each gives the same bits.
 //
@@ -61,18 +64,13 @@
 //   chains. The counter is the chain's index, so the output cannot depend
 //   on the choice.
 //
-// The global body, N = 12 to 16, reads each chain's N probabilities of a
-// step straight from global memory (__ldg) and converts them with the same
-// philox_threshold: a slice of 192 KB or more cannot be double-buffered in a
-// block's 227 KB. Before the ring body it walked N = 8 to 11 too, and there
-// its loads held it back. At the shadow shape (chip_smoke.py phase
-// `ablation`, which times the variants of csrc/walk_ablation.cu; its mode 2
-// is this body) it takes 0.79 ms; its loads and conversions alone take
-// 0.75, its Philox and bits alone 0.44, and leaving out the conversions
-// saves 0.04. Every lane of a warp reads another row of a 40 KB slice, so
-// each of a step's ten 4-byte loads touches about 30 lines of 128 bytes:
-// some 300 line requests a warp-step through L1. Wider loads help a little:
-// 8-byte loads take 0.67 ms.
+// A plain global-memory body (one thread a chain, N 4-byte loads of its
+// row a step; csrc/walk_ablation.cu mode 2) takes 0.79 ms at the shadow
+// shape (N = 10), its loads and conversions alone 0.75, its Philox and bits
+// alone 0.44 (chip_smoke.py phase `ablation`): every lane of a warp reads
+// another row of a 40 KB slice, so each of a step's ten 4-byte loads
+// touches about 30 lines of 128 bytes, some 300 line requests a warp-step
+// through L1.
 //
 // The ring body, N = 8 to 11, takes those line requests off L1:
 // - A CTA walks up to 1,024 of one row's chains, one a thread, every warp
@@ -106,6 +104,39 @@
 //   N = 11 against 1.29. What is left at the shadow shape is the waits and
 //   counts (the warps of a CTA stay within a stage of each other) and 2 GB
 //   of slices out of L2, each copied once by each of a row's 5 CTAs.
+//
+// The gather body, N = 12 to 16: a slice of 192 KB or more cannot be
+// double-buffered in a block's 227 KB, so a chain gathers its row from
+// global memory, and the design keeps the slice close by other means.
+// - At N = 12 (T=100, C=100, S=5,000: 1.97 GB of tables, a byte bound of
+//   0.588 ms) the plain body takes 1.53 ms. Its loads alone take 1.11 and
+//   its Philox alone 0.47; 16-byte loads alone take 1.15, the same as
+//   4-byte ones: unlike at N = 10 the line requests do not set the pace,
+//   the slices' trips from DRAM and L2 do (chip_smoke.py phase `ablation`).
+// - So an SM walks one block at a time, all of one row's chains: 5 blocks
+//   of 1,024 a row at that shape. Where the registers would let an SM hold
+//   more blocks, the launch reserves a little shared memory and prefers the
+//   most L1, which leaves room for no second block and keeps about 240 KB
+//   of L1 for the row's slice. The same loads in blocks of 512, three an
+//   SM, took 1.48 ms; one block of 1,024 an SM 0.90; one an SM with 114 KB
+//   of shared memory reserved (so a smaller L1) 1.03.
+// - A row's N probabilities come in 16-byte loads where every row starts
+//   16-byte aligned (N = 12 and 16, an aligned table), 8-byte loads at N =
+//   14, and otherwise as the 16-byte chunks that hold the row, each word
+//   selected by the row's offset in its first chunk (odd N, or a table
+//   that is not 16-byte aligned).
+// - Tried and left out (csrc/walk_ablation.cu): asking the TMA unit to
+//   bring the next step's slice into L2 (cp.async.bulk.prefetch.L2) took
+//   longer in every form, by 0.1 to 1.0 ms at N = 12; so did loads through
+//   L2 only, and a block barrier a step gained nothing.
+// - Where a row's chains are fewer than its table rows (S < 2^N, N >= 13 at
+//   S = 5,000) blocks of up to 512 took less time than 1,024s (N = 14: 0.50
+//   ms against 0.58).
+// - Measured on an H100 (chip_smoke.py --time-kernels, 5,000 chains a
+//   row): 0.89-0.93 ms at N = 12 (1.5 x its bound) against the plain body's
+//   1.52-1.53; 0.715 against 0.926 at N = 13, 0.498 against 0.506 at N =
+//   14, 0.266 against 0.274 at N = 15 and 0.114 against 0.155 at N = 16
+//   (PERF.md).
 
 #include <algorithm>
 #include <cstdint>
@@ -117,7 +148,7 @@ namespace {
 
 constexpr int kMaxStagedN = 7;  // N up to here: the staged body
 constexpr int kMaxRingN = 11;   // N from 8 up to here: the ring body
-constexpr int kMaxN = 16;       // N from 12 up to here: the global body
+constexpr int kMaxN = 16;       // N from 12 up to here: the gather body
 constexpr int kFullBytes = 64 * 1024;   // up to here all T slices are staged
 constexpr int kChunkBytes = 16 * 1024;  // a ring buffer's target size
 constexpr int kMinChunkSteps = 8;
@@ -136,6 +167,10 @@ constexpr int kCallOps = 58;
 constexpr int kBitOps = 3;
 constexpr int kStageOps = 32;
 constexpr int kLandOps = 1;  // the ring body's landing of an entry
+// The gather body: the unused shared memory a block reserves where its
+// registers would let an SM hold more than one (with the system's 1 KB a
+// block, more than half the smallest carveout, 16 KB, that fits it).
+constexpr int kGatherReserveBytes = 9 * 1024;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -319,47 +354,100 @@ __global__ void chain_walk_kernel(const float* __restrict__ tables,
   if (live) out[row] = static_cast<int32_t>(x);
 }
 
-// The global body (N = 12 to 16): a chain's N probabilities of a step come
-// straight from global memory. Same counter, same thresholds, same bits.
-template <int N>
-__global__ void chain_walk_global_kernel(const float* __restrict__ tables,
+// The N probabilities of the row at `p` (global memory) in the widest loads
+// its alignment allows: kAlign words is the alignment every row's start is
+// known to have. At 4 (16 bytes) the row is N / 4 16-byte loads, at 2 (8
+// bytes) N / 2 8-byte loads. At 1 the row is read as the 16-byte chunks that
+// hold it: it starts m = 0 to 3 words into its first chunk, a chunk past
+// its last word is not read (so no read leaves the chunks the table's own
+// words lie in), and each probability is selected from the chunks' words
+// by m.
+template <int N, int kAlign>
+__device__ __forceinline__ void gather_row(const float* p, float (&p1)[N]) {
+  if constexpr (kAlign == 4) {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p + q));
+      p1[q] = v.x;
+      p1[q + 1] = v.y;
+      p1[q + 2] = v.z;
+      p1[q + 3] = v.w;
+    }
+  } else if constexpr (kAlign == 2) {
+#pragma unroll
+    for (int q = 0; q < N; q += 2) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(p + q));
+      p1[q] = v.x;
+      p1[q + 1] = v.y;
+    }
+  } else {
+    constexpr int kChunks = (N + 3 + 3) / 4;
+    const int m = static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 2) & 3;
+    const float4* chunk = reinterpret_cast<const float4*>(p - m);
+    float w[4 * kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (4 * k < N || 4 * k < N + m) v = __ldg(chunk + k);
+      w[4 * k] = v.x;
+      w[4 * k + 1] = v.y;
+      w[4 * k + 2] = v.z;
+      w[4 * k + 3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      const float lo = (m & 1) ? w[q + 1] : w[q];
+      const float hi = (m & 1) ? w[q + 3] : w[q + 2];
+      p1[q] = (m & 2) ? hi : lo;
+    }
+  }
+}
+
+// The gather body (N = 12 to 16). One thread a chain, every warp at its own
+// step, no block barrier and no shared memory: a chain reads its row of a
+// step straight from global memory (gather_row) and converts its N
+// probabilities as the ring body does. Threads past the end of S walk dead
+// chains from row 0 and store nothing. The plan below launches blocks of up
+// to 1,024 threads, one an SM, so a row's chains walk in few blocks and few
+// rows are walked at once: a step slice, read from DRAM into L2 by its
+// first gathers, serves the row's other chains before it is evicted. Same
+// counter, same thresholds, same bits.
+template <int N, int kAlign>
+__global__ void chain_walk_gather_kernel(const float* __restrict__ tables,
                                          const int32_t* __restrict__ init,
                                          int32_t* __restrict__ out,
                                          int t_steps, int c_rows, int s_chains,
                                          const __grid_constant__
                                              ddqst::PhiloxKeys keys) {
   constexpr int kSlice = (1 << N) * N;  // table entries a step
+  constexpr int kCalls = (N + 3) / 4;  // Philox calls a chain and step
   const int c = blockIdx.y;
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= s_chains) return;  // no block barrier below
+  const bool live = s < s_chains;
   const int64_t row = static_cast<int64_t>(c) * s_chains + s;
   const int64_t step_stride = static_cast<int64_t>(c_rows) * kSlice;
   const float* slice = tables + static_cast<int64_t>(c) * kSlice;
-  uint32_t x = static_cast<uint32_t>(__ldcs(init + row));
-#pragma unroll 2
+  uint32_t x = live ? static_cast<uint32_t>(__ldcs(init + row)) : 0u;
   for (int i = 0; i < t_steps; ++i, slice += step_stride) {
-    const float* p1 = slice + x * N;
-    uint32_t thr[N];
+    float p1[N];
+    gather_row<N, kAlign>(slice + x * N, p1);
+    uint4 w[kCalls];
 #pragma unroll
-    for (int q = 0; q < N; ++q) thr[q] = ddqst::philox_threshold(__ldg(p1 + q));
+    for (int qb = 0; qb < kCalls; ++qb) {
+      w[qb] = make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(c),
+                         static_cast<uint32_t>(i), static_cast<uint32_t>(qb));
+    }
+    ddqst::philox4x32_10<kCalls>(w, keys);
     uint32_t nx = 0u;
 #pragma unroll
-    for (int qb = 0; qb < (N + 3) / 4; ++qb) {
-      const uint4 w = ddqst::philox4x32_10(
-          make_uint4(static_cast<uint32_t>(s), static_cast<uint32_t>(c),
-                     static_cast<uint32_t>(i), static_cast<uint32_t>(qb)),
-          keys);
-#pragma unroll
-      for (int jq = 0; jq < 4; ++jq) {
-        const int q = 4 * qb + jq;
-        if (q < N) {
-          nx |= ddqst::philox_bit(ddqst::philox_word(w, jq), thr[q]) << q;
-        }
-      }
+    for (int q = 0; q < N; ++q) {
+      nx |= ddqst::philox_bit(ddqst::philox_word(w[q / 4], q % 4),
+                              ddqst::philox_threshold(p1[q]))
+            << q;
     }
     x = nx;
   }
-  __stcs(out + row, static_cast<int32_t>(x));
+  if (live) __stcs(out + row, static_cast<int32_t>(x));
 }
 
 // Steps a ring stage holds: two where two stages of two fit in kRingBytes
@@ -373,7 +461,7 @@ constexpr int kRingChunk = 4 * (1 << N) * N * 4 <= kRingBytes ? 2 : 1;
 // barrier, which counts the bytes. A table pointer that is not 16-byte
 // aligned takes plain loads by one warp instead (its 32 lanes arrive on the
 // full barrier). A warp waits for its step's slice, reads each chain's N
-// probabilities from shared memory and converts them as the global body
+// probabilities from shared memory and converts them as the gather body
 // does. Then its lane 0 counts it out of the stage; the last warp of the CTA
 // out refills the stage with step n + stages at once. So no block barrier
 // runs in the step loop, and no warp waits for another except on a slice
@@ -505,44 +593,33 @@ __global__ void __launch_bounds__(1024, 1)
 }
 
 // Which body walks the chains, as the plan reports it (from N alone).
-enum Body { kBodyStaged = 1, kBodyRing = 2, kBodyGlobal = 3 };
+enum Body { kBodyStaged = 1, kBodyRing = 2, kBodyGather = 3 };
 
 struct Plan {
   int threads;  // block size
   int chunk;    // steps a shared-memory buffer (a ring stage) holds
   int stages;   // the ring body's stages
   int smem;     // dynamic shared memory, bytes
-  int body;     // kBodyStaged, kBodyRing or kBodyGlobal
+  int body;     // kBodyStaged, kBodyRing or kBodyGather
 };
 
-// The staged and the global-memory bodies. The staging plan follows from
-// the shape alone; the block size is the candidate whose busiest SM has
-// least to do, counted in lane instructions: a block's chains' steps
-// (kCallOps a Philox call, kBitOps a bit) plus the staging of its T slices
-// (kStageOps an entry: the copies' latency, the conversion and the barrier,
-// fitted to the times of all four block sizes at two shapes), times the
-// blocks that SM gets. A candidate that leaves an SM under 768 resident
-// threads pays for the latency it cannot hide. The global-memory body
-// stages nothing (chunk and shared memory are 0) and takes the largest
-// block size that fills every SM.
+// The staged body's plan. The staging follows from the shape alone; the
+// block size is the candidate whose busiest SM has least to do, counted in
+// lane instructions: a block's chains' steps (kCallOps a Philox call,
+// kBitOps a bit) plus the staging of its T slices (kStageOps an entry: the
+// copies' latency, the conversion and the barrier, fitted to the times of
+// all four block sizes at two shapes), times the blocks that SM gets. A
+// candidate that leaves an SM under 768 resident threads pays for the
+// latency it cannot hide.
 template <int N>
 int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
               int sms, Plan* plan) {
-  constexpr bool kStaged = N <= kMaxStagedN;
   constexpr int kSliceBytes = (1 << N) * N * 4;
-  const void* kernel;
-  if constexpr (kStaged) {
-    kernel = reinterpret_cast<const void*>(chain_walk_kernel<N>);
-  } else {
-    kernel = reinterpret_cast<const void*>(chain_walk_global_kernel<N>);
-  }
-  plan->body = kStaged ? kBodyStaged : kBodyGlobal;
+  const void* kernel = reinterpret_cast<const void*>(chain_walk_kernel<N>);
+  plan->body = kBodyStaged;
   plan->stages = 0;
   const long long total = static_cast<long long>(t_steps) * kSliceBytes;
-  if (!kStaged) {
-    plan->chunk = 0;
-    plan->smem = 0;
-  } else if (total <= kFullBytes) {
+  if (total <= kFullBytes) {
     plan->chunk = t_steps;
     plan->smem = static_cast<int>(total);
   } else {
@@ -554,26 +631,10 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if constexpr (!kStaged) {
-    if (threads_asked == 0) {
-      plan->threads = 64;
-      for (int threads = 512; threads >= 64; threads /= 2) {
-        const long long blocks =
-            static_cast<long long>((s_chains + threads - 1) / threads) *
-            c_rows;
-        if (blocks >= sms) {
-          plan->threads = threads;
-          break;
-        }
-      }
-      return 0;
-    }
-  }
 
   const double chain_ops =
       static_cast<double>(t_steps) * (((N + 3) / 4) * kCallOps + kBitOps * N);
-  const double stage_ops =
-      kStaged ? static_cast<double>(total / 4) * kStageOps : 0.0;
+  const double stage_ops = static_cast<double>(total / 4) * kStageOps;
   double best = -1.0;
   plan->threads = 0;
   for (int threads = 64; threads <= 512; threads *= 2) {
@@ -598,6 +659,76 @@ int make_plan(int t_steps, int c_rows, int s_chains, int threads_asked,
   }
   return plan->threads > 0 ? 0
                            : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// The gather body's plan. Every row start is 16-byte aligned where N is a
+// multiple of 4 and the table is, 8-byte aligned where N is even and the
+// table is 8-byte aligned; otherwise 4-byte (gather_row's kAlign). An SM
+// holds one block: where its registers would let it hold more, the launch
+// reserves kGatherReserveBytes of (unused) shared memory and prefers the
+// most L1 (carveout 0), so the SM's smallest shared-memory carveout that
+// fits one block's reservation fits no second. The block then holds an SM's
+// chains, all of one row, and L1 keeps their step slice. Where a row's
+// chains outnumber its table rows (S >= 2^N) each slice serves many chains
+// and blocks of up to 1,024 threads took least time on an H100, below that
+// blocks of up to 512 (at the shadow shape, 100 rows of 5,000 chains: 0.91
+// ms in 1,024-thread blocks at N = 12 against 1.10 in 512s; at N = 14, 25
+// rows, 0.50 in 512s against 0.58 in 1,024s). The block size splits a
+// row's chains evenly over k blocks, k from the fewest of that size up to
+// as many as give every SM a block, and is the candidate whose busiest SM
+// walks the fewest chains (its blocks times their threads, dead ones too);
+// a tie goes to the fewer blocks. A block size asked for is taken as it
+// is, one block an SM.
+template <int N, int kAlign>
+int make_gather_plan(int c_rows, int s_chains, int threads_asked, int sms,
+                     int smem_per_sm, Plan* plan) {
+  const void* kernel =
+      reinterpret_cast<const void*>(chain_walk_gather_kernel<N, kAlign>);
+  plan->body = kBodyGather;
+  plan->chunk = 0;
+  plan->stages = 0;
+  plan->smem = 0;
+  plan->threads = threads_asked;
+  if (threads_asked == 0) {
+    const int widest = s_chains >= (1 << N) ? 1024 : 512;
+    const int fewest = (s_chains + widest - 1) / widest;
+    const int most = std::max(fewest, (sms + c_rows - 1) / c_rows);
+    long long best = -1;
+    for (int k = fewest; k <= most; ++k) {
+      const int threads =
+          std::max(64, ((s_chains + k - 1) / k + 31) / 32 * 32);
+      const long long blocks =
+          static_cast<long long>((s_chains + threads - 1) / threads) * c_rows;
+      const long long cost = (blocks + sms - 1) / sms * threads;
+      if (best < 0 || cost < best) {
+        best = cost;
+        plan->threads = threads;
+      }
+    }
+  }
+  int active = 0;  // blocks an SM holds at once
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &active, kernel, plan->threads, 0);
+  if (err != cudaSuccess || active == 1) return static_cast<int>(err);
+  if (active > 1) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    plan->smem = kGatherReserveBytes;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &active, kernel, plan->threads, plan->smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active > 1) {  // more than half the SM's shared memory a block
+      plan->smem = smem_per_sm / 2;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan->smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &active, kernel, plan->threads, plan->smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return active == 1 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 // The ring body's plan. The ring holds kRingChunk<N> steps a stage and as
@@ -658,22 +789,39 @@ int make_ring_plan(int c_rows, int s_chains, int threads_asked, int sms,
 }
 
 // The body follows from N alone: staged up to kMaxStagedN, the ring up to
-// kMaxRingN, the global body above.
+// kMaxRingN, the gather body above (its alignment from N and the table's
+// address).
 template <int N>
 int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
            int c_rows, int s_chains, unsigned long long seed, int threads_asked,
            int* plan_out, cudaStream_t stream) {
   constexpr bool kRing = N > kMaxStagedN && N <= kMaxRingN;
+  constexpr bool kGather = N > kMaxRingN;
+  constexpr int kRowAlign = N % 4 == 0 ? 4 : N % 2 == 0 ? 2 : 1;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(tables);
+  const bool aligned = (addr & 15u) == 0;
+  // gather_row's kAlign: the row alignment N and the table's address give
+  const bool natural = (addr & (4u * kRowAlign - 1u)) == 0;
   Plan plan;
   int status;
   if constexpr (kRing) {
     status = make_ring_plan<N>(c_rows, s_chains, threads_asked, sms, &plan);
+  } else if constexpr (kGather) {
+    int smem_per_sm = 0;
+    err = cudaDeviceGetAttribute(
+        &smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    status = natural ? make_gather_plan<N, kRowAlign>(
+                           c_rows, s_chains, threads_asked, sms, smem_per_sm,
+                           &plan)
+                     : make_gather_plan<N, 1>(c_rows, s_chains, threads_asked,
+                                              sms, smem_per_sm, &plan);
   } else {
     status = make_plan<N>(t_steps, c_rows, s_chains, threads_asked, sms, &plan);
   }
@@ -685,7 +833,6 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
     plan_out[3] = plan.body;
   }
   const ddqst::PhiloxKeys keys = ddqst::philox_keys(seed);
-  const bool aligned = (reinterpret_cast<uintptr_t>(tables) & 15u) == 0;
   const dim3 grid((s_chains + plan.threads - 1) / plan.threads, c_rows);
   if constexpr (N <= kMaxStagedN) {
     constexpr int kSliceBytes = (1 << N) * N * 4;
@@ -697,8 +844,12 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
     chain_walk_ring_kernel<N><<<grid, plan.threads, plan.smem, stream>>>(
         tables, init, out, t_steps, c_rows, s_chains, plan.stages,
         aligned ? 1 : 0, keys);
+  } else if (natural) {
+    chain_walk_gather_kernel<N, kRowAlign>
+        <<<grid, plan.threads, plan.smem, stream>>>(
+            tables, init, out, t_steps, c_rows, s_chains, keys);
   } else {
-    chain_walk_global_kernel<N><<<grid, plan.threads, 0, stream>>>(
+    chain_walk_gather_kernel<N, 1><<<grid, plan.threads, plan.smem, stream>>>(
         tables, init, out, t_steps, c_rows, s_chains, keys);
   }
   return static_cast<int>(cudaGetLastError());
@@ -713,7 +864,7 @@ int launch(const float* tables, const int32_t* init, int32_t* out, int t_steps,
 // is 0 (chosen from the shape) or one of 64, 128, 256, 512. A shape the card
 // cannot place returns its error (no other body is tried). `plan_out`, if
 // not null, receives {threads, steps a buffer, shared-memory bytes, body}
-// (body 1 staged, 2 ring, 3 global). 1 <= N <= 16.
+// (body 1 staged, 2 ring, 3 gather). 1 <= N <= 16.
 extern "C" int ddqst_fused_chain_walk(const float* tables, const int32_t* init,
                                       int32_t* out, int t_steps, int c_rows,
                                       int g, int n, int s_chains,

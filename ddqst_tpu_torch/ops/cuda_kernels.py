@@ -35,7 +35,7 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 # The walk kernel's largest N: up to 7 it stages a block's table slices in
 # shared memory, from 8 to 11 it lands them in a ring of shared-memory
-# stages, and from 12 to 16 it reads them from global memory
+# stages, and from 12 to 16 it gathers each chain's row from global memory
 # (csrc/chain_walk.cu).
 _MAX_WALK_N = 16
 
@@ -153,7 +153,7 @@ def _chain_walk_fn():
 
 
 # The walk's bodies, as the kernel's plan numbers them (csrc/chain_walk.cu).
-_WALK_BODY_NAMES = {1: "staged", 2: "ring", 3: "global"}
+_WALK_BODY_NAMES = {1: "staged", 2: "ring", 3: "gather"}
 
 
 def fused_chain_walk(
@@ -172,8 +172,11 @@ def fused_chain_walk(
         slices in shared memory; from 8 to 11 each step's ``[2^N, N]``
         slice lands once a block in a ring of shared-memory stages (bulk
         copies, 40 KB a step at N = 10), from which each chain reads its N
-        probabilities; from 12 on (a slice of 192 KB or more) each chain
-        reads them from global memory.
+        probabilities; from 12 on (a slice of 192 KB or more, too large to
+        double-buffer in a block's 227 KB) the gather body: each chain reads
+        its row from global memory in the widest loads its alignment
+        allows, one block of up to 1,024 of a row's chains an SM, so that
+        the SM's L1 keeps that row's step slice.
       threads: the kernel's block size: 0 (chosen from the shape) or 64,
         128, 256 or 512, for measurements. The result does not depend on it
         (the Philox counter is the chain's index), and the plain version
@@ -186,8 +189,10 @@ def fused_chain_walk(
     the kernel on the current stream, or raise: a shape the card cannot
     place raises, and no other body is tried. After a launch,
     ``fused_chain_walk.last_plan`` holds what the kernel chose: ``(threads a
-    block, steps a shared-memory buffer, shared-memory bytes, body)``; the
-    global body stages nothing (0, 0).
+    block, steps a shared-memory buffer, shared-memory bytes, body)``, body
+    ``'staged'``, ``'ring'`` or ``'gather'``; the gather body stages nothing
+    (0 steps) and reports the shared memory it reserves, unused, to hold an
+    SM to one block.
     """
     _check_walk_args(seed, tables, init, num_qubits)
     if threads not in (0, 64, 128, 256, 512):

@@ -60,12 +60,17 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     # chains a row as in the chunked sampler's N = 8 grid
     (8, 7, 3, 1237), (8, 1, 3, 1237), (8, 3, 3, 1237), (8, 7, 4, 319),
     (10, 7, 3, 1237), (10, 1, 3, 1237), (10, 3, 2, 5000), (11, 5, 2, 1237),
+    # the gather body, N = 12 to 16: a ragged S, an odd T and T = 1 at each
+    # N; S >= 2^N at N = 12 and 13
+    (12, 7, 3, 4097), (12, 1, 2, 5000), (13, 9, 3, 1237), (13, 3, 2, 8193),
+    (13, 1, 2, 999), (14, 8, 2, 1237), (14, 1, 2, 777), (15, 7, 2, 1001),
+    (15, 1, 2, 513), (16, 6, 2, 1237), (16, 3, 1, 999), (16, 1, 2, 4097),
 ])
 def test_global_memory_walk_equals_plain_version(cuda, n, t, c, s):
     """From N = 8 on: the plan's body (the ring body up to N = 11, the
-    global-memory body at 12) at every block size gives the plain version's
-    bits at a ragged S and at odd and short T, from tables that are and are
-    not 16-byte aligned."""
+    gather body from 12 to 16) at every block size gives the plain
+    version's bits at a ragged S and at odd and short T, from tables that
+    are and are not 16-byte aligned."""
     rng = np.random.default_rng(n)
     g = 2**n
     tables = torch.from_numpy(
@@ -84,16 +89,19 @@ def test_global_memory_walk_equals_plain_version(cuda, n, t, c, s):
         assert threads % 32 == 0 and 64 <= threads <= 1024
         assert steps in (1, 2) and 2 <= smem // stage_bytes <= 4
         assert smem % stage_bytes == 4 * (8 + 4)
-    else:  # nothing staged
-        assert (body, steps, smem) == ("global", 0, 0)
+    else:  # nothing staged; shared memory only as a reservation that caps
+        # the blocks an SM holds
+        assert (body, steps) == ("gather", 0) and 0 <= smem <= 232448
     assert torch.equal(out, want)
     for threads in (64, 128, 256, 512):
         assert torch.equal(ck.fused_chain_walk(2**33 + n, tables, init, n,
                                                threads=threads), want), threads
         plan = ck.fused_chain_walk.last_plan
         assert (plan[0], plan[3]) == (threads, body), plan
-    assert torch.equal(ck.fused_chain_walk(
-        2**33 + n, _offset_by_one_word(tables), init, n), want)
+    for words in (1, 2) if n >= 12 else (1,):
+        assert torch.equal(ck.fused_chain_walk(
+            2**33 + n, _offset_by_one_word(tables, words), init, n),
+            want), words
 
 
 def test_shadow_samplers_reach_the_kernel(cuda):
@@ -174,12 +182,13 @@ def test_p_sample_grid_runs_the_step_kernel_per_step(cuda, precompute):
     assert out.shape == (270, 2) and out.is_cuda
 
 
-def _offset_by_one_word(t):
-    """The same values at an address that is 4 bytes off 16-byte alignment
-    (contiguous still): the kernels then take their 4-byte accesses."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    buf[1:] = t.reshape(-1)
-    return buf[1:].view(t.shape)
+def _offset_by_one_word(t, words=1):
+    """The same values at an address that is 4 bytes (or 4 x ``words``) off
+    16-byte alignment (contiguous still): the kernels then take their 4-byte
+    accesses (the gather body its 8-byte ones at 8 bytes off and even N)."""
+    buf = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)
+    buf[words:] = t.reshape(-1)
+    return buf[words:].view(t.shape)
 
 
 @pytest.mark.parametrize("n,t_steps,s,regime", [

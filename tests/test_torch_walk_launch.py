@@ -1,7 +1,8 @@
 """The walk wrapper from N = 8 on, on the CPU.
 
 N alone chooses the kernel's body (staged up to N = 7, the ring of
-shared-memory stages from 8 to 11, global memory from 12 to 16); the one
+shared-memory stages from 8 to 11, the gather body's 16-byte loads from
+global memory from 12 to 16); the one
 launch option is the block size. It is checked before the plain version is
 taken, so a size the kernel would refuse raises ``ValueError`` here as on
 the card (the ring body's plan may choose 96, 320 or 1,024 threads itself,
@@ -27,7 +28,7 @@ def _inputs(n: int):
     return tables, init
 
 
-@pytest.mark.parametrize("n", [3, 8, 11, 12])
+@pytest.mark.parametrize("n", [3, 8, 11, 12, 13, 14, 15, 16])
 @pytest.mark.parametrize("threads", [1024, 320, 96, 32])
 def test_walk_rejects_a_block_size_the_kernel_does_not_take(n, threads):
     tables, init = _inputs(n)
@@ -37,7 +38,7 @@ def test_walk_rejects_a_block_size_the_kernel_does_not_take(n, threads):
     assert ck.fused_chain_walk.launches == before
 
 
-@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 10, 11, 12])
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16])
 @pytest.mark.parametrize("threads", [0, 64, 512])
 def test_walk_block_size_the_kernel_takes_keeps_the_plain_bits(n, threads):
     tables, init = _inputs(n)
