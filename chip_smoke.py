@@ -236,14 +236,21 @@ result line is printed; nothing falls back to the CPU):
    full width (the ``rqc`` preset's FiLM model, T=100, cosine schedule,
    renoise, readout-noisy mitigated data, MLE) over the whole canonical
    grid, depth cut (``SCALING_CUTS``, ``SCALING_SHOTS_CUT``,
-   ``SCALING_MLE_ITERS``; each cut printed): GHZ-5 ``ghz5_auto`` and GHZ-7
-   ``ghz7_mle_hot`` in one ``run_experiment`` each, GHZ-8 ``ghz8_mle_hot``
-   through the segment protocol of ``scripts/run_frontier_segments.py``
-   (a CE role, a uniform and a hard-mining distillation segment on shared
-   data and MLE-target caches with the Adam state chained, the eval role).
+   ``SCALING_MLE_ITERS``, ``SCALING_CUT_PARTS``; each cut printed): GHZ-5
+   ``ghz5_auto`` and GHZ-7 ``ghz7_mle_hot`` in one ``run_experiment``
+   each, GHZ-8 ``ghz8_mle_hot`` through the segment protocol of
+   ``scripts/run_frontier_segments.py`` (a CE role, a uniform and a
+   hard-mining distillation segment on shared data and MLE-target caches
+   with the Adam state chained, the eval role), and RQC-6 ``rqc6_auto`` on
+   the JAX package's committed seed-0 data through the parts of
+   ``--scaling-part``, each in a child process: CE stopped after epoch 1's
+   checkpoint in one and resumed in the next, which distils and
+   evaluates; its raw-inversion fidelity equal to the JAX package's on
+   that file within 1e-5.
    Each run has its launch counts and peak memory set to 0 just before and
    read just after, and must launch as ``SCALING_PLAN`` says (3 walks at
-   N=5, 600 step launches at N=7, 10 ring walks at N=8). Per rung: the
+   N=5, 4 staged walks at N=6, 600 step launches at N=7, 10 ring walks at
+   N=8; none in a part that only trains). Per rung: the
    samples within 4 shot-noise scales (TV) of the model's exact chain in
    every basis (at N=8 the float64 propagation of the tables the walks read,
    a few rows held against a recompute), the fidelity within 0.02 of the
@@ -274,6 +281,20 @@ of the ladder (``ghz5_auto``, ``rqc6_auto``, ``ghz7_mle_hot``,
 ``ghz8_mle_hot``), uncut, each in one ``run_experiment`` call with the
 rung's checks (every 25th training epoch logged), and prints one JSON line.
 
+``python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR [--cut]``
+runs one part of a rung split across processes or chip calls
+(``SCALING_PARTS``: RQC-6 as ``ce1``, CE epochs 1-75 stopped after epoch
+75's checkpoint, and ``ce2``, epochs 76-150 resumed from it, the held-out
+distillation, generation and the estimators; GHZ-7's split as a plan). It
+refuses to start when a file it reads is missing from IN_DIR, writes what
+the next part reads (a checkpoint, parameters, an Adam state, caches) and
+its record ``TAG_PART.json`` to OUT_DIR, and prints one JSON line. The
+evaluating part holds the rung's checks, the raw-inversion fidelity and,
+uncut, MLE on the raw counts against the JAX package's on the same file,
+and records the fidelity beside the reference's row. With ``--cut``, the
+default run's cuts. ``python3 chip_smoke.py --scaling-cut TAG`` runs only
+that cut rung, through its parts in child processes.
+
 ``python3 chip_smoke.py --scaling-costs`` measures the stages of the GHZ-7
 and GHZ-8 rungs alone (the data step, MLE on the raw counts at 50, 200 and
 1,000 iterations, a CE epoch, two full-grid chain passes, four chained
@@ -295,6 +316,7 @@ and counts its device kernels and the device's busy time with
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3437,8 +3459,57 @@ SCALING_SHOTS_CUT = {"ghz7_mle_hot": 500, "ghz8_mle_hot": 500}
 # at N = 5, 60 ms at N = 7 and 48 ms at N = 8, and a solve 380 to 3,200
 # iterations to its tolerance; GHZ-5's raw counts reach it in about 380, so
 # that rung still holds MLE on the raw counts to 0.999.
-SCALING_MLE_ITERS = {"ghz5_auto": 500, "ghz7_mle_hot": 100,
-                     "ghz8_mle_hot": 100}
+SCALING_MLE_ITERS = {"ghz5_auto": 500, "rqc6_auto": 500,
+                     "ghz7_mle_hot": 100, "ghz8_mle_hot": 100}
+# The rungs split across processes (``--scaling-part TAG PART IN_DIR
+# OUT_DIR``), each part one ``run_experiment`` call with the rung's recipe
+# unchanged. ``ce`` = (a, b): the part trains CE epochs a+1 to b of the
+# recipe's ``num_epochs``, so the cosine schedule spans the whole run; it
+# resumes from epoch a's checkpoint (a > 0) and, with b below the total,
+# stops right after epoch b's (written every ``every`` epochs). A part
+# without ``ce`` warm-starts from the previous part's parameters (and its
+# distillation Adam state). ``steps``: the part's distillation steps, the
+# k-th distilling part with ``chain_key_salt`` + k; ``eval``: generation and
+# the estimators follow. RQC-6 on the H100: CE at 5.3-7.7 ms a step, 3,559
+# steps an epoch, about 24-34 min a half. GHZ-7, a plan not yet run uncut:
+# CE halves of 30 epochs of 6,407 steps (19-24 min each), the MLE target
+# solved in ``d1``, 1,600 distillation steps at 2.0-2.8 s in three parts
+# (17-26 min each), then the eval part (600 step launches, MLE solves).
+SCALING_PARTS = {
+    "rqc6_auto": {"ce1": dict(ce=(0, 75), every=25),
+                  "ce2": dict(ce=(75, 150), every=25, steps=800,
+                              eval=True)},
+    "ghz7_mle_hot": {"ce1": dict(ce=(0, 30), every=10),
+                     "ce2": dict(ce=(30, 60), every=10),
+                     "d1": dict(steps=500), "d2": dict(steps=550),
+                     "d3": dict(steps=550), "eval": dict(eval=True)},
+}
+# The default run's cut of a split rung, through the same parts: CE 2
+# epochs, stopped after 1 and resumed, 10 distillation steps.
+SCALING_CUT_PARTS = {
+    "rqc6_auto": {"ce1": dict(ce=(0, 1), every=1),
+                  "ce2": dict(ce=(1, 2), every=1, steps=10, eval=True)},
+}
+# A rung's committed seed-0 data, which every part reads: the JAX package's
+# ``ensure_data_cache`` on the CPU, written by ``tools/make_reference_data.py``
+# (``--tag rqc6_auto --out examples/reference_data/rqc6_auto_seed0.npz``).
+SCALING_DATA = {"rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz"}
+# The JAX package's numbers on that file (the same tool, on the CPU): the
+# raw-inversion fidelity, MLE on the raw counts solved to its tolerance and
+# that solve's iterations. The rows of REFERENCE_SCALING were measured on
+# data the JAX package no longer makes bit for bit (raw 0.76961 there).
+SCALING_DATA_JAX = {"rqc6_auto": dict(
+    raw_fidelity=0.7702612280845642,
+    raw_fidelity_mitigated=0.9998176097869873, mle_iterations=535)}
+SCALING_DATA_RAW_TOL = 1e-5
+SCALING_DATA_MLE_TOL = 1e-4
+# A cut part's limit in the default run (RQC-6's parts take about 30 and 60
+# s on the card).
+SCALING_PART_TIMEOUT_S = 600
+# The reference run's trace distance and held-out step (RESULTS.md:433-435),
+# and how far below its fidelity the port's still agrees.
+REFERENCE_RUN = {"rqc6_auto": dict(trace_distance=0.0173, best_step=25)}
+REFERENCE_FIDELITY_MARGIN = 0.005
 
 
 def cut_rung(tag: str):
@@ -3508,33 +3579,83 @@ class _TablesKept:
         diff._assembled_tables = self.make
 
 
-def _role(ck, what: str, cfg, **kw) -> tuple[dict, dict]:
-    """One ``run_experiment`` on the card, with the launch counts and the
-    peak memory set to 0 just before and read just after. The record holds
-    the stage seconds where the result has them (a ``stop_after`` result
-    has JAX's three keys only) and the run's log lines."""
+class _CeStopped(Exception):
+    """CE training stopped after a checkpoint (see ``_CeStop``)."""
+
+    def __init__(self, epoch: int):
+        super().__init__(f"CE stopped after epoch {epoch}'s checkpoint")
+        self.epoch = epoch
+
+
+class _CeStop:
+    """Within the block, ``utils.checkpoint.save_checkpoint`` (as
+    ``train.fit`` calls it) keeps only the newest checkpoint and raises
+    ``_CeStopped`` right after writing epoch ``epoch``'s."""
+
+    def __init__(self, epoch: int):
+        self.epoch = epoch
+
+    def __enter__(self):
+        from ddqst_tpu_torch.utils import checkpoint as C
+
+        self.save = save = C.save_checkpoint
+
+        def save_then_stop(ckpt_dir, state, step):
+            wrote = save(ckpt_dir, state, step)
+            for old in C._steps(ckpt_dir)[:-1]:
+                shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+            if step == self.epoch:
+                raise _CeStopped(step)
+            return wrote
+
+        C.save_checkpoint = save_then_stop
+        return self
+
+    def __exit__(self, *exc):
+        from ddqst_tpu_torch.utils import checkpoint as C
+
+        C.save_checkpoint = self.save
+
+
+def _role(ck, what: str, cfg, device: str = "cuda",
+          **kw) -> tuple[dict, dict]:
+    """One ``run_experiment`` on ``device`` (the card), with the launch
+    counts and the peak memory set to 0 just before and read just after.
+    The record holds the stage seconds where the result has them (a
+    ``stop_after`` result has JAX's three keys only), the run's log lines
+    and when each came. A run that ``_CeStop`` stopped returns
+    ``{'ce_stopped_at': epoch}``."""
     from ddqst_tpu_torch.pipeline import run_experiment
 
-    lines = []
+    cuda = torch.device(device).type == "cuda"
+    lines, line_s = [], []
 
     def say(m):
         lines.append(m)
+        line_s.append(time.perf_counter() - t0)
         log("scaling", m)
 
     ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = run_experiment(cfg, seed=0, log_fn=say, **kw)
-    torch.cuda.synchronize()
-    rec = dict(wall_s=time.perf_counter() - t0, log=lines,
+    try:
+        res = run_experiment(cfg, seed=0, log_fn=say, device=device, **kw)
+    except _CeStopped as stop:
+        res = dict(ce_stopped_at=stop.epoch)
+    if cuda:
+        torch.cuda.synchronize()
+    rec = dict(wall_s=time.perf_counter() - t0, log=lines, log_s=line_s,
                walk_launches=ck.fused_chain_walk.launches,
                step_launches=ck.fused_chain_step.launches,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
+               else None)
     tm = res.get("timings")
     if tm is not None:
         rec["timings"] = dict(tm)
-    log("scaling", f"{what}: wall {rec['wall_s']:.2f} s, peak "
-        f"{rec['peak_gb']:.2f} GB allocated, launches: walk "
+    log("scaling", f"{what}: wall {rec['wall_s']:.2f} s, "
+        + (f"peak {rec['peak_gb']:.2f} GB allocated, " if cuda else "")
+        + "launches: walk "
         f"{rec['walk_launches']}, step {rec['step_launches']}" + (
             "; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
             if tm else ""))
@@ -3644,7 +3765,8 @@ def scaling_checks(ck, tag: str, cfg, res: dict, rec: dict,
                exact_chain_s=t_exact, exact_chain_mle_s=t_mle,
                exact_chain_mle_iterations=solve["iterations"],
                train_steps=res["train_steps"],
-               **{k: v for k, v in rec.items() if k != "log"})
+               **{k: v for k, v in rec.items()
+                  if k not in ("log", "log_s")})
     if "chain_info" in res:
         info = res["chain_info"]
         out.update(ce_before=info["train_ce_before"],
@@ -3775,7 +3897,7 @@ def scaling_segments(ck, tag: str, cfg, tmp: str,
                          tables=kept.tables)
     del kept.tables
     for r in roles.values():
-        del r["log"]
+        del r["log"], r["log_s"]
     out["roles"] = roles
     out["hard_draw_p_max_over_min"] = float(p.max() / p.min())
     log("scaling", "result " + json.dumps(out))
@@ -3828,10 +3950,45 @@ def scaling_kernel_rows(ck) -> dict:
     return rows
 
 
+def scaling_split_cut(tag: str) -> dict:
+    """A split rung with the default run's cuts, each part of
+    ``SCALING_CUT_PARTS`` in a child process (``--scaling-part TAG PART DIR
+    DIR --cut``), as the chip calls run them, with one folder as each
+    part's input and output. The parts' records, the evaluating part's
+    (launches, checks) at the top; the seconds the rung adds."""
+    t0 = time.perf_counter()
+    log("scaling", f"{tag}: CUT to {describe_split(SCALING_CUT_PARTS[tag])}, "
+        "each part in a child process; every MLE solve to "
+        f"{SCALING_MLE_ITERS[tag]} iterations (uncut: "
+        f"{describe_split(SCALING_PARTS[tag])})")
+    parts = {}
+    with tempfile.TemporaryDirectory() as d:
+        for part in SCALING_CUT_PARTS[tag]:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--scaling-part",
+                 tag, part, d, d, "--cut"],
+                cwd=repo_file("."), timeout=SCALING_PART_TIMEOUT_S)
+            check(proc.returncode == 0, f"{tag} part {part}: the child "
+                  f"process exited with {proc.returncode}")
+            with open(os.path.join(d, f"{tag}_{part}.json")) as f:
+                parts[part] = json.load(f)
+    last = parts[list(parts)[-1]]
+    for part, rec in list(parts.items())[:-1]:
+        check(rec["walk_launches"] == rec["step_launches"] == 0,
+              f"{tag} part {part}: no kernel launch")
+    check((last["walk_launches"], last["step_launches"]) == SCALING_PLAN[tag],
+          f"{tag}: the evaluating part launched as the plan says")
+    out = dict(last, parts=parts, wall_s=time.perf_counter() - t0)
+    log("scaling", f"{tag}: the split rung, cut, added {out['wall_s']:.1f} s "
+        "(its child processes' start included)")
+    return out
+
+
 def phase_scaling(ck) -> dict:
     """The scaling ladder at full width with the default run's cuts: GHZ-5
     and GHZ-7 in one ``run_experiment`` each, GHZ-8 through the segment
-    protocol; then both kernels at the rungs' shapes."""
+    protocol, RQC-6 split across child processes; then both kernels at the
+    rungs' shapes."""
     t_phase = time.perf_counter()
     rungs = {}
     for tag in ("ghz5_auto", "ghz7_mle_hot", "ghz8_mle_hot"):
@@ -3850,11 +4007,15 @@ def phase_scaling(ck) -> dict:
             with tempfile.TemporaryDirectory() as tmp:
                 rungs[tag] = scaling_segments(ck, tag, cfg, tmp,
                                               cut)
+    for tag in SCALING_CUT_PARTS:
+        rungs[tag] = scaling_split_cut(tag)
+    split_s = sum(rungs[tag]["wall_s"] for tag in SCALING_CUT_PARTS)
     path_s = time.perf_counter() - t_phase
     kernels = scaling_kernel_rows(ck)
     phase_s = time.perf_counter() - t_phase
     log("scaling", f"phase time {phase_s:.1f} s ({path_s:.1f} s the rungs and "
-        "their checks; the budget is about 300 s)")
+        f"their checks, {split_s:.1f} s of it the split rungs' parts; the "
+        "budget is about 520 s)")
     return dict(rungs=rungs, kernels=kernels, phase_s=phase_s, path_s=path_s)
 
 
@@ -3874,6 +4035,259 @@ def scaling_uncut(ck, tags: list[str]) -> list[dict]:
             f"{cfg.data.shots_train} / {cfg.data.shots_infer} shots a basis")
         runs.append(scaling_run(ck, tag, cfg, data_cut=False))
     return runs
+
+
+def describe_split(parts: dict) -> str:
+    """One line of a rung's split: each part's CE epochs, distillation
+    steps and tail."""
+    def one(name, p):
+        what = []
+        if "ce" in p:
+            what.append(f"CE epochs {p['ce'][0] + 1}-{p['ce'][1]}")
+        else:
+            what.append("warm start")
+        if p.get("steps"):
+            what.append(f"{p['steps']} distillation steps")
+        if p.get("eval"):
+            what.append("generation and estimators")
+        return f"{name}: " + ", ".join(what)
+    return "; ".join(one(k, p) for k, p in parts.items())
+
+
+def part_files(tag: str, parts: dict, part: str, in_dir: str, out_dir: str,
+               data: str | None = None, mle_target: bool = False) -> dict:
+    """Where part ``part`` of a split rung reads and writes: ``needs`` (the
+    files it reads, which must exist before it starts), the checkpoint it
+    resumes from, the epoch it stops after, the ``chain_key_salt`` offset,
+    and the ``run_experiment`` arguments (the data cache among them) that
+    chain it to the previous part (with ``mle_target`` the distilling parts
+    share the MLE target's cache). Raises ``ValueError`` for a split that
+    cannot run (a part that stops CE early and also distils or evaluates,
+    a stop that is not on a checkpoint, an unknown part)."""
+    if part not in parts:
+        raise ValueError(f"{tag}: no part {part!r}; parts: {list(parts)}")
+    names = list(parts)
+    k, spec = names.index(part), parts[part]
+    prev = parts[names[k - 1]] if k else None
+    salt = sum(bool(parts[p].get("steps")) for p in names[:k])
+
+    def inp(name):
+        return os.path.join(in_dir, f"{tag}_{name}")
+
+    def outp(name):
+        return os.path.join(out_dir, f"{tag}_{name}")
+
+    if data is None:
+        data = (repo_file(SCALING_DATA[tag]) if tag in SCALING_DATA
+                else inp("data.npz") if k else outp("data.npz"))
+    needs = [data] if k or tag in SCALING_DATA else []
+    kw = dict(data_cache=data)
+    out = dict(needs=needs, kw=kw, salt=salt, resume_from="", stop=None)
+    if "ce" in spec:
+        a, b = spec["ce"]
+        out["stop"] = b if b < spec.get("total", b) else None
+        if out["stop"] is not None and (spec.get("steps")
+                                        or spec.get("eval")):
+            raise ValueError(f"{tag} {part}: a part that stops CE early "
+                             "neither distils nor evaluates")
+        if b % spec["every"]:
+            raise ValueError(f"{tag} {part}: CE stops at epoch {b}, not on a "
+                             f"checkpoint (every {spec['every']})")
+        if a:
+            out["resume_from"] = os.path.join(inp("ckpt"), str(a))
+            needs.append(os.path.join(out["resume_from"], "checkpoint.pt"))
+    else:
+        kw["params_load"] = inp(f"{names[k - 1]}_params.pt")
+        needs.append(kw["params_load"])
+        if prev.get("steps"):
+            kw["opt_load"] = inp(f"{names[k - 1]}_opt.pt")
+            needs.append(kw["opt_load"])
+    if spec.get("steps") and mle_target:
+        kw["target_cache"] = inp("target.npz") if salt else outp("target.npz")
+        if salt:
+            needs.append(kw["target_cache"])
+    return out
+
+
+def part_setup(tag: str, part: str, in_dir: str, out_dir: str, cut: bool,
+               cfg=None, parts: dict | None = None,
+               data: str | None = None) -> tuple:
+    """The rung's config (with ``cut``, its CE epochs cut to the cut
+    split's), its split (each part with the CE total) and the part's files
+    (``part_files``); raises ``FileNotFoundError`` when a file the part
+    reads is missing."""
+    import dataclasses
+
+    if parts is None:
+        parts = (SCALING_CUT_PARTS if cut else SCALING_PARTS)[tag]
+    if cfg is None:
+        cfg = scaling_rung(tag)
+        if cut:
+            total = max(p["ce"][1] for p in parts.values() if "ce" in p)
+            log("scaling", f"{tag}: CUT num_epochs {cfg.train.num_epochs} -> "
+                f"{total}")
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                        num_epochs=total))
+    parts = {k: dict(p, total=cfg.train.num_epochs) for k, p in parts.items()}
+    plan = part_files(tag, parts, part, in_dir, out_dir, data,
+                      mle_target=cfg.train.chain_target == "mle")
+    missing = [p for p in plan["needs"] if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(
+            f"{tag} {part}: missing {missing}; move the previous part's "
+            f"outputs into {in_dir} first")
+    return cfg, parts, plan
+
+
+def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
+                 cut: bool = False, *, cfg=None, parts: dict | None = None,
+                 data: str | None = None,
+                 device: str = "cuda") -> tuple[dict, dict, dict]:
+    """``--scaling-part TAG PART IN_DIR OUT_DIR``: one part of a rung split
+    across processes (``SCALING_PARTS``, or with ``cut`` the default run's
+    ``SCALING_CUT_PARTS``), through ``run_experiment`` with the recipe
+    unchanged. It refuses to start (``FileNotFoundError``, before any work)
+    when a file it reads is missing: the rung's data, the previous part's
+    checkpoint, parameters or Adam state under ``IN_DIR``. It writes under
+    ``OUT_DIR``: a CE part that stops early its one checkpoint
+    (``TAG_ckpt/<epoch>/``), a part that neither stops nor evaluates its
+    parameters and Adam state (``TAG_PART_params.pt`` / ``_opt.pt``), the
+    first part without committed data ``TAG_data.npz``, the first that
+    distils against the MLE target ``TAG_target.npz`` (the mode adds the
+    record, ``TAG_PART.json``). Returns ``(record, result, role record)``;
+    ``cfg``, ``parts``, ``data`` and ``device`` stand in for the rung's for
+    a test on the CPU. The evaluation's checks are ``scaling_part_checks``."""
+    import dataclasses
+
+    cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut, cfg,
+                                  parts, data)
+    tr, spec, kw = cfg.train, parts[part], plan["kw"]
+    log("scaling", f"{tag} part {part}{' (CUT)' if cut else ''}, split "
+        f"{describe_split(parts)}; {tr.num_epochs} CE epochs in all")
+    os.makedirs(out_dir, exist_ok=True)
+    names = list(parts)
+    steps = spec.get("steps", 0)
+    train_kw = dict(chain_finetune_steps=steps,
+                    chain_key_salt=tr.chain_key_salt + plan["salt"],
+                    log_every=tr.log_every or (1 if cut else 25))
+    tmp = None
+    if "ce" in spec and (spec["ce"][0] or plan["stop"] is not None):
+        if plan["stop"] is not None:
+            ckpt_dir = os.path.join(out_dir, f"{tag}_ckpt")
+        else:
+            tmp = ckpt_dir = tempfile.mkdtemp(prefix=f"{tag}_ckpt_")
+        if plan["resume_from"]:
+            dst = os.path.join(ckpt_dir, str(spec["ce"][0]))
+            if os.path.abspath(dst) != os.path.abspath(plan["resume_from"]):
+                shutil.copytree(plan["resume_from"], dst, dirs_exist_ok=True)
+        train_kw.update(checkpoint_dir=ckpt_dir,
+                        checkpoint_every=spec["every"],
+                        resume=bool(spec["ce"][0]))
+    if not spec.get("eval") and plan["stop"] is None:
+        kw.update(stop_after="distill",
+                  params_save=os.path.join(out_dir, f"{tag}_{part}_params.pt"))
+        if steps:
+            kw["opt_save"] = os.path.join(out_dir, f"{tag}_{part}_opt.pt")
+    pcfg = cfg.replace(train=dataclasses.replace(tr, **train_kw))
+    try:
+        stop = (_CeStop(plan["stop"]) if plan["stop"] is not None
+                else contextlib.nullcontext())
+        with stop:
+            res, rec = _role(ck, f"{tag} {part}", pcfg, device=device, **kw)
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(tag=tag, part=part, cut=cut, split=describe_split(parts),
+               parts=names, **{k: v for k, v in rec.items()
+                              if k not in ("log", "log_s")})
+    if plan["stop"] is not None:
+        check(res.get("ce_stopped_at") == plan["stop"],
+              f"{tag} {part}: CE stopped after epoch {plan['stop']}'s "
+              "checkpoint")
+        from ddqst_tpu_torch.utils import checkpoint as C
+
+        kept = C._steps(train_kw["checkpoint_dir"])
+        check(kept == [plan["stop"]], f"{tag} {part}: one checkpoint kept, "
+              f"epoch {plan['stop']} ({kept})")
+        # The stage seconds from the log: the data until fit's first line.
+        t_fit = next(t for m, t in zip(rec["log"], rec["log_s"])
+                     if "training on" in m)
+        a, b = spec["ce"]
+        n_steps = (b - a) * max(3**cfg.data.num_qubits * cfg.data.shots_train
+                                // tr.batch_size, 1)
+        out.update(timings=dict(datagen=t_fit, train=rec["wall_s"] - t_fit),
+                   ce_epochs=[a, b], train_steps=n_steps,
+                   ms_per_step=(rec["wall_s"] - t_fit) * 1e3 / n_steps)
+        log("scaling", f"{tag} {part}: CE stopped after epoch {b} "
+            f"({n_steps} steps, {out['ms_per_step']:.3f} ms a step); "
+            f"checkpoint {os.path.join(train_kw['checkpoint_dir'], str(b))}")
+    else:
+        out.update(train_steps=res.get("train_steps"),
+                   ce_epochs=list(spec["ce"]) if "ce" in spec else None)
+        if res.get("train_steps") and "timings" in res:
+            out["ms_per_step"] = (res["timings"]["train"] * 1e3
+                                  / res["train_steps"])
+        info = res.get("chain_info") or res.get("ft_info")
+        if info is not None:
+            out.update(ce_before=info["train_ce_before"],
+                       ce_after=info["train_ce_after"],
+                       distill_steps_run=len(res["ft_losses"]))
+            if "best_step" in info:
+                out.update(best_step=info["best_step"],
+                           best_val_ce=info["best_val_ce"])
+    return out, res, rec
+
+
+def scaling_part_checks(ck, tag: str, cfg, res: dict, rec: dict,
+                        cut: bool) -> dict:
+    """An evaluating part's checks: the rung's (``scaling_checks``; MLE on
+    the raw counts held to 0.999 only uncut, the cut capping every solve),
+    the raw-inversion fidelity equal to the JAX package's on the same file
+    within ``SCALING_DATA_RAW_TOL`` and, uncut, MLE on the raw counts within
+    ``SCALING_DATA_MLE_TOL`` of the JAX package's solve; then the generative
+    fidelity beside the reference's row (recorded, not held): agreement when
+    at most ``REFERENCE_FIDELITY_MARGIN`` below it."""
+    info = res.get("chain_info")
+    if info is not None:
+        check(np.isfinite(res["ft_losses"]).all(), f"{tag}: finite losses")
+        if "best_step" in info:
+            check(info["best_val_ce"] <= info["val_history"][0][1]
+                  and info["train_ce_after"] <= info["train_ce_before"] + 1e-6,
+                  f"{tag}: the held-out selection is no worse than step 0")
+    out = scaling_checks(ck, tag, cfg, res, rec, data_cut=cut)
+    jax_side = SCALING_DATA_JAX.get(tag)
+    if jax_side is not None:
+        err = abs(res["raw_fidelity"] - jax_side["raw_fidelity"])
+        log("scaling", f"{tag}: raw inversion {res['raw_fidelity']:.7f} vs "
+            f"the JAX package's {jax_side['raw_fidelity']:.7f} on the same "
+            f"file: |diff| {err:.2e}")
+        check(err <= SCALING_DATA_RAW_TOL, f"{tag}: raw inversion equals the "
+              f"JAX package's within {SCALING_DATA_RAW_TOL}")
+        out["raw_fidelity_jax"] = jax_side["raw_fidelity"]
+        if not cut:
+            err = abs(res["raw_fidelity_mitigated"]
+                      - jax_side["raw_fidelity_mitigated"])
+            log("scaling", f"{tag}: MLE on raw "
+                f"{res['raw_fidelity_mitigated']:.7f} "
+                f"({res['mle_iterations']['raw']} iterations) vs the JAX "
+                f"package's {jax_side['raw_fidelity_mitigated']:.7f} "
+                f"({jax_side['mle_iterations']}): |diff| {err:.2e}")
+            check(err <= SCALING_DATA_MLE_TOL, f"{tag}: MLE on raw within "
+                  f"{SCALING_DATA_MLE_TOL} of the JAX package's solve")
+            out["raw_fidelity_mitigated_jax"] = jax_side[
+                "raw_fidelity_mitigated"]
+    ref = dict(REFERENCE_SCALING[tag], **REFERENCE_RUN.get(tag, {}))
+    gap = res["fidelity"] - ref["fidelity"]
+    out["verdict"] = ("cut, not compared" if cut else "above the row"
+                      if gap > 0 else "agreement"
+                      if gap >= -REFERENCE_FIDELITY_MARGIN else "miss")
+    log("scaling", f"{tag}: fidelity {res['fidelity']:.5f} vs the reference's "
+        f"{ref['fidelity']:.5f} ({gap:+.5f}: {out['verdict']}); trace "
+        f"distance {res['trace_distance']:.5f} vs "
+        f"{ref.get('trace_distance')}; "
+        f"held-out step {out.get('best_step')} vs {ref.get('best_step')}; "
+        f"chain CE {out.get('ce_before')} -> {out.get('ce_after')}")
+    return out
 
 
 def scaling_costs() -> dict:
@@ -4057,6 +4471,37 @@ def main() -> int:
             scaling_rung(tag)  # an unknown tag raises before any work
         build_all(_build)
         print(json.dumps({"scaling_uncut": scaling_uncut(ck, tags),
+                          "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--scaling-part"]:
+        # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
+        # [--cut]: one part of a split rung (SCALING_PARTS), its record
+        # written to OUT_DIR/TAG_PART.json and printed as one JSON line.
+        args = [a for a in sys.argv[2:] if a != "--cut"]
+        cut = "--cut" in sys.argv[2:]
+        if len(args) != 4:
+            print("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
+                  "OUT_DIR [--cut]", file=sys.stderr)
+            return 2
+        tag, part, in_dir, out_dir = args
+        cfg, parts, _ = part_setup(tag, part, in_dir, out_dir, cut)
+        build_all(_build)
+        with (_MleCapped(SCALING_MLE_ITERS[tag]) if cut
+              else contextlib.nullcontext()):
+            out, res, rec = scaling_part(ck, tag, part, in_dir, out_dir, cut,
+                                         cfg=cfg)
+            if parts[part].get("eval"):
+                out.update(scaling_part_checks(ck, tag, cfg, res, rec, cut))
+        out["card"] = smi
+        with open(os.path.join(out_dir, f"{tag}_{part}.json"), "w") as f:
+            json.dump(out, f)
+        print(json.dumps({"scaling_part": out}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--scaling-cut"]:
+        # python3 chip_smoke.py --scaling-cut TAG: only the default run's
+        # cut of a split rung, through its parts, and one JSON line.
+        build_all(_build)
+        print(json.dumps({"scaling_cut": scaling_split_cut(sys.argv[2]),
                           "card": smi}), flush=True)
         return 0
     if sys.argv[1:2] == ["--scaling-costs"]:

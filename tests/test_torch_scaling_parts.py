@@ -1,0 +1,256 @@
+"""The RQC-6 rung's committed seed-0 data and the split-rung parts of
+``chip_smoke.py`` (``--scaling-part``) on the CPU.
+
+(a) ``examples/reference_data/rqc6_auto_seed0.npz`` equals a fresh
+``ddqst_tpu.pipeline.ensure_data_cache`` of ``scripts/run_scaling_ghz.py``'s
+``rqc6_auto`` config at seed 0, array for array, and ``chip_smoke``'s copy
+of that config is the script's; (b) the port reads the same counts from it
+and its raw-inversion fidelity equals ``ddqst_tpu``'s within 1e-6 (and
+``chip_smoke.SCALING_DATA_JAX``'s record); (c) MLE on the raw counts capped
+at 20 iterations gives ρ within 2e-4 of ``ddqst_tpu``'s, in as many
+iterations; (d) at a tiny config (N = 3, width 16, T = 4, 2 epochs) a CE
+stopped after epoch 1 and resumed in a second part gives the parameters,
+losses and metrics of one uninterrupted ``run_experiment`` bit for bit, and
+a GHZ-7-shaped split (CE halves, two chained distillation parts on a shared
+MLE target, an eval part) runs through its files; (e) a part whose inputs
+are missing raises before any work; (f) the splits cover the recipes.
+"""
+
+import dataclasses
+import importlib.util
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from ddqst_tpu import pipeline as jpipe
+from ddqst_tpu.ops import mle as jmle
+from ddqst_tpu.ops.complexlib import to_complex
+from ddqst_tpu_torch import pipeline as tpipe
+from ddqst_tpu_torch.ops import cuda_kernels as ck
+from ddqst_tpu_torch.ops import metrics as tM
+from ddqst_tpu_torch.ops import mle as tmle
+from ddqst_tpu_torch.ops import pauli as tpauli
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, chip_smoke.SCALING_DATA["rqc6_auto"])
+RAW_ATOL = 1e-6  # the raw (linear) inversion's fidelity
+RHO_ATOL = 2e-4  # per entry of ρ, as tests/test_torch_mle.py holds the MLE
+MLE_ITERS = 20
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_reference_data", os.path.join(ROOT, "tools",
+                                            "make_reference_data.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def rqc6(tmp_path_factory):
+    """The JAX config, a fresh JAX cache at seed 0, the committed file as
+    each package reads it."""
+    tool = _tool()
+    cfg = tool.rung_cfg("rqc6_auto")
+    fresh = str(tmp_path_factory.mktemp("rqc6") / "fresh.npz")
+    jpipe.ensure_data_cache(cfg, 0, fresh, log_fn=lambda m: None)
+    return dict(tool=tool, cfg=cfg, fresh=fresh,
+                jax=jpipe.load_data_cache(DATA),
+                port=tpipe.load_data_cache(DATA, "cpu"))
+
+
+def test_committed_data_is_a_fresh_jax_cache(rqc6):
+    with np.load(DATA) as got, np.load(rqc6["fresh"]) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert got["bits"].shape == (3**6, 5000, 6)
+
+
+def test_chip_smoke_rung_is_the_scripts(rqc6):
+    """``chip_smoke.scaling_rung('rqc6_auto')`` is
+    ``scripts/run_scaling_ghz.py``'s config, field for field."""
+    want = dataclasses.asdict(rqc6["cfg"])
+    got = dataclasses.asdict(chip_smoke.scaling_rung("rqc6_auto"))
+    for section in ("model", "diffusion", "train", "data"):
+        common = set(want[section]) & set(got[section])
+        assert {k: got[section][k] for k in common} == {
+            k: want[section][k] for k in common}, section
+    assert got["name"] == want["name"]
+
+
+def test_port_reads_the_same_counts_and_raw_inversion(rqc6):
+    jd, td = rqc6["jax"], rqc6["port"]
+    np.testing.assert_array_equal(
+        tmle.bits_to_counts(td.bits).numpy(),
+        np.asarray(jmle.bits_to_counts(jd.bits)))
+    np.testing.assert_array_equal(td.basis_labels, jd.basis_labels)
+    want = rqc6["tool"].data_side(rqc6["cfg"], jd, mle_iterations=1)
+    raw = tmle.bits_to_counts(td.bits)
+    rho = tpauli.make_counts_inverter(6, td.basis_labels)(raw)
+    got = float(tM.state_fidelity(torch.from_numpy(td.target), rho))
+    assert abs(got - want["raw_fidelity"]) <= RAW_ATOL
+    rec = chip_smoke.SCALING_DATA_JAX["rqc6_auto"]
+    assert abs(want["raw_fidelity"] - rec["raw_fidelity"]) <= RAW_ATOL
+
+
+def test_mle_on_raw_capped_matches_jax(rqc6):
+    jd, td = rqc6["jax"], rqc6["port"]
+    with rqc6["tool"].CountedSolve() as solve:
+        want = jmle.make_mle(6, jd.basis_labels, readout_p=0.01,
+                             iterations=MLE_ITERS)(
+            jmle.bits_to_counts(jd.bits).astype(jnp.float32))
+    info: dict = {}
+    got = tmle.make_mle(6, td.basis_labels, readout_p=0.01,
+                        iterations=MLE_ITERS)(tmle.bits_to_counts(td.bits),
+                                              info)
+    assert info["iterations"] == solve.iterations[0] == MLE_ITERS
+    np.testing.assert_allclose(got.numpy(), np.asarray(to_complex(want)),
+                               atol=RHO_ATOL)
+
+
+def _tiny(target: str = "counts", val_fraction: float = 0.15):
+    """The RQC-6 recipe's stack at N = 3, width 16, T = 4, 2 epochs."""
+    cfg = chip_smoke.auto_recipe(
+        chip_smoke.quality_cfg("tiny", num_qubits=3, state="rqc",
+                               shots_train=200, shots_infer=300),
+        epochs=2, steps=2, steps_per_call=1, target=target,
+        val_fraction=val_fraction)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, embed_dim=16, hidden_dim=16,
+                                  num_blocks=1),
+        diffusion=dataclasses.replace(cfg.diffusion, num_timesteps=4))
+
+
+TINY_SPLIT = {"ce1": dict(ce=(0, 1), every=1),
+              "ce2": dict(ce=(1, 2), every=1, steps=2, eval=True)}
+
+
+def _part(tmp, part, parts, cfg, data, **kw):
+    with chip_smoke._MleCapped(30):
+        return chip_smoke.scaling_part(ck, "tiny", part, str(tmp), str(tmp),
+                                       cfg=cfg, parts=parts, data=data,
+                                       device="cpu", **kw)
+
+
+def test_split_ce_equals_one_run(tmp_path):
+    cfg = _tiny()
+    data = tpipe.ensure_data_cache(cfg, 0, str(tmp_path / "data.npz"),
+                                   log_fn=lambda m: None, device="cpu")
+    with chip_smoke._MleCapped(30):
+        want = tpipe.run_experiment(cfg, seed=0, device="cpu",
+                                    data_cache=data, log_fn=lambda m: None)
+    work = tmp_path / "work"
+    out1, res1, _ = _part(work, "ce1", TINY_SPLIT, cfg, data)
+    assert res1 == {"ce_stopped_at": 1} and out1["ce_epochs"] == [0, 1]
+    assert sorted(os.listdir(work / "tiny_ckpt")) == ["1"]
+    out2, got, _ = _part(work, "ce2", TINY_SPLIT, cfg, data)
+    assert sorted(os.listdir(work / "tiny_ckpt")) == ["1"]
+    assert got["train_steps"] == want["train_steps"] // 2
+    np.testing.assert_array_equal(got["losses"], want["losses"][1:])
+    for (k, p), q in zip(got["state"].state_dict().items(),
+                         want["state"].state_dict().values()):
+        assert torch.equal(p, q), k
+    np.testing.assert_array_equal(got["ft_losses"], want["ft_losses"])
+    for k in ("fidelity", "raw_fidelity", "raw_fidelity_mitigated",
+              "trace_distance"):
+        assert got[k] == want[k], k
+    assert out2["best_step"] == want["chain_info"]["best_step"]
+    assert torch.equal(got["samples"], want["samples"])
+
+
+def test_ghz7_shaped_split_chains_its_files(tmp_path):
+    """CE halves, two distillation parts chained by their parameters, Adam
+    state (``chain_key_salt`` + k) and one MLE target cache, then the eval
+    part; the data written by the first part and read by the rest."""
+    cfg = _tiny(target="mle", val_fraction=0.0)
+    parts = {"ce1": dict(ce=(0, 1), every=1), "ce2": dict(ce=(1, 2), every=1),
+             "d1": dict(steps=1), "d2": dict(steps=2), "eval": dict(eval=True)}
+    outs = {}
+    for part in parts:
+        outs[part], res, rec = _part(tmp_path, part, parts, cfg, None)
+    files = set(os.listdir(tmp_path))
+    assert {"tiny_data.npz", "tiny_target.npz", "tiny_ce2_params.pt",
+            "tiny_d1_params.pt", "tiny_d1_opt.pt", "tiny_d2_params.pt",
+            "tiny_d2_opt.pt"} <= files
+    assert outs["d1"]["distill_steps_run"] == 1
+    assert outs["d2"]["distill_steps_run"] == 2
+    assert torch.load(tmp_path / "tiny_d2_opt.pt",
+                      weights_only=True)["count"] == 3
+    assert abs(outs["d2"]["ce_before"] - outs["d1"]["ce_after"]) <= (
+        1e-5 * outs["d1"]["ce_after"])
+    assert "chain_info" not in res and np.isfinite(res["fidelity"])
+
+
+@pytest.mark.parametrize("part", ["ce2", "d1"])
+def test_part_with_missing_inputs_refuses_before_work(tmp_path, part):
+    parts = {"ce1": dict(ce=(0, 1), every=1), "ce2": dict(ce=(1, 2), every=1),
+             "d1": dict(steps=1)}
+    ck.fused_chain_walk.launches = 7
+    out = tmp_path / "out"
+    with pytest.raises(FileNotFoundError, match="missing"):
+        chip_smoke.scaling_part(ck, "tiny", part, str(tmp_path / "in"),
+                                str(out), cfg=_tiny(), parts=parts,
+                                data=str(tmp_path / "data.npz"),
+                                device="cpu")
+    assert not out.exists() and ck.fused_chain_walk.launches == 7
+
+
+def test_committed_rung_refuses_without_its_checkpoint(tmp_path):
+    with pytest.raises(FileNotFoundError, match="rqc6_auto_ckpt"):
+        chip_smoke.part_setup("rqc6_auto", "ce2", str(tmp_path),
+                              str(tmp_path), cut=False)
+    # ce1 needs only the committed file.
+    chip_smoke.part_setup("rqc6_auto", "ce1", str(tmp_path), str(tmp_path),
+                          cut=False)
+
+
+@pytest.mark.parametrize("tag,cut,epochs,steps", [
+    ("rqc6_auto", False, 150, 800), ("ghz7_mle_hot", False, 60, 1600),
+    ("rqc6_auto", True, 2, 10)])
+def test_splits_cover_the_recipe(tag, cut, epochs, steps):
+    parts = (chip_smoke.SCALING_CUT_PARTS if cut
+             else chip_smoke.SCALING_PARTS)[tag]
+    cfg = chip_smoke.scaling_rung(tag)
+    ces = [p["ce"] for p in parts.values() if "ce" in p]
+    assert ces[0][0] == 0 and all(a[1] == b[0] for a, b in zip(ces, ces[1:]))
+    assert ces[-1][1] == epochs
+    if not cut:
+        assert epochs == cfg.train.num_epochs
+        assert steps == cfg.train.chain_finetune_steps
+    assert sum(p.get("steps", 0) for p in parts.values()) == steps
+    assert [k for k, p in parts.items() if p.get("eval")] == [list(parts)[-1]]
+    for part in parts:  # every part's files resolve
+        chip_smoke.part_files(tag, {k: dict(p, total=epochs)
+                                    for k, p in parts.items()}, part, "i",
+                              "o", mle_target=cfg.train.chain_target == "mle")
+
+
+def test_cut_split_runs_the_cut_epochs(tmp_path):
+    """The default run's cut trains 2 CE epochs in all (the cosine
+    schedule's length), and its first part needs only the committed data."""
+    cfg, parts, plan = chip_smoke.part_setup("rqc6_auto", "ce1",
+                                             str(tmp_path), str(tmp_path),
+                                             cut=True)
+    assert cfg.train.num_epochs == 2 and plan["stop"] == 1
+    assert cfg.train.chain_finetune_steps == 800  # each part sets its own
+    with pytest.raises(FileNotFoundError, match="rqc6_auto_ckpt"):
+        chip_smoke.part_setup("rqc6_auto", "ce2", str(tmp_path),
+                              str(tmp_path), cut=True)
+
+
+def test_a_stop_off_its_checkpoint_is_refused():
+    with pytest.raises(ValueError, match="not on a checkpoint"):
+        chip_smoke.part_files("x", {"ce1": dict(ce=(0, 3), every=2, total=4)},
+                              "ce1", "i", "o")
+    with pytest.raises(ValueError, match="neither distils"):
+        chip_smoke.part_files("x", {"ce1": dict(ce=(0, 2), every=2, total=4,
+                                                steps=3)}, "ce1", "i", "o")
