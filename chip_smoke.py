@@ -39,15 +39,17 @@ result line is printed; nothing falls back to the CPU):
    each at every block size; then from N = 8 on at the shadow route's shape
    (T=100, C=100, N=10, S=5,000), at a ragged S there, at N = 8, 9 and 11,
    at the ring body's tails (T = 7, 3 and 1 at N = 8 and 10, T = 5 at
-   N = 11), and at N = 12 to 16 with a ragged S, an odd T and T = 1 at
-   each N (S >= 2^N at N = 12 and 13): the plan's body (the ring body up to
+   N = 11), at N = 12 to 16 with a ragged S, an odd T and T = 1 at
+   each N (S >= 2^N at N = 12 and 13), and at the shadow bench's shape
+   (T=100, C=50, N=10, S=2,000): the plan's body (the ring body up to
    N = 11, the gather body from 12) at every block size and on tables 4
    bytes (from N = 12 also 8 bytes) off 16-byte alignment;
    check that the same seed repeats; check the walk's
    distribution against the exact propagation of its tables (TV within 4
    shot-noise scales) at N = 3, 7 and 10; time kernel and plain version
    with CUDA events at 135,000 and at 27 x 37,037 (about 10^6) chains, at
-   N=7, at the shadow shape, at one call of the chunked sampler at N = 8
+   N=7, at the shadow shape and the shadow bench's, at one call of the
+   chunked sampler at N = 8
    (3^8 rows x 319 chains, 5.4 GB of tables), at the shadow shape with
    N = 11 and 12 and at 5,000 chains a row with N = 13 to 16 (50, 25, 12
    and 6 rows), the kernel also at other block sizes;
@@ -119,25 +121,37 @@ result line is printed; nothing falls back to the CPU):
    the stage seconds, the ms per distillation step and the MLE solves'
    iterations and seconds.
 
+7b. bench — the port's bench (``ddqst_tpu_torch.bench``, the counterpart
+   of ``bench.py``) at ``bench.py``'s full sizes: training steps/s at the
+   ``rqc`` width (40 steps an epoch, a warm epoch, 3 repeats of 5 epochs),
+   ``sample_all_bases`` at 27 x 5,000 chains and, with the CUDA walk
+   demanded, at 27 x 37,037, and the ``shadow_transformer`` model's table
+   sampler at 50 bases x 2,000 shots (N=10), each with the launch counts
+   set to 0 just before and read just after: one walk launch and no step
+   launch a call of each sampler (the ring body at N=10), every throughput
+   finite and positive. Its quality keys come from phase distill's runs at
+   their cut depth (printed as a cut). It prints the record on one line,
+   ``{"bench_record": ...}``.
 8. chunked — ``sample_all_bases_chunked`` (``gen_tables_once``) on phase
    3's trained ``rqc`` model: 200,000 shots a basis, the tables once, then
    3 walk launches of at most 2^21 chains (counts set to 0 just before,
    read just after), the samples against the exact chain distribution of
    the model's tables (TV within 4 shot-noise scales per basis).
 9. shadow — ``run_experiment(get_preset("shadow_transformer"), seed=0)`` at
-   full width and uncut (N=10, 100 sampled bases, 1,024 training and 5,000
-   generated shots a basis, transformer 128 / 512 / 4 blocks / 4 heads,
-   T=100, renoise, 30 epochs) on the card, with the launch counts set to 0
+   full width (N=10, 100 sampled bases, 1,024 training and 5,000 generated
+   shots a basis, transformer 128 / 512 / 4 blocks / 4 heads, T=100,
+   renoise), CE training cut to ``SHADOW_EPOCHS_CUT`` of 30 epochs, on the
+   card, with the launch counts set to 0
    just before and read just after: one walk launch (the tables over the
    102,400-row label grid, then one walk of 500,000 chains), no step
    launch. It prints the stage seconds and the quality metrics beside the
    reference's N=10 rows, checks every basis' samples against the exact
-   chain distribution of the trained model's own tables (TV within 4
-   shot-noise scales) and a few table rows against a CPU recompute (1e-5);
-   then a warm-started run (``params_load`` of the first run's
-   ``params_save``) with 3 distillation steps over minibatches of 10 bases
-   and no held-out split, printing ms a step and the chain CE before and
-   after.
+   chain distribution of the tables the walk read (TV within 4 shot-noise
+   scales) and a few of their rows against a CPU recompute (1e-5); then a
+   warm-started run (``params_load`` of the first run's ``params_save``)
+   with ``SHADOW_DISTILL_STEPS`` distillation step over a minibatch of 10
+   bases and no held-out split, printing ms a step and the chain CE before
+   and after.
 9b. reference_shadow — the port's shadow route at full width on the
    reference's own model, data and recipe: ``run_experiment`` of
    ``reference_shadow_cfg()`` (``scripts/run_shadow_scale.py``'s
@@ -162,9 +176,10 @@ result line is printed; nothing falls back to the CPU):
    shape against its plain version, bit for bit, and timed.
 9c. shadow_n12 — the shadow route at N = 12: ``run_experiment`` on the
    ``shadow_transformer`` preset with only ``data.num_qubits`` set to 12,
-   at full width and uncut (100 sampled bases of 1,024 shots, RQC depth 8,
-   readout noise, transformer 128 / 512 / 4 blocks / 4 heads, T=100,
-   cosine, renoise, 30 epochs, 5,000 generated shots a basis), with the
+   at full width (100 sampled bases of 1,024 shots, RQC depth 8, readout
+   noise, transformer 128 / 512 / 4 blocks / 4 heads, T=100, cosine,
+   renoise, 5,000 generated shots a basis), training cut to
+   ``SHADOW_EPOCHS_CUT`` of 30 epochs, with the
    launch counts set to 0 just before and read just after: the tables over
    the 409,600-row label grid (1.97 GB), then one walk of 500,000 chains on
    the gather body and no step launch. Checks: every basis' samples
@@ -177,7 +192,7 @@ result line is printed; nothing falls back to the CPU):
    memory and the quality metrics beside phase shadow's at N = 10.
 
 10. notebook — ``run_experiment(get_preset("notebook_simple"), seed=0)`` and
-   ``notebook_upgraded``, uncut (PlainMLP, 200 / 300 epochs, N=1, 1,024
+   ``notebook_upgraded`` (PlainMLP, 200 epochs / 100 of 300, N=1, 1,024
    shots a basis, T=100, notebook schedule, renoise), each with the launch
    counts set to 0 just before and read just after: one walk launch, no
    step launch. It prints the stage seconds, the fidelity and the raw
@@ -201,7 +216,7 @@ result line is printed; nothing falls back to the CPU):
    recompute of the same bf16 model (mean absolute difference within
    ``BF16_TABLE_TOL``, which the same weights' float32 tables on the card
    must exceed); then the ``rqc`` and
-   the ``shadow_transformer`` widths' training, cut to 162 and 200 steps,
+   the ``shadow_transformer`` widths' training, cut to 81 and 100 steps,
    warm, at float32 and at bfloat16 in turns, steps/s of each.
 13. train_profile — 20 training steps of ``fit`` inside the port's
    ``utils.profiling.trace``, after a warm-up, at the
@@ -215,7 +230,8 @@ result line is printed; nothing falls back to the CPU):
    joined as ``torchrun`` joins them (gloo: NCCL refuses two ranks on one
    device). There, ``make_mesh(data=2)``: the same fit, whose losses must
    equal one process's at rtol 2e-4, atol 2e-5, then the ``rqc`` preset
-   uncut through ``run_experiment(mesh=)`` with the launch counts set to 0
+   with its training cut to ``MESH_DP_RUN_EPOCHS`` through
+   ``run_experiment(mesh=)`` with the launch counts set to 0
    just before and read just after (one walk launch a rank, no step
    launch; both ranks the same rho, fidelity and samples, bit for bit; the
    samples against the exact chain, the fidelity within 0.02 of its
@@ -249,8 +265,9 @@ result line is printed; nothing falls back to the CPU):
    that file within 1e-5.
    Each run has its launch counts and peak memory set to 0 just before and
    read just after, and must launch as ``SCALING_PLAN`` says (3 walks at
-   N=5, 4 staged walks at N=6, 600 step launches at N=7, 10 ring walks at
-   N=8; none in a part that only trains). Per rung: the
+   N=5, 4 staged walks at N=6, 600 step launches at N=7 (100 at the cut's
+   834 generated shots, ``SCALING_PLAN_CUT``), 10 ring walks at N=8; none
+   in a part that only trains). Per rung: the
    samples within 4 shot-noise scales (TV) of the model's exact chain in
    every basis (at N=8 the float64 propagation of the tables the walks read,
    a few rows held against a recompute), the fidelity within 0.02 of the
@@ -270,6 +287,11 @@ To compare two checkouts' kernels on one card, ``python3 chip_smoke.py
 --time-kernels [DIR]`` builds and times only the kernels of the checkout at
 DIR (default: this one), with this script's timer and inputs, and prints one
 JSON line; run it in turns (old, new, new, old) on one card.
+
+``python3 chip_smoke.py --bench [ARGS]`` runs only the port's bench,
+``python -m ddqst_tpu_torch.bench ARGS``, in this process: by default at
+``bench.py``'s full depth (300 epochs, up to 800 distillation steps, GHZ-3
+at seeds 0-2); its record is the last line.
 
 ``python3 chip_smoke.py --full-depth [SEEDS]`` runs only the distill phase,
 uncut (300 epochs, up to 800 distillation steps): GHZ-3 and RQC-3 at seed
@@ -865,7 +887,8 @@ def phase_kernel(ck) -> dict:
     # there, N = 8, 9 and 11, and its tails: an odd T (a short last stage
     # load) and T below its stages x steps a stage (8 at N = 8, 4 at N = 10,
     # 2 at N = 11); then the gather body from N = 12 to 16: ragged S, odd T
-    # and T = 1 at each N, S >= 2^N at N = 12 and 13.
+    # and T = 1 at each N, S >= 2^N at N = 12 and 13; last the shadow
+    # bench's shape (the ring body at 50 rows x 2,000 chains).
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
               (100, 27, 6, 1237), (100, 3, 1, 1024),
@@ -877,7 +900,7 @@ def phase_kernel(ck) -> dict:
               (1, 3, 12, 5000), (9, 5, 13, 1237), (3, 2, 13, 8193),
               (1, 4, 13, 999), (8, 3, 14, 1237), (1, 3, 14, 777),
               (7, 2, 15, 1001), (1, 2, 15, 513), (6, 2, 16, 1237),
-              (3, 1, 16, 999), (1, 2, 16, 4097)]
+              (3, 1, 16, 999), (1, 2, 16, 4097), (100, 50, 10, 2000)]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -934,7 +957,8 @@ def phase_kernel(ck) -> dict:
     rec = {}
     # (label, C, N, S, kernel iterations, plain iterations): the shapes of
     # the paths: rqc, 10^6 chains, the bench recipes, N = 7, the shadow
-    # route (100 sampled bases at N = 10), one walk call of
+    # route (100 sampled bases at N = 10), the shadow bench's (50 bases of
+    # 2,000 chains: bench.py's N=10 table sampler), one walk call of
     # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
     # a row, 5.4 GB of tables), the shadow shape at N = 11 (no path runs
     # it) and, for the gather body, at N = 12 (phase shadow_n12's shape), 13
@@ -946,6 +970,7 @@ def phase_kernel(ck) -> dict:
                                        ("bench", 27, 3, 50000, 20, 2),
                                        ("n7", 27, 7, 5000, 20, 2),
                                        ("shadow", 100, 10, 5000, 20, 1),
+                                       ("shadow_bench", 50, 10, 2000, 20, 1),
                                        ("n8_grid", 3**8, 8, 319, 5, 1),
                                        ("n11", 100, 11, 5000, 10, 1),
                                        ("n12", 100, 12, 5000, 5, 1),
@@ -1526,38 +1551,14 @@ REFERENCE_FIDELITY = {
     "rqc": dict(fidelity=0.99811),
 }
 # (CE epochs, distillation steps) of the default run; the recipe's own depth
-# is 300 epochs and up to 800 steps (--full-depth).
-FULL_DEPTH = (300, 800)
+# is ``ddqst_tpu_torch.bench.FULL_DEPTH``, 300 epochs and up to 800 steps
+# (--full-depth, --bench).
 # Sized for a slow host: a distillation step is bound by the host's launches
 # and took 0.67 to 1.48 s on the machines it was measured on. Cut to this
 # depth so the script stays near 450 s on such a host before its `scaling`
 # phase. At 10 epochs and 10 steps GHZ-3's held-out selection kept step 0
 # on the card and its chain CE did not fall.
 DISTILL_DEPTH = {"ghz": (20, 25), "rqc": (3, 25)}
-
-
-def bench_recipe(kind: str, epochs: int, chain_steps: int):
-    """The reference bench's GHZ-3 (``kind='ghz'``) or RQC-3 (``'rqc'``)
-    end-to-end recipe on the ``rqc`` preset's model, at the given depth."""
-    from ddqst_tpu_torch.config import get_preset
-
-    base = get_preset("rqc")
-    return base.replace(
-        name=f"bench_{kind}3",
-        diffusion=type(base.diffusion)(
-            num_timesteps=100, schedule="cosine", sampler="renoise"),
-        train=type(base.train)(
-            batch_size=1024, learning_rate=1e-3, optimizer="adam",
-            num_epochs=epochs, lr_schedule="cosine", log_every=0,
-            eval_every=0, chain_finetune_steps=chain_steps, chain_lr=3e-4,
-            chain_val_fraction=0.15,
-            chain_target="mle" if kind == "rqc" else "counts"),
-        data=type(base.data)(
-            num_qubits=3, state_type=kind, noise_type="readout",
-            shots_train=20000 if kind == "rqc" else 5000, shots_infer=50000,
-            mitigate_readout=True, mitigate_train_data=True,
-            reconstruction="mle"),
-    )
 
 
 def check_chain_equals_tables(model, sched, exact, what: str) -> torch.Tensor:
@@ -1579,6 +1580,7 @@ def check_chain_equals_tables(model, sched, exact, what: str) -> torch.Tensor:
 
 def run_recipe(ck, kind: str, seed: int, depth: tuple[int, int]) -> dict:
     """One recipe through ``run_experiment`` on the card, with its checks."""
+    from ddqst_tpu_torch.bench import FULL_DEPTH, bench_recipe
     from ddqst_tpu_torch.ops import metrics as M
     from ddqst_tpu_torch.ops import mle
     from ddqst_tpu_torch.ops.schedules import make_schedule
@@ -1679,6 +1681,7 @@ def run_recipe(ck, kind: str, seed: int, depth: tuple[int, int]) -> dict:
 def phase_distill(ck, depth: dict, ghz_seeds: int = 1) -> list[dict]:
     """The bench recipes at full width; ``depth`` maps the recipe to its
     (CE epochs, distillation steps)."""
+    from ddqst_tpu_torch.bench import bench_recipe
     from ddqst_tpu_torch.models import build_model
     from ddqst_tpu_torch.models.d3pm import init_params_
     from ddqst_tpu_torch.ops.schedules import make_schedule
@@ -1699,6 +1702,58 @@ def phase_distill(ck, depth: dict, ghz_seeds: int = 1) -> list[dict]:
         runs.append(run_recipe(ck, kind, seed, depth[kind]))
         log("distill", "result " + json.dumps(runs[-1]))
     return runs
+
+
+def phase_bench(ck, distill: list[dict]) -> dict:
+    """The port's bench (``ddqst_tpu_torch.bench``) on the card: its
+    throughput parts at ``bench.py``'s full sizes (training at the ``rqc``
+    width, ``sample_all_bases`` at 27 x 5,000 and at 27 x 37,037 chains
+    with the CUDA walk demanded, the N=10 table sampler at 50 x 2,000), the
+    quality keys from phase distill's recipe runs at their cut depth. With
+    the launch counts set to 0 just before and read just after: each call
+    of a sampling part launches the walk once and the step kernel never,
+    the shadow part's on the ring body. Every throughput finite and
+    positive. Prints the record on one line."""
+    from ddqst_tpu_torch import bench
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    log("bench", "CUT: the quality keys from phase distill's runs ("
+        + ", ".join(f"{k}3 {e} epochs / {s} steps" for k, (e, s)
+                    in DISTILL_DEPTH.items())
+        + f"; bench.py: {bench.FULL_DEPTH[0]} / {bench.FULL_DEPTH[1]}), "
+        "GHZ-3 at seed 0 only (bench.py: seeds 0-2)")
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    parts = bench.measure_throughputs(
+        dev, lambda rec: log("bench", json.dumps(rec)))
+    walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+    for name, rec in parts.items():
+        check(math.isfinite(rec["per_sec"]) and rec["per_sec_min"] > 0,
+              f"bench {name}: throughput {rec['per_sec']} finite, its "
+              f"minimum {rec['per_sec_min']} positive")
+        if name == "train":
+            check(rec["walk_launches"] == rec["step_launches"] == 0,
+                  "bench train: no kernel launch")
+            continue
+        check(rec["walk_launches"] == rec["calls"]
+              and rec["step_launches"] == 0,
+              f"bench {name}: one walk launch and no step launch a call "
+              f"({rec['walk_launches']}, {rec['step_launches']} in "
+              f"{rec['calls']} calls)")
+        log("bench", f"{name}: {rec['per_sec']:.1f} a second (median; min "
+            f"{rec['per_sec_min']:.1f}), tables {rec['timings'].get('tables')}"
+            f" s, walk {rec['timings'].get('walk')} s of one call; walk plan "
+            f"{rec['plan']}; peak {rec['peak_gb']:.2f} GB")
+    check(parts["shadow"]["plan"][3] == "ring",
+          f"the shadow bench's walk took the ring body "
+          f"({parts['shadow']['plan']})")
+    check(walks == sum(parts[k]["calls"] for k in ("sampling", "walk_1m",
+                                                    "shadow")) and steps == 0,
+          f"bench: the launch counts ({walks}, {steps}) are the parts' calls")
+    record = dict(bench.make_record(parts, bench.quality_keys(distill),
+                                    bench.device_info(dev)),
+                  quality=dict(source="phase distill", depth=DISTILL_DEPTH))
+    print(json.dumps({"bench_record": record}), flush=True)
+    return dict(record=record, parts=parts)
 
 
 # The reference's N=10 rows at this preset's data (RESULTS.md, "N=10
@@ -1729,12 +1784,18 @@ REFERENCE_SHADOW = {
 REFERENCE_SNAPSHOT_ROW = "300 bases, the CE snapshot (results_shadow.jsonl:11)"
 REFERENCE_TRAINING_ROWS = ("300 bases, 150 epochs (results_shadow.jsonl:6)",
                            REFERENCE_SNAPSHOT_ROW)
-SHADOW_DISTILL_STEPS = 3
+# Depth cuts of phase shadow, each printed: the preset's 30 CE epochs (also
+# in phase shadow_n12) and the warm-started run's distillation steps (on an
+# H100 a step takes about 3.5 s, each of its two full-grid CE evaluations
+# about 14 s).
+SHADOW_EPOCHS_CUT = 5
+SHADOW_DISTILL_STEPS = 1
 
 
 def phase_shadow(ck) -> dict:
     """The shadow route on the card: the ``shadow_transformer`` preset at
-    full width and uncut, then a warm-started distillation run."""
+    full width, CE training cut to ``SHADOW_EPOCHS_CUT`` epochs, then a
+    warm-started distillation run of ``SHADOW_DISTILL_STEPS``."""
     import dataclasses
 
     from ddqst_tpu_torch.config import get_preset
@@ -1744,6 +1805,10 @@ def phase_shadow(ck) -> dict:
     from ddqst_tpu_torch.pipeline import load_data_cache, run_experiment
 
     cfg = get_preset("shadow_transformer")
+    log("shadow", f"CUT num_epochs {cfg.train.num_epochs} -> "
+        f"{SHADOW_EPOCHS_CUT}")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                num_epochs=SHADOW_EPOCHS_CUT))
     n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
                          cfg.data.shots_infer)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1751,9 +1816,10 @@ def phase_shadow(ck) -> dict:
                          os.path.join(tmp, "data.npz"))
         ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
         t0 = time.perf_counter()
-        res = run_experiment(cfg, seed=0, params_save=params,
-                             data_cache=cache,
-                             log_fn=lambda m: log("shadow", m))
+        with _TablesKept() as kept:
+            res = run_experiment(cfg, seed=0, params_save=params,
+                                 data_cache=cache,
+                                 log_fn=lambda m: log("shadow", m))
         wall = time.perf_counter() - t0
         walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
         plan = ck.fused_chain_walk.last_plan
@@ -1773,8 +1839,9 @@ def phase_shadow(ck) -> dict:
         quality = ("mean_tv_to_target", "tv_shot_noise_floor",
                    "meas_tv_to_target", "mean_marginal_error",
                    "classical_fidelity")
-        log("shadow", "quality (30 epochs, renoise): " + ", ".join(
-            f"{k} {res[k]:.5f}" for k in quality) + f", max_tv_to_target "
+        log("shadow", f"quality ({SHADOW_EPOCHS_CUT} epochs, renoise): "
+            + ", ".join(f"{k} {res[k]:.5f}" for k in quality)
+            + f", max_tv_to_target "
             f"{res['max_tv_to_target']:.5f}, max_marginal_error "
             f"{res['max_marginal_error']:.5f}, z_bias {res['z_bias']}")
         for what, ref in REFERENCE_SHADOW.items():
@@ -1786,27 +1853,19 @@ def phase_shadow(ck) -> dict:
         check(tuple(samples.shape) == (100, shots, n) and samples.is_cuda,
               f"samples [100, {shots}, {n}] on the card")
 
-        # The samples against the exact chain distribution of the trained
-        # model's own tables, every basis.
-        model = res["state"]
+        # The samples against the exact chain distribution of the tables
+        # the walk read (the trained model's own), every basis.
+        model, tables = res["state"], kept.tables
         sched = make_schedule("cosine", t_steps, "cuda")
         exact = cfg.diffusion.exact
         lab = torch.from_numpy(np.asarray(labels, np.int64)).cuda()
         g = 2**n
-        grid = (diff._unpack(torch.arange(g, device="cuda"), n).repeat(100, 1),
-                lab.repeat_interleave(g, dim=0))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tables = diff._assembled_tables(model, n, sched, exact, grid,
-                                        1 << 18, 1 << 16)
-        torch.cuda.synchronize()
-        t_tables = time.perf_counter() - t0
         dist = exact_walk(tables, torch.full((100, g), 1 / g, device="cuda"))
         idx = (samples.long() * (1 << torch.arange(n, device="cuda"))).sum(-1)
         tv = tv_rows(idx, dist)
         bound = 4 * math.sqrt(g / (2 * math.pi * shots))
-        log("shadow", f"samples vs the exact chain of the model's tables "
-            f"(rebuilt in {t_tables:.4f} s): TV mean {float(tv.mean()):.5f}, "
+        log("shadow", f"samples vs the exact chain of the tables the walk "
+            f"read: TV mean {float(tv.mean()):.5f}, "
             f"max {float(tv.max()):.5f} < bound {bound:.5f} over 100 bases")
         check(bool((tv < bound).all()), f"shadow samples TV {float(tv.max())}"
               f" < {bound} for every basis")
@@ -1817,7 +1876,7 @@ def phase_shadow(ck) -> dict:
                                    model.state_dict().items()})
         rows = [0, 37, 99]
         ts = torch.tensor([t_steps, t_steps // 2, 1])
-        cpu_grid = (grid[0][:g].cpu().repeat(len(rows), 1),
+        cpu_grid = (diff._unpack(torch.arange(g), n).repeat(len(rows), 1),
                     lab[rows].cpu().repeat_interleave(g, dim=0))
         with torch.no_grad():
             cpu_tab = diff._tables_for_ts(cpu_model.eval(), ts, n,
@@ -1828,7 +1887,7 @@ def phase_shadow(ck) -> dict:
         log("shadow", f"tables card vs CPU, bases {rows} at t = "
             f"{ts.tolist()}: max abs err {tab_err:.2e}")
         check(tab_err < 1e-5, "shadow tables on the card match the CPU's")
-        del tables, dist
+        del tables, dist, kept.tables
 
         # A warm-started distillation run over minibatches of 10 bases.
         cfg2 = cfg.replace(train=dataclasses.replace(
@@ -1897,12 +1956,13 @@ def exact_walk_by_products(tables: torch.Tensor,
 def phase_shadow_n12(ck, shadow: dict) -> dict:
     """The shadow route at N = 12 on the card: ``run_experiment`` on the
     ``shadow_transformer`` preset with only ``data.num_qubits`` set to 12,
-    everything else the preset's, at full width and uncut (100 sampled
-    bases of 1,024 shots, RQC depth 8, readout noise, transformer 128 / 512
-    / 4 blocks / 4 heads, T=100, cosine, renoise, 30 epochs, 5,000
-    generated shots a basis), with the launch counts set to 0 just before
-    and read just after. Since 5,000 shots >= 2^12 the route builds the
-    tables over the 409,600-row label grid (1.97 GB) and walks them in one
+    everything else the preset's, at full width (100 sampled bases of 1,024
+    shots, RQC depth 8, readout noise, transformer 128 / 512 / 4 blocks / 4
+    heads, T=100, cosine, renoise, 5,000 generated shots a basis) and its
+    training cut to ``SHADOW_EPOCHS_CUT`` of 30 epochs, with the launch
+    counts set to 0 just before and read just after. Since 5,000 shots >=
+    2^12 the route builds the tables over the 409,600-row label grid (1.97
+    GB) and walks them in one
     launch of the gather body. Checks: (a) one walk launch on the gather
     body and no step launch; (b) every basis' samples
     against the exact chain of the tables the walk read: TV within 4
@@ -1925,8 +1985,11 @@ def phase_shadow_n12(ck, shadow: dict) -> dict:
 
     phase = "shadow_n12"
     base = get_preset("shadow_transformer")
-    cfg = base.replace(data=dataclasses.replace(
-        base.data, num_qubits=SHADOW_N12_QUBITS))
+    log(phase, f"CUT num_epochs {base.train.num_epochs} -> "
+        f"{SHADOW_EPOCHS_CUT}")
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, num_qubits=SHADOW_N12_QUBITS),
+        train=dataclasses.replace(base.train, num_epochs=SHADOW_EPOCHS_CUT))
     n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
                          cfg.data.shots_infer)
     g = 2**n
@@ -2449,10 +2512,18 @@ REFERENCE_NOTEBOOK = {
 }
 
 
+# The notebook_upgraded preset's training, cut (printed) from its 300
+# epochs of 24 steps; notebook_simple runs its 200 uncut.
+NOTEBOOK_EPOCHS_CUT = {"notebook_upgraded": 100}
+
+
 def phase_notebook(ck) -> dict:
-    """The phase-1 notebook presets uncut on the card: PlainMLP, notebook
-    schedule, renoise, 1,024 shots a basis at N=1 (3 x 1,024 chains: the
-    table walk)."""
+    """The phase-1 notebook presets on the card (``notebook_upgraded``'s
+    training cut to ``NOTEBOOK_EPOCHS_CUT``): PlainMLP, notebook schedule,
+    renoise, 1,024 shots a basis at N=1 (3 x 1,024 chains: the table
+    walk)."""
+    import dataclasses
+
     from ddqst_tpu_torch.config import get_preset
     from ddqst_tpu_torch.ops import diffusion as diff
     from ddqst_tpu_torch.ops import metrics as M
@@ -2463,6 +2534,11 @@ def phase_notebook(ck) -> dict:
     out = {}
     for preset, ref in REFERENCE_NOTEBOOK.items():
         cfg = get_preset(preset)
+        if preset in NOTEBOOK_EPOCHS_CUT:
+            log("notebook", f"{preset}: CUT num_epochs "
+                f"{cfg.train.num_epochs} -> {NOTEBOOK_EPOCHS_CUT[preset]}")
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, num_epochs=NOTEBOOK_EPOCHS_CUT[preset]))
         n, t_steps, shots = (cfg.data.num_qubits, cfg.diffusion.num_timesteps,
                              cfg.data.shots_infer)
         ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
@@ -2610,9 +2686,9 @@ def phase_denoise(ck, res_main: dict) -> dict:
                 wall_s=wall, walk_launches=walks, step_launches=steps)
 
 
-# Epochs of the cut trainings the bf16 phase times at each dtype, 162 and
-# 200 steps (the presets train 30 epochs of 27 and of 100 steps).
-TIMING_EPOCHS = {"rqc": 6, "shadow_transformer": 2}
+# Epochs of the cut trainings the bf16 phase times at each dtype, 81 and
+# 100 steps (the presets train 30 epochs of 27 and of 100 steps).
+TIMING_EPOCHS = {"rqc": 3, "shadow_transformer": 1}
 # bf16 grid tables, card against the CPU's recompute of the same model: the
 # mean absolute difference. Each side accumulates its products in its own
 # order, so a few roundings to bfloat16's 8 significant bits differ and
@@ -2853,6 +2929,7 @@ def profile_distill() -> dict:
     count of device kernels launched and the time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ddqst_tpu_torch.bench import FULL_DEPTH, bench_recipe
     from ddqst_tpu_torch.models import build_model
     from ddqst_tpu_torch.models.d3pm import init_params_
     from ddqst_tpu_torch.ops import diffusion as diff
@@ -2911,11 +2988,11 @@ def profile_distill() -> dict:
 
 
 
-# Depth cuts of the mesh phase, each printed. The rqc preset's DP-2 run is
-# uncut (30 epochs); the shadow preset's TP-2 run trains 1 of its 30 epochs:
-# two ranks on one card stage every tensor-parallel reduce through the host
-# over gloo (16 a step), and the whole phase gets 180 s.
-MESH_TP_EPOCHS = 1
+# Depth cuts of the mesh phase, each printed. The rqc preset's DP-2 run
+# trains 10 of its 30 epochs; the shadow preset's TP-2 run 1 of its 30: two
+# ranks on one card stage every tensor-parallel reduce through the host over
+# gloo (16 a step), and the whole phase gets 180 s.
+MESH_DP_RUN_EPOCHS, MESH_TP_EPOCHS = 10, 1
 # The comparisons with one process: the rqc width on the preset's 27,648
 # rows for 3 epochs (81 steps), the shadow width on 16 of its 100 batches an
 # epoch for 2 epochs (32 steps), and the one-rank NCCL fit at the rqc width
@@ -3074,12 +3151,18 @@ def mesh_two_ranks(rank: int, out_dir: str) -> dict:
     out = dict(backend=dp.backend, device=str(dp.device))
 
     # Data-parallel: the comparison fit (after a one-batch warm-up: the
-    # process's first training is slower), then the rqc preset uncut.
+    # process's first training is slower), then the rqc preset, its
+    # training cut.
     mesh_fit("rqc", 1, 1, dp)
     out["dp_fit"] = mesh_fit("rqc", 27, MESH_DP_EPOCHS, dp)[0]
+    rqc = get_preset("rqc")
+    say(f"rqc, CUT: {rqc.train.num_epochs} epochs -> {MESH_DP_RUN_EPOCHS} "
+        "for the DP-2 run_experiment")
     ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
     t0 = time.perf_counter()
-    res = run_experiment(get_preset("rqc"), seed=0, mesh=dp, log_fn=say)
+    res = run_experiment(rqc.replace(train=dataclasses.replace(
+        rqc.train, num_epochs=MESH_DP_RUN_EPOCHS)), seed=0, mesh=dp,
+        log_fn=say)
     out["dp_run"] = dict(_run_record(ck, res),
                          wall_s=time.perf_counter() - t0)
 
@@ -3201,7 +3284,7 @@ def phase_mesh() -> dict:
                       ref_dp["losses"])
     ra, rb = a["dp_run"], b["dp_run"]
     tm = ra["timings"]
-    log("mesh", f"DP-2 rqc uncut: wall {ra['wall_s']:.2f} / {rb['wall_s']:.2f}"
+    log("mesh", f"DP-2 rqc: wall {ra['wall_s']:.2f} / {rb['wall_s']:.2f}"
         f" s; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items()))
     log("mesh", f"DP-2 rqc: train {ra['train_steps']} steps, "
         f"{ra['train_steps'] / tm['train']:.1f} steps/s; fidelity "
@@ -3444,15 +3527,19 @@ SCALING_STEP_SHAPES = {"ghz7_mle_hot": (3**7 * 2**7, 7, 3**7 * 834)}
 # the card) before and after each segment and for the tables, at N = 7 the
 # 'seq' walk's 600 grid forwards (about 34 s).
 SCALING_CUTS = {
-    "ghz5_auto": dict(num_epochs=1, chain_finetune_steps=10),
-    "ghz7_mle_hot": dict(num_epochs=1, chain_finetune_steps=3),
+    "ghz5_auto": dict(num_epochs=1, chain_finetune_steps=5),
+    "ghz7_mle_hot": dict(num_epochs=1, chain_finetune_steps=1),
     "ghz8_mle_hot": dict(num_epochs=1),
 }
-SCALING_SEGMENT_STEPS = 3
-# Cuts of the training shots a basis, for the phase's budget: an epoch is
-# then 1,068 steps at N = 7 and 3,203 at N = 8 (6-12 ms a step, bound by the
-# host). The data is cut, so MLE on the raw counts is not held to 0.999.
-SCALING_SHOTS_CUT = {"ghz7_mle_hot": 500, "ghz8_mle_hot": 500}
+SCALING_SEGMENT_STEPS = 2
+# Cuts of the shots a basis, for the phase's budget: an epoch is then 533
+# training steps at N = 7 and 640 at N = 8 (6-12 ms a step, bound by the
+# host); GHZ-7 generates 834 shots a basis, one 'seq' call of T step
+# launches (``SCALING_PLAN_CUT``) in place of six (34 s of grid forwards on
+# the card). The data is cut, so MLE on the raw counts is not held to 0.999.
+SCALING_SHOTS_CUT = {"ghz7_mle_hot": dict(shots_train=250, shots_infer=834),
+                     "ghz8_mle_hot": dict(shots_train=100)}
+SCALING_PLAN_CUT = {"ghz7_mle_hot": (0, 100)}
 # Every MLE solve of a rung (the target, the samples', the raw counts', the
 # exact chain's) stops after this many iterations (the package's cap is
 # 4,000, with a tolerance of 3e-7). On the card an iteration takes 3-4 ms
@@ -3460,7 +3547,7 @@ SCALING_SHOTS_CUT = {"ghz7_mle_hot": 500, "ghz8_mle_hot": 500}
 # iterations to its tolerance; GHZ-5's raw counts reach it in about 380, so
 # that rung still holds MLE on the raw counts to 0.999.
 SCALING_MLE_ITERS = {"ghz5_auto": 500, "rqc6_auto": 500,
-                     "ghz7_mle_hot": 100, "ghz8_mle_hot": 100}
+                     "ghz7_mle_hot": 50, "ghz8_mle_hot": 50}
 # The rungs split across processes (``--scaling-part TAG PART IN_DIR
 # OUT_DIR``), each part one ``run_experiment`` call with the rung's recipe
 # unchanged. ``ce`` = (a, b): the part trains CE epochs a+1 to b of the
@@ -3521,12 +3608,10 @@ def cut_rung(tag: str):
         log("scaling", f"{tag}: CUT {k} {getattr(cfg.train, k)} -> {v}")
     cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 **SCALING_CUTS[tag]))
-    if tag in SCALING_SHOTS_CUT:
-        log("scaling", f"{tag}: CUT shots_train {cfg.data.shots_train} -> "
-            f"{SCALING_SHOTS_CUT[tag]}")
-        cfg = cfg.replace(data=dataclasses.replace(
-            cfg.data, shots_train=SCALING_SHOTS_CUT[tag]))
-    return cfg
+    for k, v in SCALING_SHOTS_CUT.get(tag, {}).items():
+        log("scaling", f"{tag}: CUT {k} {getattr(cfg.data, k)} -> {v}")
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, **SCALING_SHOTS_CUT.get(tag, {})))
 
 
 class _MleCapped:
@@ -3679,9 +3764,10 @@ def scaling_checks(ck, tag: str, cfg, res: dict, rec: dict,
 
     n, shots = cfg.data.num_qubits, cfg.data.shots_infer
     walks, steps = rec["walk_launches"], rec["step_launches"]
-    check((walks, steps) == SCALING_PLAN[tag],
-          f"{tag}: launches (walk, step) {(walks, steps)} equal the plan "
-          f"{SCALING_PLAN[tag]}")
+    plan = (SCALING_PLAN_CUT.get(tag, SCALING_PLAN[tag]) if data_cut
+            else SCALING_PLAN[tag])
+    check((walks, steps) == plan, f"{tag}: launches (walk, step) "
+          f"{(walks, steps)} equal the plan {plan}")
     if walks:
         body = ck.fused_chain_walk.last_plan[3]
         check(body == ("staged" if n <= 7 else "ring"),
@@ -4015,7 +4101,7 @@ def phase_scaling(ck) -> dict:
     phase_s = time.perf_counter() - t_phase
     log("scaling", f"phase time {phase_s:.1f} s ({path_s:.1f} s the rungs and "
         f"their checks, {split_s:.1f} s of it the split rungs' parts; the "
-        "budget is about 520 s)")
+        "budget is about 450 s)")
     return dict(rungs=rungs, kernels=kernels, phase_s=phase_s, path_s=path_s)
 
 
@@ -4387,6 +4473,7 @@ def time_kernels(ck) -> dict:
               ("walk_n7", 27, 7, 5000, 20)]
     if getattr(ck, "_MAX_WALK_N", 7) >= 11:  # the walk takes N = 8 to 11
         shapes += [("walk_shadow", 100, 10, 5000, 20),
+                   ("walk_shadow_bench", 50, 10, 2000, 20),
                    ("walk_n8_grid", 3**8, 8, 319, 5),
                    ("walk_n11", 100, 11, 5000, 10)]
     if getattr(ck, "_MAX_WALK_N", 7) >= 12:  # and N = 12 to 16
@@ -4518,9 +4605,18 @@ def main() -> int:
         print(json.dumps({"shadow_reference_train": out, "card": smi}),
               flush=True)
         return 0
+    if sys.argv[1:2] == ["--bench"]:
+        # python3 chip_smoke.py --bench [ARGS]: the port's bench,
+        # python -m ddqst_tpu_torch.bench ARGS (default: bench.py's full
+        # depth); its record is the last line.
+        from ddqst_tpu_torch import bench
+
+        return bench.main(sys.argv[2:])
     if sys.argv[1:2] == ["--full-depth"]:
         # python3 chip_smoke.py --full-depth [SEEDS]: only the bench
         # recipes, uncut, and one JSON line of their results.
+        from ddqst_tpu_torch.bench import FULL_DEPTH
+
         runs = phase_distill(ck, dict.fromkeys(("ghz", "rqc"), FULL_DEPTH),
                              ghz_seeds=int(sys.argv[2]) if sys.argv[2:] else 1)
         print(json.dumps({"full_depth": runs,
@@ -4546,6 +4642,7 @@ def main() -> int:
     step_launches, path_ms = timed("route", phase_route, ck)
     timed("generate", phase_generate, build_s["statevec"])
     distill = timed("distill", phase_distill, ck, DISTILL_DEPTH)
+    bench = timed("bench", phase_bench, ck, distill)
     chunked_launches = timed("chunked", phase_chunked, ck, res["state"])
     shadow = timed("shadow", phase_shadow, ck)
     reference = timed("reference_shadow", phase_reference_shadow, ck)
@@ -4581,6 +4678,8 @@ def main() -> int:
         "threads": main_rec["threads"],
         "ms_by_threads": main_rec["ms_by_threads"],
         "launches_bench_recipes": [r["walk_launches"] for r in distill],
+        "launches_bench": {k: bench["parts"][k]["walk_launches"]
+                           for k in ("sampling", "walk_1m", "shadow")},
         "ms_bench_shape": bench_rec["ms"],
         "plain_ms_bench_shape": bench_rec["plain_ms"],
         "bound_ms_bench_shape": bench_rec["bound_ms"],
@@ -4608,8 +4707,8 @@ def main() -> int:
             "dp2_rqc": mesh["dp2_rqc"]["walk_launches"],
             "tp2_shadow": mesh["tp2_shadow"]["walk_launches"]},
         **{f"{k}_{label}": kernel[label][k]
-           for label in ("shadow", "n8_grid", "n11", "n12", "n13", "n14",
-                         "n15", "n16")
+           for label in ("shadow", "shadow_bench", "n8_grid", "n11", "n12",
+                         "n13", "n14", "n15", "n16")
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
                      "ms_by_threads", "plan")},
         "sass_instructions_n10_ring": rate["sass"]["walk_n10_ring"],
@@ -4650,7 +4749,7 @@ def main() -> int:
         "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
                            if r["kernel"] == "fused_chain_step"},
     }], "lane_instructions_per_s": rate["rates"],
-        "bench_recipes": distill, "shadow": shadow,
+        "bench_recipes": distill, "bench": bench["parts"], "shadow": shadow,
         "reference_shadow": reference, "shadow_n12": shadow_n12,
         "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,

@@ -482,3 +482,17 @@ def test_one_rank_nccl_fit_equals_the_mesh_less_fit(cuda, monkeypatch):
     finally:
         torch.distributed.destroy_process_group()
     torch.testing.assert_close(on_mesh, plain, rtol=2e-4, atol=2e-5)
+
+
+def test_bench_walk_part_demands_the_cuda_walk(cuda):
+    """The bench's 10^6-chain part on the card asks ``sample_all_bases`` for
+    the CUDA walk: one walk launch a call, no step launch."""
+    from ddqst_tpu_torch import bench
+    from ddqst_tpu_torch.config import get_preset
+
+    cfg = get_preset("rqc")
+    model = d3pm.build_model(cfg.model, 3, 100).to(cuda).eval()
+    rec = bench.measure_walk_1m(model, cfg, cuda, 1000, 2)
+    assert rec["walk"] == "cuda" and rec["calls"] == 4
+    assert rec["walk_launches"] == 4 and rec["step_launches"] == 0
+    assert rec["plan"][3] == "staged" and rec["per_sec_min"] > 0

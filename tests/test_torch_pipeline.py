@@ -205,7 +205,8 @@ def test_port_imports_no_jax():
         "for name in ('ops.mle', 'ops.pauli', 'ops.diffusion', 'train', "
         "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
         "'utils.profiling', 'models.transformer', 'models.d3pm', "
-        "'parallel.mesh', 'parallel.tensor', 'qsim.native_engine'):\n"
+        "'parallel.mesh', 'parallel.tensor', 'qsim.native_engine', "
+        "'bench'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "from ddqst_tpu_torch.qsim import native_engine, states\n"
         "psi = native_engine.statevectors([states.prep_circuit('bell', 2)])\n"
