@@ -248,7 +248,7 @@ result line is printed; nothing falls back to the CPU):
    synchronised around each call). A rank that raises or exits non-zero,
    or a world past ``MESH_WORLD_TIMEOUT_S``, fails the phase.
 15. scaling — the JAX campaign's scaling ladder (``scripts/run_scaling_ghz.py``,
-   copied here as ``quality_cfg``, ``auto_recipe`` and ``scaling_rung``) at
+   from the port's ``campaigns.scaling``, looked up by ``scaling_rung``) at
    full width (the ``rqc`` preset's FiLM model, T=100, cosine schedule,
    renoise, readout-noisy mitigated data, MLE) over the whole canonical
    grid, depth cut (``SCALING_CUTS``, ``SCALING_SHOTS_CUT``,
@@ -278,6 +278,19 @@ result line is printed; nothing falls back to the CPU):
    Then both kernels at the rungs' shapes, each against its plain version
    bit for bit and timed beside it and its bound. It prints the stage
    seconds, the peak memory and the fidelities beside the reference's.
+16. campaigns — the port's campaign drivers as a user runs them, each a
+   child process on the card, in three chains side by side: ``python -m
+   ddqst_tpu_torch.campaigns.scaling --only cpu_tiny`` (one row with the
+   script's keys, ``device`` the card's ``nvidia-smi`` line, a fidelity
+   in [0, 1]), again with the same ``--out`` (no row added); ``python -m
+   ddqst_tpu_torch.campaigns.segments --tag cpu_tiny --segments 2
+   --steps_per_segment 2 --data_cache FILE`` on data this process writes
+   (the ce, segment 0, segment 1 and eval roles in order, their params
+   and one eval row; its resume and datagen role are held on the CPU by
+   ``tests/test_torch_campaigns.py``); ``python -m
+   ddqst_tpu_torch.campaigns.scaling --probe --only rqc4_auto`` at full
+   width and shapes (no row; its 2 walk launches, counted in the child, on
+   the staged body, at the T=100, C=81, N=4, S=15,000 its config gives).
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -299,9 +312,27 @@ uncut (300 epochs, up to 800 distillation steps): GHZ-3 and RQC-3 at seed
 it prints each run's result as it ends and all of them as one JSON line.
 
 ``python3 chip_smoke.py --scaling TAG [TAG ...]`` runs only the named rungs
-of the ladder (``ghz5_auto``, ``rqc6_auto``, ``ghz7_mle_hot``,
+of the ladder (any tag of ``campaigns.scaling.experiments()``; the checks
+know ``ghz5_auto``, ``rqc4_auto``, ``rqc6_auto``, ``ghz7_mle_hot`` and
 ``ghz8_mle_hot``), uncut, each in one ``run_experiment`` call with the
 rung's checks (every 25th training epoch logged), and prints one JSON line.
+
+``python3 chip_smoke.py --campaign TAG OUT_DIR`` runs a rung with
+committed JAX data (``SCALING_DATA``: ``rqc4_auto``, ``rqc6_auto``) uncut
+through ``campaigns.scaling --only TAG --data_cache FILE --out
+OUT_DIR/scaling.jsonl`` in this process,
+then holds it as ``--scaling-part``'s evaluating part does (the launch
+plan, the samples against the exact chain, raw inversion within 1e-5 and
+MLE on the raw counts within 1e-4 of the JAX package's on the file, the
+fidelity beside the reference's row as a verdict) and checks the row the
+driver appended; one JSON line.
+
+``python3 chip_smoke.py --repeat-check`` runs ``campaigns.shadow_scale
+--tag repeat --epochs 1 --max_bases 100`` in two child processes from one
+seed and compares their loss trace, a sha256 of every parameter and their
+rows; where they differ it trains the model twice in one process and names
+the first module output, output gradient and parameter gradient that
+differ. One JSON line.
 
 ``python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR [--cut]``
 runs one part of a rung split across processes or chip calls
@@ -887,8 +918,9 @@ def phase_kernel(ck) -> dict:
     # there, N = 8, 9 and 11, and its tails: an odd T (a short last stage
     # load) and T below its stages x steps a stage (8 at N = 8, 4 at N = 10,
     # 2 at N = 11); then the gather body from N = 12 to 16: ragged S, odd T
-    # and T = 1 at each N, S >= 2^N at N = 12 and 13; last the shadow
-    # bench's shape (the ring body at 50 rows x 2,000 chains).
+    # and T = 1 at each N, S >= 2^N at N = 12 and 13; then the shadow
+    # bench's shape (the ring body at 50 rows x 2,000 chains); last RQC-4's
+    # generation (81 bases, a call of 15,000 chains each).
     shapes = [(100, 27, 3, 5000), (100, 27, 3, 50000), (100, 27, 3, 1237),
               (100, 27, 7, 5000), (100, 27, 1, 5000), (100, 27, 5, 1237),
               (100, 27, 6, 1237), (100, 3, 1, 1024),
@@ -900,7 +932,8 @@ def phase_kernel(ck) -> dict:
               (1, 3, 12, 5000), (9, 5, 13, 1237), (3, 2, 13, 8193),
               (1, 4, 13, 999), (8, 3, 14, 1237), (1, 3, 14, 777),
               (7, 2, 15, 1001), (1, 2, 15, 513), (6, 2, 16, 1237),
-              (3, 1, 16, 999), (1, 2, 16, 4097), (100, 50, 10, 2000)]
+              (3, 1, 16, 999), (1, 2, 16, 4097), (100, 50, 10, 2000),
+              RQC4_WALK_SHAPE]
     max_err = 0.0
     for i, (t_steps, c, n, s) in enumerate(shapes):
         tables, init = random_walk_inputs(t_steps, c, n, s, seed=i)
@@ -962,7 +995,8 @@ def phase_kernel(ck) -> dict:
     # sample_all_bases_chunked at N = 8 (3^8 rows, 2^21 // 3^8 = 319 chains
     # a row, 5.4 GB of tables), the shadow shape at N = 11 (no path runs
     # it) and, for the gather body, at N = 12 (phase shadow_n12's shape), 13
-    # (50 rows), 14 (25), 15 (12) and 16 (6), each at most 2.6 GB of tables.
+    # (50 rows), 14 (25), 15 (12) and 16 (6), each at most 2.6 GB of tables;
+    # last a walk of ``rqc4_auto``'s generation (two a run).
     # The parent's body at these shapes is timed by --time-kernels on its
     # checkout.
     for label, c, n, s, it_k, it_r in (("main", 27, 3, 5000, 50, 3),
@@ -977,7 +1011,8 @@ def phase_kernel(ck) -> dict:
                                        ("n13", 50, 13, 5000, 5, 1),
                                        ("n14", 25, 14, 5000, 5, 1),
                                        ("n15", 12, 15, 5000, 5, 1),
-                                       ("n16", 6, 16, 5000, 5, 1)):
+                                       ("n16", 6, 16, 5000, 5, 1),
+                                       ("rqc4", *RQC4_WALK_SHAPE[1:], 20, 1)):
         tables, init = random_walk_inputs(100, c, n, s, seed=20)
         ms_k = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), it_k)
         plan = ck.fused_chain_walk.last_plan
@@ -2139,11 +2174,10 @@ def phase_shadow_n12(ck, shadow: dict) -> dict:
                             max_abs_err=err, plan=list(kernel_plan)))
 
 
-# The reference's own N=10 shadow recipe, model and data.
-# ``reference_shadow_cfg`` is ``scripts/run_shadow_scale.py``'s
-# ``make_cfg("dist_seg", max_bases=300)`` written out (this script imports
-# nothing of the JAX package); the model is that recipe's 150-epoch CE
-# snapshot, converted from orbax by ``tools/flax_to_torch.py``.
+# The reference's own N=10 shadow recipe, model and data: the recipe is
+# ``campaigns.shadow_scale.make_cfg("dist_seg", max_bases=300)``, the model
+# that recipe's 150-epoch CE snapshot, converted from orbax by
+# ``tools/flax_to_torch.py``.
 REFERENCE_SHADOW_PARAMS = "examples/reference_params/dist_seg_ce_params.pt"
 REFERENCE_SHADOW_DATA = "shadow_work/dist_seg_data.npz"
 # Further walks of the same tables; their spread is each metric's shot-noise
@@ -2160,31 +2194,11 @@ REFERENCE_TRAIN_CF_MIN = 0.89
 
 
 def reference_shadow_cfg():
-    """``make_cfg("dist_seg", max_bases=300)`` of
-    ``scripts/run_shadow_scale.py``: the ``shadow_transformer`` preset with
-    new model, diffusion, train and data sections (the fields not named
-    here take their classes' defaults, as there)."""
-    from ddqst_tpu_torch.config import (DataConfig, DiffusionConfig,
-                                        ModelConfig, TrainConfig, get_preset)
+    """``scripts/run_shadow_scale.py``'s ``make_cfg("dist_seg",
+    max_bases=300)``, from the port's ``campaigns.shadow_scale``."""
+    from ddqst_tpu_torch.campaigns.shadow_scale import make_cfg
 
-    return get_preset("shadow_transformer").replace(
-        name="shadow_dist_seg",
-        diffusion=DiffusionConfig(num_timesteps=100, schedule="cosine",
-                                  sampler="renoise"),
-        model=ModelConfig(arch="transformer", input_encoding="token",
-                          embed_dim=128, hidden_dim=512, num_blocks=4,
-                          num_heads=4),
-        train=TrainConfig(
-            batch_size=1024, learning_rate=1e-3, optimizer="adam",
-            num_epochs=150, lr_schedule="cosine", ema_decay=0.0,
-            log_every=0, eval_every=0, chain_finetune_steps=0, chain_lr=1e-3,
-            chain_basis_batch=16, chain_steps_per_call=5,
-            chain_val_fraction=0.15, chain_key_salt=0, chain_hard_frac=0.0),
-        data=DataConfig(num_qubits=10, state_type="rqc", noise_type="readout",
-                        shots_train=1024, shots_infer=5000, rqc_depth=8,
-                        max_bases=300, mitigate_readout=False,
-                        mitigate_train_data=False),
-    )
+    return make_cfg("dist_seg", max_bases=300)
 
 
 def repo_file(rel: str) -> str:
@@ -3414,87 +3428,24 @@ def phase_mesh() -> dict:
 
 
 # The scaling ladder: the JAX campaign's full canonical-grid recipes beyond
-# N = 3 (RESULTS.md:237-456), copied from its scripts as plain functions of
-# ddqst_tpu_torch.config; this script imports nothing of scripts/.
-
-
-def quality_cfg(name: str, *, num_qubits: int, state: str, shots_train: int,
-                shots_infer: int, noise: str = "readout", depth: int = 5,
-                epochs: int = 300):
-    """The quality stack of ``scripts/run_parity_suite.py:60-81``: the ``rqc``
-    preset's FiLM ``ConditionalD3PM`` (128 / 512 / 4 blocks), T = 100, cosine
-    schedule, renoise sampler, readout-mitigated training data and
-    reconstruction, MLE."""
-    from ddqst_tpu_torch.config import get_preset
-
-    base = get_preset("rqc")
-    return base.replace(
-        name=name,
-        diffusion=type(base.diffusion)(num_timesteps=100, schedule="cosine",
-                                       sampler="renoise"),
-        train=type(base.train)(batch_size=1024, learning_rate=1e-3,
-                               optimizer="adam", num_epochs=epochs,
-                               lr_schedule="cosine", log_every=0,
-                               eval_every=0, chain_finetune_steps=400,
-                               chain_lr=3e-4),
-        data=type(base.data)(num_qubits=num_qubits, state_type=state,
-                             noise_type=noise, shots_train=shots_train,
-                             shots_infer=shots_infer, rqc_depth=depth,
-                             mitigate_readout=True, mitigate_train_data=True,
-                             reconstruction="mle"),
-    )
-
-
-def auto_recipe(cfg, *, basis_batch: int = 0, steps_per_call: int = 25,
-                epochs: int | None = None, target: str = "counts",
-                val_patience: int = 4, val_fraction: float = 0.15,
-                steps: int = 800, accum: int = 1):
-    """The automated distillation recipe of
-    ``scripts/run_scaling_ghz.py:46-66``."""
-    tr = cfg.train
-    return cfg.replace(train=type(tr)(
-        batch_size=1024, learning_rate=1e-3, optimizer="adam",
-        num_epochs=tr.num_epochs if epochs is None else epochs,
-        lr_schedule="cosine", log_every=0, eval_every=0,
-        chain_finetune_steps=steps, chain_lr=1e-3,
-        chain_val_fraction=val_fraction, chain_val_patience=val_patience,
-        chain_basis_batch=basis_batch, chain_steps_per_call=steps_per_call,
-        chain_target=target, chain_accum=accum))
+# N = 3 (RESULTS.md:237-456), from the port's ``campaigns.scaling``.
 
 
 def scaling_rung(tag: str):
-    """One rung of ``scripts/run_scaling_ghz.py``, uncut: ``ghz5_auto``
-    (:206-210), ``rqc6_auto`` (:230-235), ``ghz7_mle_hot`` (:267-272) or
-    ``ghz8_mle_hot`` (:296-305, generating with ``gen_tables_once``)."""
-    import dataclasses
+    """One rung of ``scripts/run_scaling_ghz.py``, uncut: its config in
+    ``campaigns.scaling.experiments()`` (an unknown tag raises)."""
+    from ddqst_tpu_torch.campaigns.scaling import experiment
 
-    if tag == "ghz5_auto":
-        return auto_recipe(quality_cfg(tag, num_qubits=5, state="ghz",
-                                       shots_train=5000, shots_infer=20000))
-    if tag == "rqc6_auto":
-        return auto_recipe(quality_cfg(tag, num_qubits=6, state="rqc",
-                                       shots_train=5000, shots_infer=10000),
-                           basis_batch=96, epochs=150)
-    if tag == "ghz7_mle_hot":
-        return auto_recipe(quality_cfg(tag, num_qubits=7, state="ghz",
-                                       shots_train=3000, shots_infer=5000),
-                           basis_batch=128, epochs=60, steps_per_call=10,
-                           target="mle", val_fraction=0.0, steps=1600)
-    if tag == "ghz8_mle_hot":
-        cfg = auto_recipe(quality_cfg(tag, num_qubits=8, state="ghz",
-                                      shots_train=2000, shots_infer=3000),
-                          basis_batch=64, epochs=40, steps_per_call=10,
-                          target="mle", val_fraction=0.0, steps=1600)
-        return cfg.replace(diffusion=dataclasses.replace(
-            cfg.diffusion, gen_tables_once=True))
-    raise ValueError(f"unknown rung {tag!r}; options: {SCALING_RUNGS}")
+    return experiment(tag)[0]
 
 
-SCALING_RUNGS = ("ghz5_auto", "rqc6_auto", "ghz7_mle_hot", "ghz8_mle_hot")
 # The JAX package's records of each rung uncut, on a TPU (quality only):
-# RESULTS.md:249, :426, :272; GHZ-8 after its 1600 uniform steps (:398),
-# 0.87904 / 0.91254 after one / two 800-step mining segments (:400-401).
+# RESULTS.md:249, :424, :426, :272; GHZ-8 after its 1600 uniform steps
+# (:398), 0.87904 / 0.91254 after one / two 800-step mining segments
+# (:400-401).
 REFERENCE_SCALING = {
+    "rqc4_auto": dict(fidelity=0.97117, raw_fidelity=0.92724,
+                      raw_fidelity_mitigated=0.99981),
     "ghz5_auto": dict(fidelity=0.97031, raw_fidelity=0.84628,
                       raw_fidelity_mitigated=0.99994),
     "rqc6_auto": dict(fidelity=0.99059, raw_fidelity=0.76961,
@@ -3507,12 +3458,13 @@ REFERENCE_SCALING = {
 # (walk launches, step launches) of one run's generation, as
 # pipeline._generate and diffusion.sample_all_bases choose them: at most
 # 2^21 chains a sample_all_bases call, the table walk from 32·6^N chains.
+# N = 4: 2^21 // 81 = 25,890 shots a call, 30,000 in 2 calls of 15,000;
 # N = 5: 2^21 // 243 = 8,630 shots a call, 20,000 in 3 calls of 6,667;
 # N = 6: 10,000 in 4 calls of 2,500; N = 7: 5,000 in 6 calls of 834, each
 # 2,187 x 834 = 1,823,958 chains < 32·6^7, so the 'seq' walk: T step
 # launches a call; N = 8 (gen_tables_once): the tables once, 3,000 in 10
 # walks of 300 (2^21 // 6,561 = 319 a walk).
-SCALING_PLAN = {"ghz5_auto": (3, 0), "rqc6_auto": (4, 0),
+SCALING_PLAN = {"rqc4_auto": (2, 0), "ghz5_auto": (3, 0), "rqc6_auto": (4, 0),
                 "ghz7_mle_hot": (0, 600), "ghz8_mle_hot": (10, 0)}
 # Each launch's shape: the walk's (C, N, S), the step's (G, N, B).
 SCALING_WALK_SHAPES = {"ghz5_auto": (243, 5, 6667),
@@ -3577,17 +3529,23 @@ SCALING_CUT_PARTS = {
     "rqc6_auto": {"ce1": dict(ce=(0, 1), every=1),
                   "ce2": dict(ce=(1, 2), every=1, steps=10, eval=True)},
 }
-# A rung's committed seed-0 data, which every part reads: the JAX package's
-# ``ensure_data_cache`` on the CPU, written by ``tools/make_reference_data.py``
-# (``--tag rqc6_auto --out examples/reference_data/rqc6_auto_seed0.npz``).
-SCALING_DATA = {"rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz"}
+# A rung's committed seed-0 data, which every part (and ``--campaign``)
+# reads: the JAX package's ``ensure_data_cache`` on the CPU, written by
+# ``tools/make_reference_data.py`` (``--tag TAG --out
+# examples/reference_data/TAG_seed0.npz``).
+SCALING_DATA = {"rqc4_auto": "examples/reference_data/rqc4_auto_seed0.npz",
+                "rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz"}
 # The JAX package's numbers on that file (the same tool, on the CPU): the
 # raw-inversion fidelity, MLE on the raw counts solved to its tolerance and
 # that solve's iterations. The rows of REFERENCE_SCALING were measured on
 # data the JAX package no longer makes bit for bit (raw 0.76961 there).
-SCALING_DATA_JAX = {"rqc6_auto": dict(
-    raw_fidelity=0.7702612280845642,
-    raw_fidelity_mitigated=0.9998176097869873, mle_iterations=535)}
+SCALING_DATA_JAX = {
+    "rqc4_auto": dict(raw_fidelity=0.9273253083229065,
+                      raw_fidelity_mitigated=0.9998022317886353,
+                      mle_iterations=633),
+    "rqc6_auto": dict(raw_fidelity=0.7702612280845642,
+                      raw_fidelity_mitigated=0.9998176097869873,
+                      mle_iterations=535)}
 SCALING_DATA_RAW_TOL = 1e-5
 SCALING_DATA_MLE_TOL = 1e-4
 # A cut part's limit in the default run (RQC-6's parts take about 30 and 60
@@ -3595,7 +3553,8 @@ SCALING_DATA_MLE_TOL = 1e-4
 SCALING_PART_TIMEOUT_S = 600
 # The reference run's trace distance and held-out step (RESULTS.md:433-435),
 # and how far below its fidelity the port's still agrees.
-REFERENCE_RUN = {"rqc6_auto": dict(trace_distance=0.0173, best_step=25)}
+REFERENCE_RUN = {"rqc4_auto": dict(trace_distance=0.03514),
+                 "rqc6_auto": dict(trace_distance=0.0173, best_step=25)}
 REFERENCE_FIDELITY_MARGIN = 0.005
 
 
@@ -4047,15 +4006,15 @@ def scaling_split_cut(tag: str) -> dict:
         "each part in a child process; every MLE solve to "
         f"{SCALING_MLE_ITERS[tag]} iterations (uncut: "
         f"{describe_split(SCALING_PARTS[tag])})")
+    from ddqst_tpu_torch.campaigns.segments import run_child
+
     parts = {}
     with tempfile.TemporaryDirectory() as d:
         for part in SCALING_CUT_PARTS[tag]:
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--scaling-part",
-                 tag, part, d, d, "--cut"],
-                cwd=repo_file("."), timeout=SCALING_PART_TIMEOUT_S)
-            check(proc.returncode == 0, f"{tag} part {part}: the child "
-                  f"process exited with {proc.returncode}")
+            check(run_child([sys.executable, os.path.abspath(__file__),
+                             "--scaling-part", tag, part, d, d, "--cut"],
+                            f"{tag} part {part}", SCALING_PART_TIMEOUT_S),
+                  f"{tag} part {part}: the child process exited 0")
             with open(os.path.join(d, f"{tag}_{part}.json")) as f:
                 parts[part] = json.load(f)
     last = parts[list(parts)[-1]]
@@ -4461,6 +4420,320 @@ def scaling_costs() -> dict:
     return out
 
 
+# Phase campaigns: the drivers of ``ddqst_tpu_torch.campaigns`` as a user
+# runs them, each a child process on the card (``python -m ...``), in three
+# chains side by side: the ladder driver on ``cpu_tiny`` twice, the segments
+# driver on ``cpu_tiny`` (on data this process writes, so no datagen role),
+# and the ladder's ``--probe`` of RQC-4 (full width and shapes, 1 CE epoch,
+# 50 distillation steps). The segments driver's resume and its datagen role
+# are held on the CPU (tests/test_torch_campaigns.py): each role here is a
+# process of 7-20 s.
+CAMPAIGN_CHILD_TIMEOUT_S = 300
+CAMPAIGN_PROBE = "rqc4_auto"
+CAMPAIGN_ROW_KEYS = {"tag", "num_qubits", "fidelity", "raw_fidelity",
+                     "raw_fidelity_mitigated", "trace_distance", "note",
+                     "wall_s", "device"}
+# One walk of RQC-4's generation: (T, C, N, S), 30,000 shots a basis in two
+# calls of 15,000 (2^21 // 81 = 25,890 a call at most).
+RQC4_WALK_SHAPE = (100, 81, 4, 15000)
+
+
+def run_campaign(cmd: list[str], what: str) -> tuple[str, float]:
+    """One driver's process to its end: (its standard output, seconds).
+    It must exit 0 within ``CAMPAIGN_CHILD_TIMEOUT_S``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           f"ddqst_tpu_torch.campaigns.{cmd[0]}", *cmd[1:]],
+                          cwd=repo_file("."), capture_output=True, text=True,
+                          timeout=CAMPAIGN_CHILD_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    log("campaigns", f"{what}: exit {proc.returncode} in {dt:.1f} s")
+    check(proc.returncode == 0, f"{what} exits 0; stderr tail: "
+          + "\n".join(proc.stderr.splitlines()[-20:]))
+    return proc.stdout, dt
+
+
+def launch_lines(stdout: str) -> list[dict]:
+    """The kernel-launch lines ``campaigns.scaling`` prints after a run."""
+    return [json.loads(line) for line in stdout.splitlines()
+            if line.startswith("{") and '"walk_launches"' in line]
+
+
+def check_row(row: dict, tag: str, smi: str, what: str) -> None:
+    check(row["tag"] == tag and CAMPAIGN_ROW_KEYS <= set(row)
+          and row["device"] == smi and math.isfinite(row["fidelity"])
+          and 0.0 <= row["fidelity"] <= 1.0,
+          f"{what}: the row of {tag} has the script's keys, the card "
+          f"({smi}) and a fidelity in [0, 1]: {row}")
+
+
+def campaign_ladder(d: str, smi: str) -> dict:
+    """``campaigns.scaling --only cpu_tiny`` twice on one record: one row."""
+    from ddqst_tpu_torch.campaigns import read_rows
+
+    out = os.path.join(d, "scaling.jsonl")
+    cmd = ["scaling", "--only", "cpu_tiny", "--out", out]
+    stdout, s1 = run_campaign(cmd, "scaling --only cpu_tiny")
+    rows = read_rows(out)
+    check(len(rows) == 1, f"one row ({len(rows)})")
+    check_row(rows[0], "cpu_tiny", smi, "scaling")
+    (launches,) = launch_lines(stdout)
+    _, s2 = run_campaign(cmd, "scaling --only cpu_tiny, again")
+    check(len(read_rows(out)) == 1, "a second call with the same --out adds "
+          "no row")
+    log("campaigns", f"cpu_tiny row {json.dumps(rows[0])}; a second call "
+        "added no row")
+    return dict(row=rows[0], s=[s1, s2],
+                walk_launches=launches["walk_launches"])
+
+
+def campaign_segments(d: str, data: str, smi: str) -> dict:
+    """``campaigns.segments`` on ``cpu_tiny``, 2 segments of 2 steps, on the
+    data file ``data``: the ce, segment 0, segment 1 and eval roles."""
+    from ddqst_tpu_torch.campaigns import read_rows
+    from ddqst_tpu_torch.campaigns.segments import snapshot
+
+    work, out = os.path.join(d, "segments"), os.path.join(d, "segments.jsonl")
+    stdout, s = run_campaign(
+        ["segments", "--tag", "cpu_tiny", "--segments", "2",
+         "--steps_per_segment", "2", "--workdir", work, "--out", out,
+         "--data_cache", data], "segments --tag cpu_tiny, 2 x 2 steps")
+    roles = [line.split("] ", 1)[1].rsplit(":", 1)[0]
+             for line in stdout.splitlines()
+             if line.startswith("[segments]") and line.endswith("starting")]
+    check(roles == ["ce segment -1", "distill segment 0", "distill segment 1",
+                    "eval segment 2"], f"the roles in order: {roles}")
+    check(all(os.path.exists(snapshot(work, "cpu_tiny", k))
+              for k in (-1, 0, 1)),
+          "the ce, segment 0 and segment 1 params exist")
+    rows = read_rows(out)
+    check(len(rows) == 1 and rows[0]["distill_steps_actual"] == 4,
+          f"one eval row after 4 distillation steps: {rows}")
+    check_row(rows[0], "cpu_tiny_seg2x2", smi, "segments")
+    log("campaigns", f"segments: roles {roles}; {json.dumps(rows[0])}")
+    return dict(row=rows[0], roles=roles, s=s)
+
+
+def campaign_probe(d: str) -> dict:
+    """``campaigns.scaling --probe --only rqc4_auto``: no row, the walk
+    launches of a full run, at the shape its config gives."""
+    cfg = scaling_rung(CAMPAIGN_PROBE)
+    walks, steps = SCALING_PLAN[CAMPAIGN_PROBE]
+    # sample_all_bases' calls: at most 2^21 chains each, shots split evenly.
+    n, shots = cfg.data.num_qubits, cfg.data.shots_infer
+    calls = -(-shots // (2**21 // 3**n))
+    check((cfg.diffusion.num_timesteps, 3**n, n, -(-shots // calls))
+          == RQC4_WALK_SHAPE and calls == walks,
+          f"{CAMPAIGN_PROBE}'s config gives {walks} walks of (T, C, N, S) = "
+          f"{RQC4_WALK_SHAPE}")
+    out = os.path.join(d, "probe.jsonl")
+    stdout, s = run_campaign(["scaling", "--probe", "--only", CAMPAIGN_PROBE,
+                              "--out", out],
+                             f"scaling --probe --only {CAMPAIGN_PROBE}")
+    check(not os.path.exists(out), "the probe wrote no row")
+    (line,) = launch_lines(stdout)
+    check((line["walk_launches"], line["step_launches"]) == (walks, steps)
+          and line["walk_plan"][3] == "staged",
+          f"the probe launched as a full run does, on the staged body: "
+          f"{line}")
+    log("campaigns", f"probe {CAMPAIGN_PROBE}: walk launches "
+        f"{line['walk_launches']} at (T, C, N, S) = {RQC4_WALK_SHAPE}, plan "
+        f"{line['walk_plan']}; step launches {line['step_launches']}; no row")
+    return dict(line, walk_shape=list(RQC4_WALK_SHAPE), s=s)
+
+
+def phase_campaigns(smi: str) -> dict:
+    """The three chains of driver processes at once."""
+    from ddqst_tpu_torch.pipeline import ensure_data_cache
+
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "cpu_tiny_data.npz")
+        ensure_data_cache(scaling_rung("cpu_tiny"), 0, data,
+                          lambda m: log("campaigns", m),
+                          device=torch.device("cuda"))
+        with ThreadPoolExecutor(3) as pool:
+            futs = dict(ladder=pool.submit(campaign_ladder, d, smi),
+                        segments=pool.submit(campaign_segments, d, data, smi),
+                        probe=pool.submit(campaign_probe, d))
+            return {k: f.result() for k, f in futs.items()}
+
+
+def campaign_rung(ck, tag: str, out_dir: str, smi: str) -> dict:
+    """``--campaign TAG OUT_DIR``: ``campaigns.scaling --only TAG
+    --data_cache <the committed data> --out OUT_DIR/scaling.jsonl``, uncut,
+    in this process (``scaling.main``'s own ``run``), then the rung's
+    checks: the launch plan, the samples against the model's exact chain,
+    the raw inversion and MLE on the raw counts against the JAX package's
+    on the same file, the fidelity beside the reference's row (a verdict,
+    not a check), and the row the driver appended."""
+    from ddqst_tpu_torch.campaigns import read_rows, scaling
+
+    out = os.path.join(out_dir, "scaling.jsonl")
+    check(tag not in scaling.finished_tags(out), f"{out} has no {tag} row "
+          "yet (a finished tag would be skipped)")
+    argv = ["--only", tag, "--out", out, "--data_cache",
+            repo_file(SCALING_DATA[tag])]
+    cfg = scaling_rung(tag)
+    log("scaling", f"{tag}: uncut through campaigns.scaling {' '.join(argv)}:"
+        f" {cfg.train.num_epochs} CE epochs, {cfg.train.chain_finetune_steps}"
+        f" distillation steps, {cfg.data.shots_train} / "
+        f"{cfg.data.shots_infer} shots a basis")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ((row, res),) = scaling.run(scaling.parse_args(argv))
+    torch.cuda.synchronize()
+    rec = dict(wall_s=time.perf_counter() - t0,
+               walk_launches=ck.fused_chain_walk.launches,
+               step_launches=ck.fused_chain_step.launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               timings=dict(res["timings"]))
+    log("scaling", f"{tag}: wall {rec['wall_s']:.2f} s, peak "
+        f"{rec['peak_gb']:.2f} GB allocated, launches: walk "
+        f"{rec['walk_launches']}, step {rec['step_launches']}; stages (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec["timings"].items()))
+    out_rec = scaling_part_checks(ck, tag, cfg, res, rec, cut=False)
+    (kept,) = [r for r in read_rows(out) if r["tag"] == tag]
+    check(kept == row, f"the record holds the driver's row: {kept}")
+    check_row(kept, tag, smi, "campaign")
+    for k in ("fidelity", "raw_fidelity", "raw_fidelity_mitigated",
+              "trace_distance"):
+        check(kept[k] == round(res[k], 5), f"the row's {k} is the run's")
+    log("scaling", f"{tag}: row {json.dumps(kept)}")
+    return dict(out_rec, row=kept)
+
+
+# ``--repeat-check``: does training repeat bit for bit from one seed in two
+# processes? ``campaigns.shadow_scale`` at these flags in each child.
+REPEAT_ARGS = ["--tag", "repeat", "--epochs", "1", "--max_bases", "100"]
+
+
+def repeat_child(path: str) -> None:
+    """``--repeat-child PATH``: one run of ``REPEAT_ARGS``; its row (less
+    ``wall_s``), per-epoch losses (as hex floats) and a sha256 of each
+    parameter and of all of them, in PATH."""
+    import hashlib
+
+    from ddqst_tpu_torch.campaigns import shadow_scale
+
+    rec, res = shadow_scale.run(shadow_scale.parse_args(
+        REPEAT_ARGS + ["--out", path + ".jsonl"]))
+    hashes, whole = {}, hashlib.sha256()
+    for name, p in res["state"].state_dict().items():
+        b = p.detach().cpu().contiguous().numpy().tobytes()
+        hashes[name] = hashlib.sha256(b).hexdigest()
+        whole.update(b)
+    with open(path, "w") as f:
+        json.dump(dict(row={k: v for k, v in rec.items() if k != "wall_s"},
+                       losses=[float(x).hex() for x in res["losses"]],
+                       train_steps=res["train_steps"], params=hashes,
+                       params_sha256=whole.hexdigest()), f)
+
+
+def first_divergence(cfg, steps: int = 3) -> dict:
+    """Within one process, ``steps`` training steps of ``cfg``'s model twice
+    from one seed (a batch of the shadow width's shape, seeded), every
+    module's output and output gradient and every parameter's gradient
+    recorded: the first that differs between the two, by execution order
+    (forward) and backward order (gradients)."""
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.models.d3pm import init_params_
+    from ddqst_tpu_torch.ops.diffusion import denoising_loss
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    dev = torch.device("cuda")
+    n, t_steps = cfg.data.num_qubits, cfg.diffusion.num_timesteps
+    sched = make_schedule(cfg.diffusion.schedule, t_steps, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x0 = torch.randint(0, 2, (cfg.train.batch_size, n), generator=gen,
+                       device=dev, dtype=torch.int32)
+    basis = torch.randint(0, 3, (cfg.train.batch_size, n), generator=gen,
+                          device=dev)
+
+    def once():
+        model = build_model(cfg.model, n, t_steps).to(dev)
+        init_params_(model, torch.Generator(device=dev).manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=cfg.train.learning_rate)
+        g = torch.Generator(device=dev).manual_seed(1)
+        rec = dict(forward=[], backward=[], grads=[])
+
+        def fwd(name):
+            def hook(mod, args, out):
+                if isinstance(out, torch.Tensor):
+                    rec["forward"].append((name, type(mod).__name__,
+                                           out.detach().clone()))
+                    if out.requires_grad:
+                        out.register_hook(lambda gr: rec["backward"].append(
+                            (name, type(mod).__name__, gr.clone())))
+            return hook
+
+        hooks = [m.register_forward_hook(fwd(name))
+                 for name, m in model.named_modules() if name]
+        try:
+            for _ in range(steps):
+                opt.zero_grad(set_to_none=True)
+                denoising_loss(g, model, x0, basis, sched).backward()
+                rec["grads"] += [(name, "parameter", p.grad.clone())
+                                 for name, p in model.named_parameters()]
+                opt.step()
+        finally:
+            for h in hooks:
+                h.remove()
+        return rec
+
+    a, b = once(), once()
+    out = {}
+    for kind in ("forward", "backward", "grads"):
+        first = next(((i, na, ty, float((x.double() - y.double()).abs().max()))
+                      for i, ((na, ty, x), (_, _, y))
+                      in enumerate(zip(a[kind], b[kind]))
+                      if not torch.equal(x, y)), None)
+        out[kind] = (None if first is None else dict(
+            index=first[0], of=len(a[kind]), name=first[1], type=first[2],
+            max_abs_diff=first[3]))
+    return out
+
+
+def repeat_check() -> dict:
+    """``--repeat-check``: ``REPEAT_ARGS`` in two child processes from one
+    seed, their loss trace, parameter hashes and rows compared; where they
+    differ, ``first_divergence`` names the first tensor that does."""
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(2):
+            path = os.path.join(d, f"run{i}.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--repeat-child", path],
+                                  cwd=repo_file("."), timeout=900)
+            check(proc.returncode == 0, f"repeat child {i} exits 0")
+            with open(path) as f:
+                runs.append(dict(json.load(f), s=time.perf_counter() - t0))
+    a, b = runs
+    same = dict(losses=a["losses"] == b["losses"],
+                params=a["params_sha256"] == b["params_sha256"],
+                row=a["row"] == b["row"])
+    out = dict(same=same, runs=runs,
+               first_param_differing=next(
+                   (k for k in a["params"] if a["params"][k] != b["params"][k]),
+                   None),
+               row_keys_differing=[k for k in a["row"]
+                                   if a["row"][k] != b["row"].get(k)])
+    log("repeat", f"two processes, {' '.join(REPEAT_ARGS)}: losses "
+        f"{[float.fromhex(x) for x in a['losses']]} / "
+        f"{[float.fromhex(x) for x in b['losses']]}; params sha256 "
+        f"{a['params_sha256'][:16]} / {b['params_sha256'][:16]}; same: "
+        f"{same}; first parameter differing: {out['first_param_differing']};"
+        f" row keys differing: {out['row_keys_differing']}")
+    if not all(same.values()):
+        from ddqst_tpu_torch.campaigns.shadow_scale import make_cfg
+
+        out["first_divergence"] = first_divergence(
+            make_cfg("repeat", epochs=1, max_bases=100))
+        log("repeat", f"first divergence within one process: "
+            f"{json.dumps(out['first_divergence'])}")
+    return out
+
+
 def time_kernels(ck) -> dict:
     """Both kernels' ms at their shapes, in the forms every version of the
     port has (the step kernel with ``rows``, the walk with the body its plan
@@ -4500,6 +4773,22 @@ def time_kernels(ck) -> dict:
     return out
 
 
+def kernels_of(root: str):
+    """``ddqst_tpu_torch.ops.cuda_kernels`` of the checkout at ``root``
+    (``--time-kernels``). This script imports nothing of the package at
+    module level, so ``root`` comes first; a module from anywhere else
+    raises."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from ddqst_tpu_torch.ops import cuda_kernels as ck
+
+    where = os.path.abspath(ck.__file__)
+    if not where.startswith(os.path.join(root, "")):
+        raise RuntimeError(f"--time-kernels {root}: the kernels imported "
+                           f"are {where}, not that checkout's")
+    return ck
+
+
 def build_all(_build) -> dict[str, float]:
     """Build every source at once, one compiler each (nvcc for the CUDA
     sources, g++ for the statevector engine); returns each one's seconds."""
@@ -4525,9 +4814,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--time-kernels"]:
         # python3 chip_smoke.py --time-kernels [DIR]: only time the kernels
         # of the checkout at DIR (default: this one) and print one JSON line.
-        sys.path.insert(0, os.path.abspath(sys.argv[2] if sys.argv[2:] else
-                                           os.path.dirname(__file__)))
-        from ddqst_tpu_torch.ops import cuda_kernels as ck
+        ck = kernels_of(sys.argv[2] if sys.argv[2:] else
+                        os.path.dirname(__file__))
         print(json.dumps({"time_kernels_ms": time_kernels(ck),
                           "package": os.path.dirname(ck.__file__)}), flush=True)
         return 0
@@ -4546,6 +4834,31 @@ def main() -> int:
     log("setup", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} ({smi})")
 
+    if sys.argv[1:2] == ["--campaign"]:
+        # python3 chip_smoke.py --campaign TAG OUT_DIR: one rung uncut
+        # through campaigns.scaling on its committed data, its row appended
+        # to OUT_DIR/scaling.jsonl, checked.
+        if len(sys.argv) != 4:
+            print("usage: chip_smoke.py --campaign TAG OUT_DIR",
+                  file=sys.stderr)
+            return 2
+        tag, out_dir = sys.argv[2:]
+        check(tag in SCALING_DATA, f"{tag} has committed data "
+              f"({sorted(SCALING_DATA)})")
+        build_all(_build)
+        print(json.dumps({"campaign": campaign_rung(ck, tag, out_dir, smi),
+                          "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--repeat-child"]:
+        repeat_child(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--repeat-check"]:
+        # python3 chip_smoke.py --repeat-check: one shadow_scale run in
+        # each of two processes from one seed, compared; one JSON line.
+        build_all(_build)
+        print(json.dumps({"repeat_check": repeat_check(), "card": smi}),
+              flush=True)
+        return 0
     if sys.argv[1:2] == ["--profile-distill"]:
         print(json.dumps({"profile_distill": profile_distill(), "card": smi}),
               flush=True)
@@ -4554,8 +4867,9 @@ def main() -> int:
         # python3 chip_smoke.py --scaling TAG [TAG ...]: only the named
         # rungs of the scaling ladder, uncut, and one JSON line.
         tags = sys.argv[2:]
-        for tag in tags:
-            scaling_rung(tag)  # an unknown tag raises before any work
+        for tag in tags:  # a rung without checks raises before any work
+            check(tag in SCALING_PLAN, f"{tag} is a rung with checks "
+                  f"({sorted(SCALING_PLAN)})")
         build_all(_build)
         print(json.dumps({"scaling_uncut": scaling_uncut(ck, tags),
                           "card": smi}), flush=True)
@@ -4653,6 +4967,7 @@ def main() -> int:
     train_profile = timed("train_profile", phase_train_profile)
     mesh = timed("mesh", phase_mesh)
     scaling = timed("scaling", phase_scaling, ck)
+    campaigns = timed("campaigns", phase_campaigns, smi)
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -4721,6 +5036,13 @@ def main() -> int:
             for tag in SCALING_WALK_SHAPES if tag in scaling["rungs"]},
         "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
                            if r["kernel"] == "fused_chain_walk"},
+        "launches_campaigns": {
+            "scaling_cpu_tiny": campaigns["ladder"]["walk_launches"],
+            "probe_rqc4_auto": campaigns["probe"]["walk_launches"]},
+        "shape_rqc4_auto": list(RQC4_WALK_SHAPE),
+        **{f"{k}_rqc4_auto": kernel["rqc4"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
+                     "ms_by_threads", "plan")},
     }, {
         "name": "fused_chain_step",
         "route": "cuda",
@@ -4753,7 +5075,8 @@ def main() -> int:
         "reference_shadow": reference, "shadow_n12": shadow_n12,
         "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
-        "mesh": mesh, "scaling": scaling, "phase_seconds": phase_s}),
+        "mesh": mesh, "scaling": scaling, "campaigns": campaigns,
+        "phase_seconds": phase_s}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -194,10 +194,10 @@ def test_mitigate_train_data_path_runs(tmp_path):
 
 def test_port_imports_no_jax():
     """Every ddqst_tpu_torch module, and chip_smoke.py, import without jax,
-    flax, optax or ddqst_tpu, and the C++ engine builds and runs without
-    them."""
+    flax, optax, ddqst_tpu or any module of scripts/, and the C++ engine
+    builds and runs without them."""
     code = (
-        "import pkgutil, importlib, sys, ddqst_tpu_torch\n"
+        "import os, pkgutil, importlib, sys, ddqst_tpu_torch\n"
         "for m in pkgutil.walk_packages(ddqst_tpu_torch.__path__, "
         "'ddqst_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -206,7 +206,8 @@ def test_port_imports_no_jax():
         "'pipeline', 'evaluate', 'cli', 'utils.checkpoint', "
         "'utils.profiling', 'models.transformer', 'models.d3pm', "
         "'parallel.mesh', 'parallel.tensor', 'qsim.native_engine', "
-        "'bench'):\n"
+        "'bench', 'campaigns.recipes', 'campaigns.scaling', "
+        "'campaigns.shadow_scale', 'campaigns.segments'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "from ddqst_tpu_torch.qsim import native_engine, states\n"
         "psi = native_engine.statevectors([states.prep_circuit('bell', 2)])\n"
@@ -214,6 +215,11 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ddqst_tpu')]\n"
         "assert not bad, bad\n"
+        "scripts = os.path.abspath('scripts')\n"
+        "from_scripts = [m for m, mod in list(sys.modules.items()) if "
+        "os.path.dirname(os.path.abspath(getattr(mod, '__file__', None) "
+        "or '/')) == scripts]\n"
+        "assert not from_scripts, from_scripts\n"
         "print('ok', len([m for m in sys.modules if m.startswith('ddqst_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -30,6 +30,7 @@ from ddqst_tpu import pipeline as jpipe
 from ddqst_tpu.ops import mle as jmle
 from ddqst_tpu.ops.complexlib import to_complex
 from ddqst_tpu_torch import pipeline as tpipe
+from ddqst_tpu_torch.campaigns.recipes import auto_recipe, quality_cfg
 from ddqst_tpu_torch.ops import cuda_kernels as ck
 from ddqst_tpu_torch.ops import metrics as tM
 from ddqst_tpu_torch.ops import mle as tmle
@@ -119,9 +120,9 @@ def test_mle_on_raw_capped_matches_jax(rqc6):
 
 def _tiny(target: str = "counts", val_fraction: float = 0.15):
     """The RQC-6 recipe's stack at N = 3, width 16, T = 4, 2 epochs."""
-    cfg = chip_smoke.auto_recipe(
-        chip_smoke.quality_cfg("tiny", num_qubits=3, state="rqc",
-                               shots_train=200, shots_infer=300),
+    cfg = auto_recipe(
+        quality_cfg("tiny", num_qubits=3, state="rqc",
+                    shots_train=200, shots_infer=300),
         epochs=2, steps=2, steps_per_call=1, target=target,
         val_fraction=val_fraction)
     return cfg.replace(
