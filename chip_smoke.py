@@ -2932,7 +2932,9 @@ def profile_training(preset: str) -> dict:
 
 
 def phase_train_profile() -> dict:
-    return {p: profile_training(p) for p in ("shadow_transformer", "rqc")}
+    out = {p: profile_training(p) for p in ("shadow_transformer", "rqc")}
+    out["embed_backward"] = embed_repeat()
+    return out
 
 
 def profile_distill() -> dict:
@@ -4522,7 +4524,7 @@ def campaign_probe(d: str) -> dict:
     # sample_all_bases' calls: at most 2^21 chains each, shots split evenly.
     n, shots = cfg.data.num_qubits, cfg.data.shots_infer
     calls = -(-shots // (2**21 // 3**n))
-    check((cfg.diffusion.num_timesteps, 3**n, n, -(-shots // calls))
+    check((cfg.diffusion.num_timesteps, 3**n, n, walk_call_shots(n, shots))
           == RQC4_WALK_SHAPE and calls == walks,
           f"{CAMPAIGN_PROBE}'s config gives {walks} walks of (T, C, N, S) = "
           f"{RQC4_WALK_SHAPE}")
@@ -4599,32 +4601,419 @@ def campaign_rung(ck, tag: str, out_dir: str, smi: str) -> dict:
               "trace_distance"):
         check(kept[k] == round(res[k], 5), f"the row's {k} is the run's")
     log("scaling", f"{tag}: row {json.dumps(kept)}")
-    return dict(out_rec, row=kept)
+    return dict(out_rec, row=kept,
+                rescore=campaign_rescore(tag, res, out_rec, out_dir))
+
+
+# ``exact_rescore``'s fidelity of the exact chain against the rung's own
+# (``scaling_checks``' ``fidelity_exact_chain``): two callers of one MLE
+# on one distribution, the rows rounding to 5 decimals.
+RESCORE_TOL = 1e-4
+
+
+def campaign_rescore(tag: str, res: dict, rec: dict, out_dir: str) -> dict:
+    """The run's parameters saved to ``OUT_DIR/<tag>_params.pt``, then
+    ``campaigns.exact_rescore --also_sampled`` on them (its rows in
+    ``OUT_DIR/exact_rescore.jsonl``): the exact row's fidelity equals the
+    rung's ``fidelity_exact_chain`` within ``RESCORE_TOL``."""
+    from ddqst_tpu_torch.campaigns import exact_rescore
+    from ddqst_tpu_torch.utils.checkpoint import save_params
+
+    path = os.path.join(out_dir, f"{tag}_params.pt")
+    save_params(path, res["state"])
+    t0 = time.perf_counter()
+    exact, sampled = exact_rescore.rescore(exact_rescore.parse_args(
+        ["--tag", tag, "--params", path, "--also_sampled", "--out",
+         os.path.join(out_dir, "exact_rescore.jsonl")]))
+    wall = time.perf_counter() - t0
+    err = abs(exact["fidelity"] - rec["fidelity_exact_chain"])
+    log("scaling", f"{tag}: exact_rescore on {path} ({wall:.1f} s): exact "
+        f"{exact['fidelity']}, sampled {sampled['fidelity']}; the rung's "
+        f"exact-chain MLE {rec['fidelity_exact_chain']:.6f}, |diff| "
+        f"{err:.2e}; the run's fidelity {res['fidelity']:.5f}")
+    check(err <= RESCORE_TOL, f"{tag}: exact_rescore equals the rung's "
+          f"fidelity_exact_chain within {RESCORE_TOL}")
+    return dict(exact=exact, sampled=sampled, abs_diff=err, s=wall,
+                params=path)
+
+
+# ``--shadow-segments``: ``campaigns.shadow_segments`` from the reference's
+# CE snapshot on its data cache at its 300 bases; the eval row beside the
+# reference's rows (examples/results_shadow.jsonl 9 and 11).
+SHADOW_SEG_TAG = "dist_seg"
+SHADOW_SEG_ROW_KEYS = {
+    "tag", "epochs", "model", "distill_steps", "distill_steps_actual",
+    "max_bases", "seed", "mean_tv_to_target", "tv_shot_noise_floor",
+    "meas_tv_to_target", "mean_marginal_error", "classical_fidelity",
+    "note", "wall_s", "device"}
+SHADOW_SEG_REFERENCE = {"dist300": 0.17363, "snapshot": 0.1983}
+SHADOW_SEG_PROBE_STEPS = 5
+
+
+def shadow_segments_argv(work: str, k: int, s: int, start: int) -> list[str]:
+    return ["--tag", SHADOW_SEG_TAG, "--segments", str(k),
+            "--steps_per_segment", str(s), "--start_segment", str(start),
+            "--data_cache", repo_file(REFERENCE_SHADOW_DATA),
+            "--max_bases", "300", "--workdir", work,
+            "--out", os.path.join(work, "shadow.jsonl")]
+
+
+def shadow_workdir(work: str) -> None:
+    """``work`` with the reference's CE snapshot in it as the CE role's."""
+    from ddqst_tpu_torch.campaigns.segments import snapshot
+
+    os.makedirs(work, exist_ok=True)
+    ce = snapshot(work, SHADOW_SEG_TAG, -1)
+    if not os.path.exists(ce):
+        shutil.copyfile(repo_file(REFERENCE_SHADOW_PARAMS), ce)
+
+
+def shadow_segments_probe(out_dir: str) -> dict:
+    """``SHADOW_SEG_PROBE_STEPS`` distillation steps of segment 0 in this
+    process (the driver's distill role, ``shadow_segments.child``), each
+    optimiser step's end stamped after a device synchronisation: ms a step
+    at the campaign's shape (the median interval)."""
+    from ddqst_tpu_torch.campaigns import shadow_segments
+
+    work = os.path.join(out_dir, "probe")
+    shadow_workdir(work)
+    stamps = []
+    step = torch.optim.Adam.step
+
+    def stamped(self, *a, **kw):
+        out = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    argv = shadow_segments_argv(work, 1, SHADOW_SEG_PROBE_STEPS, 0)
+    torch.optim.Adam.step = stamped
+    t0 = time.perf_counter()
+    try:
+        shadow_segments.child(shadow_segments.parse_args(
+            argv + ["--child_role", "distill", "--child_segment", "0"]))
+    finally:
+        torch.optim.Adam.step = step
+    wall = time.perf_counter() - t0
+    gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    step_s = gaps[len(gaps) // 2]
+    (seg,) = shadow_steps_log(work)
+    log("shadow_segments", f"probe: {len(stamps)} steps, median {step_s:.3f} "
+        f"s a step (gaps {[round(g, 3) for g in gaps]}); the role "
+        f"{wall:.1f} s in this process; chain CE {seg['ce_before']:.5f} -> "
+        f"{seg['ce_after']:.5f}, held-out step {seg['best_step']} kept")
+    check(len(stamps) == SHADOW_SEG_PROBE_STEPS
+          and math.isfinite(seg["ce_after"]), f"shadow segments probe: "
+          f"{SHADOW_SEG_PROBE_STEPS} steps, a finite chain CE: {seg}")
+    return dict(step_s=step_s, gaps_s=gaps, role_s=wall, segment=seg)
+
+
+def shadow_steps_log(work: str) -> list[dict]:
+    from ddqst_tpu_torch.campaigns import read_rows
+
+    return read_rows(os.path.join(work, f"{SHADOW_SEG_TAG}_segments.jsonl"))
+
+
+def shadow_segments_run(ck, out_dir: str, k: int, s: int, start: int,
+                        smi: str) -> dict:
+    """The driver as a user runs it (``python -m
+    ddqst_tpu_torch.campaigns.shadow_segments``, every role a child) in
+    ``OUT_DIR``, from segment ``start``; then the checks: each segment's
+    chain CE falls, and after the eval role its row has the script's keys
+    and the card, and an eval of the last snapshot in this process
+    (``reference_shadow_run``: one ring walk, every basis' samples within 4
+    shot-noise scales of the exact chain of the tables it read) gives the
+    row's metrics again, the training and sampling repeating bit for bit."""
+    from ddqst_tpu_torch.campaigns import read_rows
+    from ddqst_tpu_torch.campaigns.segments import snapshot
+
+    shadow_workdir(out_dir)
+    argv = shadow_segments_argv(out_dir, k, s, start)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "ddqst_tpu_torch.campaigns.shadow_segments",
+                           *argv], cwd=repo_file("."))
+    wall = time.perf_counter() - t0
+    log("shadow_segments", f"driver {' '.join(argv)}: exit "
+        f"{proc.returncode} in {wall:.1f} s")
+    check(proc.returncode == 0, "the shadow segments driver exits 0")
+    segs = shadow_steps_log(out_dir)
+    log("shadow_segments", f"steps log: {json.dumps(segs)}")
+    out = dict(segments=segs, driver_s=wall)
+    rows = read_rows(os.path.join(out_dir, "shadow.jsonl"))
+    if rows:
+        row = rows[-1]
+        run = reference_shadow_run(ck, "shadow_segments", params_load=snapshot(
+            out_dir, SHADOW_SEG_TAG, k - 1))
+        again = {m: round(run["res"][m], 5) for m in SHADOW_METRICS + (
+            "tv_shot_noise_floor", "meas_tv_to_target")}
+        tv = row["mean_tv_to_target"]
+        ref = SHADOW_SEG_REFERENCE["dist300"]
+        gap = tv - ref
+        verdict = ("below the reference" if gap < 0 else "agreement"
+                   if gap <= REFERENCE_FIDELITY_MARGIN else "miss")
+        log("shadow_segments", f"{row['tag']}: TV {tv} against the "
+            f"reference's {ref} after 300 steps ({gap:+.5f}: {verdict}) and "
+            f"{SHADOW_SEG_REFERENCE['snapshot']} before distillation; "
+            f"marginal error {row['mean_marginal_error']}, classical "
+            f"fidelity {row['classical_fidelity']}; "
+            f"{row['distill_steps_actual']} steps run; an eval in this "
+            f"process: {again}")
+        out.update(row=row, verdict=verdict, reference=SHADOW_SEG_REFERENCE,
+                   eval_again=again, eval_walk_plan=list(run["plan"]),
+                   eval_walks=run["walks"])
+    for seg in segs:
+        check(seg["ce_after"] < seg["ce_before"], f"segment "
+              f"{seg['segment']}: chain CE {seg['ce_before']} -> "
+              f"{seg['ce_after']} falls")
+    if rows:
+        check(set(row) == SHADOW_SEG_ROW_KEYS and row["device"] == smi
+              and row["tag"] == f"{SHADOW_SEG_TAG}_seg{k}x{s}",
+              f"the eval row has the script's keys and the card: {row}")
+        check(all(row[m] == v for m, v in again.items()),
+              f"an eval of the last snapshot in this process gives the "
+              f"row's metrics: {again}")
+    return out
+
+
+# ``--parity [TAGS]``: ``campaigns.parity_suite`` on the card, each row
+# held to the JAX package's (examples/results_parity.jsonl): the samples
+# against the model's exact chain, the raw inversion's fidelity within
+# ``PARITY_RAW_SDS``·√2 shot-noise standard deviations of the JAX row's
+# (the same state and noise from the seed, independent shots; the standard
+# deviation over ``PARITY_RAW_DRAWS`` multinomial draws from the exact
+# noisy distribution, through the pipeline's own inversion).
+PARITY_TAGS = ("phase1_plus", "phase1_simple_mlp", "phase1_upgraded_mlp",
+               "phase2_bell", "phase2_ghz3") + tuple(
+    f"phase3_rqc2_{k}" for k in ("ideal", "readout", "depolarizing",
+                                 "thermal", "torino"))
+PARITY_ROW_KEYS = {"tag", "fidelity", "raw_fidelity",
+                   "raw_fidelity_mitigated", "trace_distance", "reference",
+                   "note", "wall_s", "device"}
+PARITY_RAW_SDS = 4.0
+PARITY_RAW_DRAWS = 64
+PARITY_JAX_ROWS = "examples/results_parity.jsonl"
+
+
+def raw_fidelity_sd(cfg, seed: int, draws: int, dev) -> float:
+    """The shot-noise standard deviation of ``raw_fidelity`` (unmitigated
+    linear inversion of ``shots_train`` shots a basis) under ``cfg`` at
+    ``seed``: over ``draws`` multinomial draws (numpy, seeded) from the
+    exact noisy Born distribution."""
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import pauli
+    from ddqst_tpu_torch.pipeline import noisy_basis_probs
+    from ddqst_tpu_torch.qsim import measure, noise, states
+
+    n = cfg.data.num_qubits
+    circuit = states.prep_circuit(cfg.data.state_type, n, cfg.data.rqc_depth,
+                                  np.random.default_rng(seed))
+    labels = pauli.all_basis_labels(n)
+    probs = noisy_basis_probs(
+        circuit, noise.get_noise_config(cfg.data.noise_type),
+        torch.from_numpy(measure.rotation_unitaries(labels)).to(dev))
+    probs = probs.double().cpu().numpy()
+    target = torch.from_numpy(states.circuit_statevector(circuit)).to(dev)
+    inv = pauli.make_counts_inverter(n, labels)
+    rng = np.random.default_rng(seed + 1)
+    fids = [float(M.state_fidelity(target, inv(torch.from_numpy(np.stack(
+        [rng.multinomial(cfg.data.shots_train, p / p.sum()) for p in probs]
+    )).float().to(dev)))) for _ in range(draws)]
+    return float(np.std(fids, ddof=1))
+
+
+def parity_run(ck, tags: list[str], out_dir: str, smi: str) -> dict:
+    """Each tag uncut through ``parity_suite.run`` in this process (its row
+    in ``OUT_DIR/parity.jsonl``), then its checks; the fidelity beside the
+    JAX row's and the published value (recorded, not held)."""
+    from ddqst_tpu_torch.campaigns import parity_suite, read_rows
+    from ddqst_tpu_torch.ops import diffusion as diff
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+
+    jax_rows = {r["tag"]: r for r in read_rows(repo_file(PARITY_JAX_ROWS))}
+    cfgs = {t: (c, ref) for t, c, ref, _ in parity_suite.experiments()}
+    out_path = os.path.join(out_dir, "parity.jsonl")
+    out = {}
+    for tag in tags:
+        cfg, ref = cfgs[tag]
+        n, t_steps = cfg.data.num_qubits, cfg.diffusion.num_timesteps
+        ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+        ((row, res),) = parity_suite.run(out_path, only=tag)
+        check(res is not None, f"{tag}: no row in {out_path} yet")
+        walks, steps = ck.fused_chain_walk.launches, ck.fused_chain_step.launches
+        check(set(row) == PARITY_ROW_KEYS and row["device"] == smi,
+              f"{tag}: the row has the script's keys and the card: {row}")
+        for k in ("fidelity", "raw_fidelity", "trace_distance"):
+            check(math.isfinite(res[k]), f"{tag}: {k} finite")
+        sched = make_schedule(cfg.diffusion.schedule, t_steps, "cuda")
+        tables = diff.grid_p1_tables(res["state"], n, sched,
+                                     cfg.diffusion.exact
+                                     ).reshape(t_steps, 3**n, 2**n, n)
+        samples_vs_tables("parity", tag, res["samples"], tables,
+                          torch.full((3**n, 2**n), 2.0**-n, device="cuda"))
+        want = jax_rows[tag]
+        sd = raw_fidelity_sd(cfg, 0, PARITY_RAW_DRAWS, "cuda")
+        bound = PARITY_RAW_SDS * math.sqrt(2) * sd
+        err = abs(res["raw_fidelity"] - want["raw_fidelity"])
+        log("parity", f"{tag}: raw {res['raw_fidelity']:.5f} vs the JAX "
+            f"row's {want['raw_fidelity']} (|diff| {err:.5f}, shot-noise sd "
+            f"{sd:.5f}, bound {bound:.5f}); fidelity {res['fidelity']:.5f} "
+            f"vs the JAX row's {want['fidelity']} and the published {ref}; "
+            f"{res['train_steps']} CE steps, wall {row['wall_s']} s; "
+            f"launches: walk {walks}, step {steps}")
+        check(err <= bound, f"{tag}: raw_fidelity within {bound:.5f} of the "
+              f"JAX row's")
+        out[tag] = dict(row=row, jax_row=want, raw_sd=sd, raw_bound=bound,
+                        train_steps=res["train_steps"], walk_launches=walks,
+                        step_launches=steps, timings=res["timings"],
+                        walk_shape=[t_steps, 3**n, n, walk_call_shots(
+                            n, cfg.data.shots_infer)])
+    out["kernel"] = {
+        "x".join(map(str, shape)): walk_row(ck, *shape)
+        for shape in sorted({tuple(r["walk_shape"]) for r in out.values()})}
+    return out
+
+
+def walk_call_shots(n: int, shots: int) -> int:
+    """Chains a row of one ``sample_all_bases`` walk call: at most 2^21
+    chains a call, the shots split evenly over the calls."""
+    calls = -(-shots // (2**21 // 3**n))
+    return -(-shots // calls)
+
+
+def walk_row(ck, t_steps: int, c: int, n: int, s: int) -> dict:
+    """The walk at one shape on seeded random tables: bit for bit against
+    its plain version; ms (CUDA events) of the kernel and the plain
+    version, and the bound, as phase ``kernel`` reckons them."""
+    tables, init = random_walk_inputs(t_steps, c, n, s, seed=c + n)
+    out = ck.fused_chain_walk(5, tables, init, n)
+    plan = ck.fused_chain_walk.last_plan
+    plain = ck.fused_chain_walk_reference(5, tables, init, n)
+    check(torch.equal(out, plain), f"kernel == plain bit for bit at "
+          f"T={t_steps} C={c} N={n} S={s}")
+    ms = cuda_ms(lambda: ck.fused_chain_walk(5, tables, init, n), 20)
+    plain_ms = cuda_ms(lambda: ck.fused_chain_walk_reference(
+        5, tables, init, n), 2)
+    bound, by = walk_bound_ms(t_steps, c, n, s)
+    log("kernel", f"T={t_steps} C={c} N={n} S={s}: kernel {ms:.4f} ms (plan "
+        f"{plan}), plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+        f"{ms / bound:.2f} x bound; == plain bit for bit")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                plan=list(plan), max_abs_err=0.0)
+
+
+# ``--rqc3-ceiling``: ``campaigns.rqc3_ceiling --ceiling`` on the card,
+# against the JAX package's record of the same protocol.
+RQC3_CEILING_ROWS = "examples/rqc3_ceiling.jsonl"
+RQC3_EXACT_TOL = 1e-4  # the MLE's tolerance: the same distribution, no draw
+RQC3_SAMPLED_SDS = 4.0
+RQC3_RUN_TAG = "rqc3_20k_counts"
+RQC3_RUN_ROWS = "examples/results_rqc3_99.jsonl"
+
+
+def rqc3_ceiling_run(out_dir: str, smi: str, run: bool) -> dict:
+    """The ceiling rows, each against the JAX package's: the exact rows
+    within ``RQC3_EXACT_TOL``; a sampled row equal within the tolerance
+    (the same numpy draws) or, where the draws differ, within
+    ``RQC3_SAMPLED_SDS``·√2 shot-noise standard deviations (over 16 draws
+    of noise-aware MLE). ``run``: also ``--run --only RQC3_RUN_TAG``
+    uncut, beside its JAX row."""
+    from ddqst_tpu_torch.campaigns import rqc3_ceiling, read_rows
+    from ddqst_tpu_torch.ops import metrics as M
+    from ddqst_tpu_torch.ops import mle
+
+    from ddqst_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    want = read_rows(repo_file(RQC3_CEILING_ROWS))
+    t0 = time.perf_counter()
+    got = rqc3_ceiling.run_ceiling(os.path.join(out_dir, "rqc3_ceiling.jsonl"),
+                                   dev)
+    wall = time.perf_counter() - t0
+    check(len(got) == len(want), f"{len(want)} ceiling rows")
+    diffs = []
+    for g, w in zip(got, want):
+        check(g["device"] == smi and {k: g[k] for k in ("mode", "seed")}
+              == {k: w[k] for k in ("mode", "seed")}
+              and g.get("shots") == w.get("shots"), f"row {g} is {w}'s")
+        keys = [k for k in w if k not in ("mode", "seed", "shots")]
+        err = max(abs(g[k] - w[k]) for k in keys)
+        bound = RQC3_EXACT_TOL
+        if g["mode"] == "sampled" and err > RQC3_EXACT_TOL:
+            target, probs, ncfg = rqc3_ceiling.noisy_setup(g["seed"], dev)
+            target = torch.from_numpy(target).to(dev)
+            rec = mle.make_mle(3, readout_p=ncfg.readout_p)
+            rng = np.random.default_rng(2000 + g["seed"])
+            fids = [float(M.state_fidelity(target, rec(torch.from_numpy(
+                np.stack([rng.multinomial(g["shots"], p / p.sum())
+                          for p in probs])).float().to(dev))))
+                for _ in range(16)]
+            bound = RQC3_SAMPLED_SDS * math.sqrt(2) * float(
+                np.std(fids, ddof=1))
+        log("rqc3_ceiling", f"{json.dumps(g)} vs the JAX package's "
+            f"{json.dumps(w)}: max |diff| {err:.2e} (bound {bound:.2e})")
+        check(err <= bound, f"ceiling row {g} within {bound:.2e} of {w}")
+        diffs.append(err)
+    out = dict(rows=got, max_abs_diff=max(diffs), s=wall)
+    if run:
+        jax = {r["tag"]: r for r in read_rows(repo_file(RQC3_RUN_ROWS))}
+        ((row, res),) = rqc3_ceiling.run_campaign(
+            os.path.join(out_dir, "rqc3_99.jsonl"), RQC3_RUN_TAG, 0, dev)
+        check(row["device"] == smi and math.isfinite(res["fidelity"]),
+              f"{RQC3_RUN_TAG}: a finite row on the card: {row}")
+        log("rqc3_ceiling", f"{RQC3_RUN_TAG}: fidelity {row['fidelity']} vs "
+            f"the JAX row's {jax[RQC3_RUN_TAG]['fidelity']}; raw "
+            f"{row['raw_fidelity']} vs {jax[RQC3_RUN_TAG]['raw_fidelity']}; "
+            f"MLE on raw {row['raw_fidelity_mitigated']} vs "
+            f"{jax[RQC3_RUN_TAG]['raw_fidelity_mitigated']}; "
+            f"{row['wall_s']} s")
+        out["run"] = dict(row=row, jax_row=jax[RQC3_RUN_TAG],
+                          timings=res["timings"])
+    return out
 
 
 # ``--repeat-check``: does training repeat bit for bit from one seed in two
-# processes? ``campaigns.shadow_scale`` at these flags in each child.
-REPEAT_ARGS = ["--tag", "repeat", "--epochs", "1", "--max_bases", "100"]
+# processes? At two widths: ``campaigns.shadow_scale`` at the shadow width
+# (1 epoch, 100 bases), and ``campaigns.scaling --probe`` of RQC-4 at the
+# ``rqc`` width on its committed data (1 CE epoch and 50 distillation steps
+# at full shapes, so the backward through ``chain_distribution`` too).
+REPEAT_ARGS = {
+    "shadow": ["--tag", "repeat", "--epochs", "1", "--max_bases", "100"],
+    "rqc": ["--only", "rqc4_auto", "--probe", "--data_cache",
+            "examples/reference_data/rqc4_auto_seed0.npz"],
+}
 
 
-def repeat_child(path: str) -> None:
-    """``--repeat-child PATH``: one run of ``REPEAT_ARGS``; its row (less
-    ``wall_s``), per-epoch losses (as hex floats) and a sha256 of each
-    parameter and of all of them, in PATH."""
+def repeat_child(width: str, path: str) -> None:
+    """``--repeat-child WIDTH PATH``: one run of ``REPEAT_ARGS[WIDTH]``; its
+    row (less ``wall_s``), losses (CE epochs, then distillation steps, as
+    hex floats) and a sha256 of each parameter and of all of them, in
+    PATH. The probe writes no row, so the RQC-4 run's row is the one its
+    results would give."""
     import hashlib
 
-    from ddqst_tpu_torch.campaigns import shadow_scale
+    from ddqst_tpu_torch.campaigns import scaling, shadow_scale
 
-    rec, res = shadow_scale.run(shadow_scale.parse_args(
-        REPEAT_ARGS + ["--out", path + ".jsonl"]))
+    if width == "shadow":
+        rec, res = shadow_scale.run(shadow_scale.parse_args(
+            REPEAT_ARGS[width] + ["--out", path + ".jsonl"]))
+    else:
+        argv = REPEAT_ARGS[width] + ["--out", path + ".jsonl"]
+        argv[argv.index("--data_cache") + 1] = repo_file(
+            argv[argv.index("--data_cache") + 1])
+        ((_, res),) = scaling.run(scaling.parse_args(argv))
+        tag = REPEAT_ARGS[width][1]
+        cfg, note = scaling.experiment(tag)
+        rec = scaling.row(tag, cfg, note, res, 0.0, "")
     hashes, whole = {}, hashlib.sha256()
     for name, p in res["state"].state_dict().items():
         b = p.detach().cpu().contiguous().numpy().tobytes()
         hashes[name] = hashlib.sha256(b).hexdigest()
         whole.update(b)
+    losses = list(res["losses"]) + list(res.get("ft_losses", []))
     with open(path, "w") as f:
         json.dump(dict(row={k: v for k, v in rec.items() if k != "wall_s"},
-                       losses=[float(x).hex() for x in res["losses"]],
+                       losses=[float(x).hex() for x in losses],
                        train_steps=res["train_steps"], params=hashes,
                        params_sha256=whole.hexdigest()), f)
 
@@ -4693,17 +5082,18 @@ def first_divergence(cfg, steps: int = 3) -> dict:
     return out
 
 
-def repeat_check() -> dict:
-    """``--repeat-check``: ``REPEAT_ARGS`` in two child processes from one
-    seed, their loss trace, parameter hashes and rows compared; where they
-    differ, ``first_divergence`` names the first tensor that does."""
+def repeat_check(width: str) -> dict:
+    """``REPEAT_ARGS[width]`` in two child processes from one seed, their
+    loss trace, parameter hashes and rows compared; where they differ,
+    ``first_divergence`` names the first tensor that does (at the shadow
+    width)."""
     runs = []
     with tempfile.TemporaryDirectory() as d:
         for i in range(2):
             path = os.path.join(d, f"run{i}.json")
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--repeat-child", path],
+                                   "--repeat-child", width, path],
                                   cwd=repo_file("."), timeout=900)
             check(proc.returncode == 0, f"repeat child {i} exits 0")
             with open(path) as f:
@@ -4712,25 +5102,118 @@ def repeat_check() -> dict:
     same = dict(losses=a["losses"] == b["losses"],
                 params=a["params_sha256"] == b["params_sha256"],
                 row=a["row"] == b["row"])
-    out = dict(same=same, runs=runs,
+    out = dict(same=same,
+               runs=[dict(params_sha256=r["params_sha256"], s=r["s"],
+                          train_steps=r["train_steps"],
+                          losses=len(r["losses"]),
+                          last_loss=float.fromhex(r["losses"][-1]),
+                          row=r["row"]) for r in runs],
                first_param_differing=next(
                    (k for k in a["params"] if a["params"][k] != b["params"][k]),
                    None),
                row_keys_differing=[k for k in a["row"]
                                    if a["row"][k] != b["row"].get(k)])
-    log("repeat", f"two processes, {' '.join(REPEAT_ARGS)}: losses "
-        f"{[float.fromhex(x) for x in a['losses']]} / "
-        f"{[float.fromhex(x) for x in b['losses']]}; params sha256 "
+    log("repeat", f"{width}: two processes, {' '.join(REPEAT_ARGS[width])}: "
+        f"{len(a['losses'])} losses, the last {float.fromhex(a['losses'][-1])}"
+        f" / {float.fromhex(b['losses'][-1])}; params sha256 "
         f"{a['params_sha256'][:16]} / {b['params_sha256'][:16]}; same: "
         f"{same}; first parameter differing: {out['first_param_differing']};"
         f" row keys differing: {out['row_keys_differing']}")
-    if not all(same.values()):
+    if not all(same.values()) and width == "shadow":
         from ddqst_tpu_torch.campaigns.shadow_scale import make_cfg
 
         out["first_divergence"] = first_divergence(
             make_cfg("repeat", epochs=1, max_bases=100))
         log("repeat", f"first divergence within one process: "
             f"{json.dumps(out['first_divergence'])}")
+    return out
+
+
+# The shape at which ``nn.Embedding``'s CUDA backward did not repeat: the
+# shadow width's batch, 1,024 rows of N = 10 bits, into the 2-row
+# ``bit_emb`` of width 128.
+EMBED_CHECK_SHAPE = (2, 1024 * 10, 128)
+
+
+def embed_grads(lookup, rows: int, m: int, e: int) -> list[torch.Tensor]:
+    """``lookup``'s gradient of one ``[rows, e]`` table twice, for one
+    seeded index tensor ``[m]`` and one output gradient ``[m, e]``."""
+    from torch import nn
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = nn.Embedding(rows, e).cuda()
+    idx = torch.randint(0, rows, (m,), generator=gen, device="cuda")
+    grad_out = torch.randn((m, e), generator=gen, device="cuda")
+    grads = []
+    for _ in range(2):
+        table.weight.grad = None
+        lookup(table, idx).backward(grad_out)
+        grads.append(table.weight.grad.clone())
+    return grads
+
+
+def embed_repeat() -> dict:
+    """``models.d3pm.embed``'s backward twice at ``EMBED_CHECK_SHAPE``: the
+    two gradients equal bit for bit (a check), and equal to
+    ``nn.Embedding``'s within float rounding; whether ``nn.Embedding``'s own
+    CUDA backward repeats there is recorded, not checked."""
+    from ddqst_tpu_torch.models.d3pm import embed
+
+    t0 = time.perf_counter()
+    rows, m, e = EMBED_CHECK_SHAPE
+    a, b = embed_grads(lambda t, i: embed(t, i, torch.float32), rows, m, e)
+    check(torch.equal(a, b), f"embed's backward repeats bit for bit at "
+          f"{rows} rows x {m} indices x {e}")
+    c, d = embed_grads(lambda t, i: t(i), rows, m, e)
+    err = float((a - c).abs().max() / c.abs().max())
+    check(err < 1e-5, f"embed's gradient equals nn.Embedding's within 1e-5 "
+          f"of its largest entry: {err:.3g}")
+    out = dict(shape=list(EMBED_CHECK_SHAPE), repeats=True,
+               nn_embedding_repeats=bool(torch.equal(c, d)),
+               nn_embedding_max_abs_diff=float((c - d).abs().max()),
+               rel_err_to_nn_embedding=err, s=time.perf_counter() - t0)
+    log("train_profile", f"embed backward at {EMBED_CHECK_SHAPE}: repeats; "
+        f"nn.Embedding's repeats: {out['nn_embedding_repeats']} (max "
+        f"difference {out['nn_embedding_max_abs_diff']:.3g}); embed against "
+        f"nn.Embedding {err:.3g} of the largest entry; {out['s']:.2f} s")
+    return out
+
+
+def parent_embed(table, idx, dtype):
+    """``models.d3pm.embed`` before its backward was made to repeat:
+    ``nn.Embedding``'s lookup and CUDA backward."""
+    return table(idx.long()).to(dtype)
+
+
+# Steps a timed turn of ``--train-step-times``: the widths' training at
+# ``TIMING_EPOCHS`` epochs, in turns with the parent's embed.
+TRAIN_STEP_TURNS = ("embed", "parent", "embed", "parent")
+
+
+def train_step_times() -> dict:
+    """``--train-step-times``: ms a training step at the shadow and ``rqc``
+    widths with ``embed``'s repeating backward and with the parent's
+    (``parent_embed``), in turns within this process."""
+    from ddqst_tpu_torch.config import get_preset
+    from ddqst_tpu_torch.models import d3pm, transformer
+
+    own = d3pm.embed
+    out = {}
+    for preset, rows in (("shadow_transformer", 100 * 1024),
+                         ("rqc", 27 * 1024)):
+        cfg = get_preset(preset)
+        ms = {"embed": [], "parent": []}
+        for turn in TRAIN_STEP_TURNS:
+            fn = own if turn == "embed" else parent_embed
+            d3pm.embed = transformer.embed = fn
+            try:
+                rate = train_steps_per_s(cfg, rows, TIMING_EPOCHS[preset])
+            finally:
+                d3pm.embed = transformer.embed = own
+            ms[turn].append(1e3 / rate)
+        out[preset] = ms
+        log("train_step_times", f"{preset}: ms a step, {TRAIN_STEP_TURNS}: "
+            f"embed {ms['embed']}, parent {ms['parent']}")
     return out
 
 
@@ -4849,15 +5332,71 @@ def main() -> int:
         print(json.dumps({"campaign": campaign_rung(ck, tag, out_dir, smi),
                           "card": smi}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--shadow-segments"]:
+        # python3 chip_smoke.py --shadow-segments OUT_DIR probe | K S
+        # [START]: the probe times a step of segment 0 in this process;
+        # otherwise the driver runs K segments of S steps from segment START
+        # (default 0) and the eval, in OUT_DIR, then the checks.
+        args = sys.argv[2:]
+        if len(args) not in (2, 3, 4) or (len(args) == 2
+                                          and args[1] != "probe"):
+            print("usage: chip_smoke.py --shadow-segments OUT_DIR probe | "
+                  "K S [START]", file=sys.stderr)
+            return 2
+        build_all(_build)
+        out = (shadow_segments_probe(args[0]) if args[1] == "probe" else
+               shadow_segments_run(ck, args[0], int(args[1]), int(args[2]),
+                                   int(args[3]) if args[3:] else 0, smi))
+        print(json.dumps({"shadow_segments": out, "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--parity"]:
+        # python3 chip_smoke.py --parity OUT_DIR [TAG ...]: parity_suite's
+        # tags (default: the ten of phases 1-3) uncut, checked; one JSON
+        # line.
+        if len(sys.argv) < 3:
+            print("usage: chip_smoke.py --parity OUT_DIR [TAG ...]",
+                  file=sys.stderr)
+            return 2
+        tags = sys.argv[3:] or list(PARITY_TAGS)
+        build_all(_build)
+        print(json.dumps({"parity": parity_run(ck, tags, sys.argv[2], smi),
+                          "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--rqc3-ceiling"]:
+        # python3 chip_smoke.py --rqc3-ceiling OUT_DIR [--run]: the ceiling
+        # rows against the JAX package's; --run adds RQC3_RUN_TAG uncut.
+        if len(sys.argv) not in (3, 4):
+            print("usage: chip_smoke.py --rqc3-ceiling OUT_DIR [--run]",
+                  file=sys.stderr)
+            return 2
+        build_all(_build)
+        out = rqc3_ceiling_run(sys.argv[2], smi, sys.argv[3:] == ["--run"])
+        print(json.dumps({"rqc3_ceiling": out, "card": smi}), flush=True)
+        return 0
     if sys.argv[1:2] == ["--repeat-child"]:
-        repeat_child(sys.argv[2])
+        repeat_child(*sys.argv[2:4])
         return 0
     if sys.argv[1:2] == ["--repeat-check"]:
-        # python3 chip_smoke.py --repeat-check: one shadow_scale run in
-        # each of two processes from one seed, compared; one JSON line.
+        # python3 chip_smoke.py --repeat-check [WIDTH ...]: at each width
+        # (default: shadow and rqc) one run in each of two processes from
+        # one seed, compared, embed's backward twice first; one JSON line.
+        # A width whose two runs differ fails the mode.
+        widths = sys.argv[2:] or list(REPEAT_ARGS)
+        for w in widths:
+            check(w in REPEAT_ARGS, f"{w} is a width of {list(REPEAT_ARGS)}")
         build_all(_build)
-        print(json.dumps({"repeat_check": repeat_check(), "card": smi}),
-              flush=True)
+        out = dict(embed=embed_repeat())
+        out.update({w: repeat_check(w) for w in widths})
+        print(json.dumps({"repeat_check": out, "card": smi}), flush=True)
+        for w in widths:
+            check(all(out[w]["same"].values()), f"{w}: the two runs equal "
+                  f"in losses, parameters and row: {out[w]['same']}")
+        return 0
+    if sys.argv[1:2] == ["--train-step-times"]:
+        # python3 chip_smoke.py --train-step-times: ms a training step with
+        # embed's repeating backward and the parent's, in turns.
+        print(json.dumps({"train_step_times": train_step_times(),
+                          "card": smi}), flush=True)
         return 0
     if sys.argv[1:2] == ["--profile-distill"]:
         print(json.dumps({"profile_distill": profile_distill(), "card": smi}),

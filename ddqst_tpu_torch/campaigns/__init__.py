@@ -14,7 +14,17 @@ schema and add ``device``: the card's name and power limit as ``nvidia-smi
 - ``scaling``: the scaling ladder (``scripts/run_scaling_ghz.py``);
 - ``shadow_scale``: the N=10 shadow runs (``scripts/run_shadow_scale.py``);
 - ``segments``: segmented distillation, each role a fresh child process
-  (``scripts/run_frontier_segments.py``).
+  (``scripts/run_frontier_segments.py``);
+- ``shadow_segments``: the same protocol on the N=10 shadow route
+  (``scripts/run_shadow_segments.py``);
+- ``parity_suite``: the phase-1 to phase-3 parity runs and the quality
+  demonstrations (``scripts/run_parity_suite.py``);
+- ``rqc3_ceiling``: RQC-3's information ceiling and its generative
+  campaign (``scripts/run_rqc3_ceiling.py``);
+- ``mle_target``: a campaign's MLE distillation target and data cache
+  (``scripts/make_mle_target.py``);
+- ``exact_rescore``: a snapshot scored on its exact chain distribution
+  (``scripts/exact_rescore.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +34,11 @@ import os
 
 import torch
 
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 # The port's records of campaign rows (the JAX package's stay in
 # examples/results_*.jsonl).
-RESULTS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "examples", "results_torch")
+RESULTS_DIR = os.path.join(REPO, "examples", "results_torch")
 
 
 def device_label(device: torch.device) -> str:
@@ -37,8 +47,9 @@ def device_label(device: torch.device) -> str:
     if device.type != "cuda":
         return device.type
     from ddqst_tpu_torch.bench import device_info
+    from ddqst_tpu_torch.device import resolve_device
 
-    return device_info(device)["nvidia_smi"]
+    return device_info(resolve_device(device))["nvidia_smi"]
 
 
 def read_rows(path: str) -> list[dict]:

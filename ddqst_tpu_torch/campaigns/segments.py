@@ -15,9 +15,10 @@ stop_after='distill')``):
 - ``datagen`` (only when the data cache is absent): the data, from the
   seed, into ``--data_cache`` (``auto``: ``<workdir>/<tag>_data.npz``);
 - ``ce``: the data and CE training only -> ``<tag>_ce_params.pt``;
-- segment 0: warm start from the CE snapshot, the MLE target (cached to
-  ``<tag>_target.npz``), then ``--steps_per_segment`` distillation steps
-  -> ``<tag>_seg0_params.pt``;
+- segment 0: warm start from the CE snapshot, the MLE target written to
+  ``<tag>_target.npz`` by ``mle_target.write_target`` (for
+  ``chain_target='mle'`` on cached data), then ``--steps_per_segment``
+  distillation steps -> ``<tag>_seg0_params.pt``;
 - segment i: warm start from segment i-1, the cached target, the next
   steps -> ``<tag>_seg<i>_params.pt``;
 - ``eval``: warm start from the last segment, no distillation, the
@@ -47,11 +48,11 @@ import subprocess
 import sys
 import time
 
-from ddqst_tpu_torch.campaigns import append_row, device_label
+from ddqst_tpu_torch.campaigns import REPO, append_row, device_label
+from ddqst_tpu_torch.campaigns.mle_target import (data_path, target_path,
+                                                  write_target)
 from ddqst_tpu_torch.campaigns.scaling import DEFAULT_OUT, experiment, row
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
 FAIL_ENV = "DDQST_FAIL_ROLE"
 STDERR_TAIL_LINES = 40
 
@@ -65,7 +66,7 @@ def snapshot(workdir: str, tag: str, seg: int, kind: str = "params") -> str:
 
 def data_cache_path(args: argparse.Namespace) -> str:
     if args.data_cache == "auto":
-        return os.path.join(args.workdir, f"{args.tag}_data.npz")
+        return data_path(args.workdir, args.tag)
     return args.data_cache
 
 
@@ -90,7 +91,7 @@ def child(args: argparse.Namespace) -> None:
     ce = snapshot(args.workdir, tag, -1)
     prev = (snapshot(args.workdir, tag, seg - 1)
             if seg > 0 or os.path.exists(ce) else "")
-    tcache = os.path.join(args.workdir, f"{tag}_target.npz")
+    tcache = target_path(args.workdir, tag)
     steps_log = os.path.join(args.workdir, f"{tag}_segments.jsonl")
     if args.ce_epochs:
         cfg = cfg.replace(train=dataclasses.replace(
@@ -122,6 +123,9 @@ def child(args: argparse.Namespace) -> None:
                     if args.opt_chain and seg > 0 else "")
         if prev_opt and not os.path.exists(prev_opt):
             prev_opt = ""
+        if (cfg.train.chain_target == "mle" and dcache
+                and not os.path.exists(tcache)):
+            write_target(cfg, dcache, tcache, device)
         res = pipeline.run_experiment(
             cfg, seed=args.seed, params_load=prev,
             params_save=snapshot(args.workdir, tag, seg),
@@ -273,21 +277,32 @@ def main(argv: list[str] | None = None) -> int:
         "--hard_frac", str(args.hard_frac),
         "--data_cache", args.data_cache, "--device", args.device,
     ] + (["--opt_chain"] if args.opt_chain else [])
-    dcache = data_cache_path(args)
-    if dcache and not os.path.exists(dcache):
+    # This driver's eval child reads the snapshot before its segment.
+    return run_roles(base, data_cache_path(args), args.start_segment,
+                     args.segments, args.segments, args.segment_timeout)
+
+
+def run_roles(base: list[str], data_cache: str, start: int, segments: int,
+              eval_segment: int, timeout: int) -> int:
+    """A campaign's children from ``base`` (the child command less its
+    role): datagen when ``data_cache`` is named and absent, then from
+    ``start`` the ce role (-1), the distill segments up to ``segments``
+    and the eval role (``--child_segment eval_segment``). Returns 0, or 1
+    at the first child that fails, which ends the campaign."""
+    if data_cache and not os.path.exists(data_cache):
         if not run_child(base + ["--child_role", "datagen"], "datagen",
-                         args.segment_timeout):
+                         timeout):
             return 1
-    for seg in range(args.start_segment, args.segments + 1):
+    for seg in range(start, segments + 1):
         if seg < 0:
             role, seg_arg = "ce", 0
-        elif seg == args.segments:
-            role, seg_arg = "eval", args.segments  # from the last segment
+        elif seg == segments:
+            role, seg_arg = "eval", eval_segment
         else:
             role, seg_arg = "distill", seg
         if not run_child(base + ["--child_role", role, "--child_segment",
                                  str(seg_arg)], f"{role} segment {seg}",
-                         args.segment_timeout):
+                         timeout):
             print(f"[segments] resume with --start_segment {seg}",
                   flush=True)
             return 1

@@ -69,10 +69,63 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+# Tables of at most this many rows take their gradient as one one-hot
+# product over every row; a larger table's product runs over the rows the
+# indices name (``torch.unique``, which waits for the card once).
+ONE_HOT_ROWS = 256
+# Elements of one one-hot block: the product runs over blocks of the
+# indices, each of at most this many one-hot elements, summed in order.
+ONE_HOT_BLOCK_ELEMS = 1 << 24
+
+
+def table_grad(idx: torch.Tensor, grad: torch.Tensor,
+               rows: int) -> torch.Tensor:
+    """The gradient ``[rows, E]`` of a row lookup, each row's sum in a fixed
+    order: the one-hot ``[rows, M]`` product with the ``[M, E]`` output
+    gradients, one matrix product a block of indices on one stream, the
+    blocks summed in index order. ``nn.Embedding``'s CUDA backward adds the
+    rows' gradients in an order that changes from run to run."""
+    flat = idx.reshape(-1)
+    g = grad.reshape(-1, grad.shape[-1])
+    if rows <= ONE_HOT_ROWS:
+        names, inv = None, flat
+        k = rows
+    else:
+        names, inv = torch.unique(flat, sorted=True, return_inverse=True)
+        k = names.shape[0]
+    out = g.new_zeros(k, g.shape[1])
+    ids = torch.arange(k, device=flat.device)
+    block = max(1, ONE_HOT_BLOCK_ELEMS // max(k, 1))
+    for lo in range(0, flat.shape[0], block):
+        one_hot = (inv[None, lo:lo + block] == ids[:, None]).to(g.dtype)
+        out.addmm_(one_hot, g[lo:lo + block])
+    if names is None:
+        return out
+    # The named rows are distinct, so the copy is a plain scatter.
+    return g.new_zeros(rows, g.shape[1]).index_copy_(0, names, out)
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding``'s forward with :func:`table_grad` as its backward."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = weight.shape[0]
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        return table_grad(idx, grad, ctx.rows), None
+
+
 def embed(table: nn.Embedding, idx: torch.Tensor,
           dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Embed(dtype=dtype)``: the rows, cast to ``dtype``."""
-    return table(idx.long()).to(dtype)
+    """flax ``Embed(dtype=dtype)``: the rows, cast to ``dtype``. The lookup
+    is ``nn.Embedding``'s, bit for bit; its backward (:func:`table_grad`)
+    gives the same gradient on every run, so one seed trains one model."""
+    return _Lookup.apply(table.weight, idx.long()).to(dtype)
 
 
 @torch.no_grad()

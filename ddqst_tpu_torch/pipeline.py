@@ -253,6 +253,45 @@ def _generators(seed: int, device: torch.device) -> list[torch.Generator]:
 _DISTILL_STREAM = 0xD157
 
 
+def distill_counts(bits: torch.Tensor, val_fraction: float
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The distillation target's counts ``[B, 2^N]`` and the held-out
+    counts (None without a held-out split). The split is at the shot level
+    (shots are iid per basis): the last ``round(val_fraction·S)`` shots per
+    basis choose the distillation step, the rest form the target."""
+    if val_fraction <= 0:
+        return bits_to_counts(bits), None
+    s = bits.shape[1]
+    s_val = min(max(int(round(val_fraction * s)), 1), s - 1)
+    return bits_to_counts(bits[:, :s - s_val]), bits_to_counts(bits[:, s - s_val:])
+
+
+def mle_born_target(counts: torch.Tensor, basis_labels: np.ndarray,
+                    mle_iterations: dict) -> torch.Tensor:
+    """``chain_target='mle'``'s target ``[B, 2^N]``: the training counts
+    projected through the (PSD, trace-1) MLE manifold, then the estimate's
+    Born distribution in each basis, which carries the cross-basis
+    positivity constraint the per-basis counts cannot express. readout_p =
+    0: the target lives in the domain the chain is matched in. The MLE's
+    iteration count goes to ``mle_iterations['target']``."""
+    n = basis_labels.shape[1]
+    solve: dict = {}
+    rho_t = mle.make_mle(n, basis_labels)(counts, solve)
+    mle_iterations["target"] = solve["iterations"]
+    d = 2**n
+    if basis_labels.shape[0] * d * d > mle._FACTORED_BLOCK_ELEMS:
+        return mle.factored_born_probs(rho_t, basis_labels)
+    rots = torch.from_numpy(
+        measure.rotation_unitaries(basis_labels)).to(counts.device)
+    return measure.batched_probs_mixed(rho_t[None], rots)[0]
+
+
+def save_target(path: str, target: torch.Tensor) -> None:
+    """The target npz (``target``), as the JAX package writes it."""
+    with open(path, "wb") as f:  # exact name
+        np.savez_compressed(f, target=target.cpu().numpy())
+
+
 def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
              model: torch.nn.Module, schedule, dev: torch.device,
              target_cache: str, opt_load: str, opt_save: str,
@@ -276,25 +315,8 @@ def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
         log_fn(f"[{cfg.name}] exact-chain distillation: "
                f"{tc.chain_finetune_steps} steps")
     t0 = time.perf_counter()
-    val_counts = None
-    if tc.chain_val_fraction > 0:
-        # Held-out split at the shot level (shots are iid per basis): the
-        # last round(vf·S) shots per basis choose the distillation step,
-        # the rest form the target.
-        s = data.bits.shape[1]
-        s_val = min(max(int(round(tc.chain_val_fraction * s)), 1), s - 1)
-        tgt_counts = bits_to_counts(data.bits[:, :s - s_val])
-        val_counts = bits_to_counts(data.bits[:, s - s_val:])
-    else:
-        tgt_counts = bits_to_counts(data.bits)
+    tgt_counts, val_counts = distill_counts(data.bits, tc.chain_val_fraction)
     if tc.chain_target == "mle" and not shadow:
-        # Physics-constrained target: project the training counts through
-        # the (PSD, trace-1) MLE manifold and distil against the Born
-        # distribution of the estimate, which carries the cross-basis
-        # positivity constraint the per-basis counts cannot express.
-        # readout_p = 0: the target lives in the domain the chain is
-        # matched in. Held-out selection still scores against the actual
-        # held-out counts.
         if target_cache and os.path.exists(target_cache):
             with np.load(target_cache) as z:
                 tgt_counts = torch.from_numpy(
@@ -302,19 +324,10 @@ def _distill(cfg: ExperimentConfig, seed: int, data: GeneratedData,
             log_fn(f"[{cfg.name}] distillation target: MLE Born probs "
                    f"(cached, {target_cache})")
         else:
-            solve: dict = {}
-            rho_t = mle.make_mle(n, data.basis_labels)(tgt_counts, solve)
-            mle_iterations["target"] = solve["iterations"]
-            d = 2**n
-            if data.basis_labels.shape[0] * d * d > mle._FACTORED_BLOCK_ELEMS:
-                tgt_counts = mle.factored_born_probs(rho_t, data.basis_labels)
-            else:
-                rots = torch.from_numpy(
-                    measure.rotation_unitaries(data.basis_labels)).to(dev)
-                tgt_counts = measure.batched_probs_mixed(rho_t[None], rots)[0]
+            tgt_counts = mle_born_target(tgt_counts, data.basis_labels,
+                                         mle_iterations)
             if target_cache:
-                with open(target_cache, "wb") as f:  # exact name
-                    np.savez_compressed(f, target=tgt_counts.cpu().numpy())
+                save_target(target_cache, tgt_counts)
             log_fn(f"[{cfg.name}] distillation target: MLE Born probs")
     synchronize(dev)
     timings["target"] = time.perf_counter() - t0

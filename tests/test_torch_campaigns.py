@@ -15,6 +15,8 @@ JAX package's scripts, on the CPU.
   chain of snapshots, the MLE target against ``scripts/make_mle_target.py``
   on the same data within ``TARGET_TOL``, resume from ``--start_segment``,
   a failing or timed-out child ending the campaign with no row and no retry;
+- ``mle_target`` (which the segments driver calls) against
+  ``scripts/make_mle_target.py`` on the same data within ``TARGET_TOL``;
 - every entry point raises without CUDA unless given ``--device cpu``;
 - ``chip_smoke.py --time-kernels DIR`` imports DIR's kernels.
 """
@@ -31,8 +33,10 @@ import pytest
 import torch
 
 import chip_smoke
-from ddqst_tpu_torch.campaigns import (read_rows, scaling, segments,
-                                       shadow_scale)
+from ddqst_tpu_torch.campaigns import (exact_rescore, mle_target,
+                                       parity_suite, read_rows, rqc3_ceiling,
+                                       scaling, segments, shadow_scale,
+                                       shadow_segments)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
@@ -256,18 +260,45 @@ def test_segments_failing_child_ends_the_campaign(tmp_path, how):
     assert "resume with --start_segment" in proc.stdout
 
 
+def test_mle_target_module_matches_the_script(jax_tiny, tmp_path):
+    """``python -m ddqst_tpu_torch.campaigns.mle_target --tag cpu_tiny`` on
+    the script's data cache writes the script's target within
+    ``TARGET_TOL``, and leaves the data cache as it was."""
+    jwork, data, _ = jax_tiny
+    work = tmp_path / "work"
+    work.mkdir()
+    dcache = work / "cpu_tiny_data.npz"
+    dcache.write_bytes(open(data, "rb").read())
+    assert mle_target.main(["--tag", "cpu_tiny", "--workdir", str(work),
+                            "--device", "cpu"]) == 0
+    assert dcache.read_bytes() == open(data, "rb").read()
+    with np.load(mle_target.target_path(str(work), "cpu_tiny")) as z:
+        got = z["target"]
+    with np.load(jwork / "cpu_tiny_target.npz") as z:
+        want = z["target"]
+    assert got.shape == want.shape == (9, 4)
+    np.testing.assert_allclose(got, want, atol=TARGET_TOL, rtol=0)
+
+
 @pytest.mark.parametrize("module,argv", [
     (scaling, ["--only", "cpu_tiny"]),
     (shadow_scale, ["--tag", "x", "--epochs", "1"]),
     (segments, ["--tag", "cpu_tiny"]),
+    (shadow_segments, ["--tag", "x"]),
+    (parity_suite, ["--only", "phase1_plus"]),
+    (rqc3_ceiling, ["--ceiling", "--run"]),
+    (mle_target, ["--tag", "cpu_tiny"]),
+    (exact_rescore, ["--tag", "cpu_tiny", "--params", "params.pt"]),
 ])
 def test_entry_points_need_cuda_unless_cpu_is_asked(module, argv, tmp_path,
                                                     monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        module.main(argv + ["--out", str(tmp_path / "rows.jsonl"),
-                            *(["--workdir", str(tmp_path)]
-                              if module is segments else [])])
+        module.main(argv + (
+            [] if module is mle_target else
+            ["--out", str(tmp_path / "rows.jsonl")]) + (
+            ["--workdir", str(tmp_path)]
+            if module in (segments, shadow_segments, mle_target) else []))
     assert not os.listdir(tmp_path)
 
 

@@ -496,3 +496,36 @@ def test_bench_walk_part_demands_the_cuda_walk(cuda):
     assert rec["walk"] == "cuda" and rec["calls"] == 4
     assert rec["walk_launches"] == 4 and rec["step_launches"] == 0
     assert rec["plan"][3] == "staged" and rec["per_sec_min"] > 0
+
+
+@pytest.mark.parametrize("rows,m,e", [
+    (2, 10240, 128),  # the shadow width's bit_emb: 1,024 rows x N = 10
+    (3, 10240, 128),  # its basis_emb
+    (101, 1024, 128),  # time_emb at T = 100, one CE batch
+    (101, 81 * 16, 128),  # time_emb under chain_distribution: one t a row
+    (6561, 1024, 128),  # basis_emb at N = 8 (torch.unique's path)
+])
+def test_embed_backward_repeats_bit_for_bit(cuda, rows, m, e):
+    """``d3pm.embed``'s backward twice on one weight, one index tensor and
+    one output gradient: the two gradients are equal bit for bit, and equal
+    ``nn.Embedding``'s within float rounding (1e-5 of the largest entry);
+    the lookup is ``nn.Embedding``'s bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    table = torch.nn.Embedding(rows, e).to(cuda)
+    idx = torch.randint(0, rows, (m,), generator=gen, device=cuda)
+    if m == 81 * 16:
+        idx = torch.full((m,), 57, device=cuda)
+    grad_out = torch.randn((m, e), generator=gen, device=cuda)
+    grads = []
+    for _ in range(2):
+        table.weight.grad = None
+        out = d3pm.embed(table, idx, torch.float32)
+        out.backward(grad_out)
+        grads.append(table.weight.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(out.detach(), table(idx).detach())
+    table.weight.grad = None
+    table(idx).backward(grad_out)
+    ref = table.weight.grad
+    assert float((grads[0] - ref).abs().max()) <= 1e-5 * float(
+        ref.abs().max())

@@ -207,7 +207,10 @@ def test_port_imports_no_jax():
         "'utils.profiling', 'models.transformer', 'models.d3pm', "
         "'parallel.mesh', 'parallel.tensor', 'qsim.native_engine', "
         "'bench', 'campaigns.recipes', 'campaigns.scaling', "
-        "'campaigns.shadow_scale', 'campaigns.segments'):\n"
+        "'campaigns.shadow_scale', 'campaigns.segments', "
+        "'campaigns.shadow_segments', 'campaigns.parity_suite', "
+        "'campaigns.rqc3_ceiling', 'campaigns.mle_target', "
+        "'campaigns.exact_rescore'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "from ddqst_tpu_torch.qsim import native_engine, states\n"
         "psi = native_engine.statevectors([states.prep_circuit('bell', 2)])\n"
