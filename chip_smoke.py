@@ -255,9 +255,9 @@ result line is printed; nothing falls back to the CPU):
    ``SCALING_MLE_ITERS``, ``SCALING_CUT_PARTS``; each cut printed): GHZ-5
    ``ghz5_auto`` and GHZ-7 ``ghz7_mle_hot`` in one ``run_experiment``
    each, GHZ-8 ``ghz8_mle_hot`` through the segment protocol of
-   ``scripts/run_frontier_segments.py`` (a CE role, a uniform and a
-   hard-mining distillation segment on shared data and MLE-target caches
-   with the Adam state chained, the eval role), and RQC-6 ``rqc6_auto`` on
+   ``scripts/run_frontier_segments.py`` (a CE role, the hard-mining
+   distillation segment alone on the data and MLE-target caches,
+   ``SCALING_MINING_SEGMENT``; the eval role), and RQC-6 ``rqc6_auto`` on
    the JAX package's committed seed-0 data through the parts of
    ``--scaling-part``, each in a child process: CE stopped after epoch 1's
    checkpoint in one and resumed in the next, which distils and
@@ -273,8 +273,7 @@ result line is printed; nothing falls back to the CPU):
    a few rows held against a recompute), the fidelity within 0.02 of the
    MLE of that distribution, ρ a state, MLE on the raw counts at least 0.999
    where the data is uncut; at N=8 the CE role's parameters load back, the
-   segments share the target cache, segment 1 starts where segment 0 ended,
-   the chained mining segment lowers the chain CE and draws non-uniformly.
+   mining segment solves and caches the target and draws non-uniformly.
    Then both kernels at the rungs' shapes, each against its plain version
    bit for bit and timed beside it and its bound. It prints the stage
    seconds, the peak memory and the fidelities beside the reference's.
@@ -284,13 +283,23 @@ result line is printed; nothing falls back to the CPU):
    script's keys, ``device`` the card's ``nvidia-smi`` line, a fidelity
    in [0, 1]), again with the same ``--out`` (no row added); ``python -m
    ddqst_tpu_torch.campaigns.segments --tag cpu_tiny --segments 2
-   --steps_per_segment 2 --data_cache FILE`` on data this process writes
-   (the ce, segment 0, segment 1 and eval roles in order, their params
-   and one eval row; its resume and datagen role are held on the CPU by
+   --steps_per_segment 2 --data_cache FILE --opt_chain`` on data this
+   process writes (the ce, segment 0, segment 1 and eval roles in order,
+   their params and one eval row; segment 1 from segment 0's parameters
+   and Adam state, its saved ``count`` 4 after segment 0's 2, each segment
+   lowering the full-grid chain CE; its resume and datagen role are held on the CPU by
    ``tests/test_torch_campaigns.py``); ``python -m
    ddqst_tpu_torch.campaigns.scaling --probe --only rqc4_auto`` at full
    width and shapes (no row; its 2 walk launches, counted in the child, on
    the staged body, at the T=100, C=81, N=4, S=15,000 its config gives).
+17. profiles — ``campaigns.shadow_sector_profile``'s ``run`` at full width
+   (transformer 128 / 512 / 4 / 4, N=10, T=100) on the reference's CE
+   snapshot and data cache, its rows to a temporary file, with the launch
+   counts set to 0 just before and read just after (none may launch): the
+   ``--bases 48 --seed 7`` selection must be the 48 bases of the JAX
+   package's record (``examples/shadow_sector_profile.jsonl``), and each
+   row's ``kl_clean`` and ``kl_counts`` within ``PROFILE_ABS`` +
+   ``PROFILE_REL`` · |the record's| (the largest gaps printed).
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit as ``nvidia-smi`` gives them, and, last, the result line
@@ -360,6 +369,31 @@ reference_shadow does (checks (a) and (c)), and holds the mean TV within
 ``REFERENCE_TRAIN_TV_TOL`` of the reference's two trainings at this recipe,
 the marginal error at most ``REFERENCE_TRAIN_MARGINAL_MAX`` and the
 classical fidelity at least ``REFERENCE_TRAIN_CF_MIN``; one JSON line.
+
+``python3 chip_smoke.py --profiles OUT_DIR`` runs phase ``profiles`` on all
+48 bases through ``campaigns.shadow_sector_profile``'s own ``run`` (rows to
+``OUT_DIR/shadow_sector_profile.jsonl``), then GHZ-8 at full shape
+(``ghz8_mle_hot``, 6,561 bases): ``campaigns.mle_target`` writes its data
+and MLE target (the estimate's own fidelity, and beside it MLE on all the
+raw counts at the rung's readout_p, ``run_experiment``'s
+``raw_fidelity_mitigated``, printed and written to
+``OUT_DIR/ghz8_mle_hot_mle_target.json``),
+``campaigns.ghz8_eval_floor`` scores the target's sampled and exact counts
+through the blocked MLE, ``campaigns.ghz8_sector_profile`` and
+``campaigns.eval_chain_ce_subset --bases 6561`` run on the rung's model at a
+seeded initialisation (the record's snapshots are not in the repository),
+and the subset route's full-grid chain CE must equal
+``finetune_chain(steps=0)``'s within ``PROFILE_CE_REL``; no kernel may
+launch. One JSON line.
+
+``python3 chip_smoke.py --diag OUT_DIR probe | STEPS WARM`` runs the
+three GHZ-5 distillation diagnostics (``campaigns.diag_segment_descent``,
+``diag_floor_escape``, ``diag_hard_mining``) with ``--steps STEPS --warm
+WARM``, side by side in child processes, each record
+``OUT_DIR/<name>.json`` beside the JAX package's ``examples/<name>.json``;
+``probe`` times the data, CE training and ``DIAG_PROBE_STEPS`` accum-4
+steps in this process and estimates each diagnostic's time at its script's
+depth (longer than a call may last). One JSON line.
 
 ``python3 chip_smoke.py --profile-distill`` times one distillation step at
 full width (with and without the per-step checkpoint, and a forward alone)
@@ -3005,10 +3039,10 @@ def profile_distill() -> dict:
 
 
 # Depth cuts of the mesh phase, each printed. The rqc preset's DP-2 run
-# trains 10 of its 30 epochs; the shadow preset's TP-2 run 1 of its 30: two
+# trains 5 of its 30 epochs; the shadow preset's TP-2 run 1 of its 30: two
 # ranks on one card stage every tensor-parallel reduce through the host over
 # gloo (16 a step), and the whole phase gets 180 s.
-MESH_DP_RUN_EPOCHS, MESH_TP_EPOCHS = 10, 1
+MESH_DP_RUN_EPOCHS, MESH_TP_EPOCHS = 5, 1
 # The comparisons with one process: the rqc width on the preset's 27,648
 # rows for 3 epochs (81 steps), the shadow width on 16 of its 100 batches an
 # epoch for 2 epochs (32 steps), and the one-rank NCCL fit at the rqc width
@@ -3474,8 +3508,8 @@ SCALING_WALK_SHAPES = {"ghz5_auto": (243, 5, 6667),
                        "ghz8_mle_hot": (3**8, 8, 300)}
 SCALING_STEP_SHAPES = {"ghz7_mle_hot": (3**7 * 2**7, 7, 3**7 * 834)}
 # The default run's cuts of depth (``scaling`` phase): CE epochs and
-# distillation steps; GHZ-8 runs the segment protocol, a uniform segment and
-# a mining segment of SCALING_SEGMENT_STEPS each. Width, bases, T and
+# distillation steps; GHZ-8 runs the segment protocol with one mining
+# segment of SCALING_SEGMENT_STEPS steps. Width, bases, T and
 # generated shots are never cut. What is left is set by work no depth cut
 # removes: at N = 8 a full-grid chain pass (168 M grid rows, about 42 s on
 # the card) before and after each segment and for the tables, at N = 7 the
@@ -3486,6 +3520,11 @@ SCALING_CUTS = {
     "ghz8_mle_hot": dict(num_epochs=1),
 }
 SCALING_SEGMENT_STEPS = 2
+# The GHZ-8 distillation segment of the default run, (chain_accum,
+# chain_hard_frac): the campaign's hard-mining segment alone, from the CE
+# role's parameters with a fresh Adam state. The campaign's uniform segment
+# before it would add two full-grid chain passes, about 95 s.
+SCALING_MINING_SEGMENT = (4, 0.5)
 # Cuts of the shots a basis, for the phase's budget: an epoch is then 533
 # training steps at N = 7 and 640 at N = 8 (6-12 ms a step, bound by the
 # host); GHZ-7 generates 834 shots a basis, one 'seq' call of T step
@@ -3856,13 +3895,11 @@ def scaling_segments(ck, tag: str, cfg, tmp: str,
                      data_cut: bool) -> dict:
     """The segment protocol of ``scripts/run_frontier_segments.py:130-205``
     through ``run_experiment``: a CE role (``params_save``,
-    ``stop_after='distill'``, no distillation), a uniform distillation
-    segment and a hard-mining one (``chain_accum`` 4, ``chain_hard_frac``
-    0.5, the Adam state chained), each warm-started from the last's
-    parameters on the shared data and MLE-target caches, then the eval role
-    (the full tail, no distillation). The mining segment, whose Adam state
-    is chained, must lower the full-grid chain CE; the uniform segment
-    starts a fresh Adam state, whose first hot steps raise it (recorded)."""
+    ``stop_after='distill'``, no distillation), the hard-mining segment
+    (``SCALING_MINING_SEGMENT``, warm-started from the CE role's parameters
+    with a fresh Adam state, on the data cache; it solves and caches the MLE
+    target), then the eval role (the full tail, no distillation). A fresh
+    Adam state's first hot steps may raise the chain CE (recorded)."""
     import dataclasses
 
     from ddqst_tpu_torch.models import build_model
@@ -3888,58 +3925,46 @@ def scaling_segments(ck, tag: str, cfg, tmp: str,
           f"{tag}: the CE role's parameters load back, finite")
     del model
 
-    prev, infos = snap("ce"), []
-    for seg, (accum, hard) in enumerate(((1, 0.0), (4, 0.5))):
-        scfg = cfg.replace(train=dataclasses.replace(
-            cfg.train, chain_finetune_steps=SCALING_SEGMENT_STEPS,
-            chain_key_salt=cfg.train.chain_key_salt + seg,
-            chain_accum=accum, chain_hard_frac=hard))
-        res, roles[f"seg{seg}"] = _role(
-            ck, f"{tag} segment {seg} (accum {accum}, hard_frac "
-            f"{hard})", scfg, params_load=prev, params_save=snap(f"seg{seg}"),
-            target_cache=tcache, stop_after="distill",
-            opt_load=snap(f"seg{seg - 1}", "opt") if seg else "",
-            opt_save=snap(f"seg{seg}", "opt"), data_cache=dcache)
-        info = res["ft_info"]
-        infos.append(info)
-        roles[f"seg{seg}"].update(ce_before=info["train_ce_before"],
-                                  ce_after=info["train_ce_after"])
-        log("scaling", f"{tag} segment {seg}: chain CE "
-            f"{info['train_ce_before']:.6f} -> {info['train_ce_after']:.6f}")
-        check(len(res["ft_losses"]) == SCALING_SEGMENT_STEPS
-              and np.isfinite(res["ft_losses"]).all(),
-              f"{tag} segment {seg}: {SCALING_SEGMENT_STEPS} finite steps")
-        if seg:
-            check(info["train_ce_after"] < info["train_ce_before"],
-                  f"{tag} segment {seg}: the full-grid chain CE fell")
-        opt = torch.load(snap(f"seg{seg}", "opt"), weights_only=True)
-        check(int(opt["count"]) == SCALING_SEGMENT_STEPS * (seg + 1),
-              f"{tag} segment {seg}: the Adam state saved after "
-              f"{int(opt['count'])} steps, chained")
-        prev = snap(f"seg{seg}")
-    check(os.path.exists(tcache), f"{tag}: the MLE target was cached")
-    check(abs(infos[1]["train_ce_before"] - infos[0]["train_ce_after"])
-          <= 1e-5 * infos[0]["train_ce_after"],
-          f"{tag}: segment 1 starts from segment 0's saved parameters (CE "
-          f"{infos[1]['train_ce_before']:.6f} vs "
-          f"{infos[0]['train_ce_after']:.6f})")
-    check(any("(cached," in m for m in roles["seg1"]["log"])
+    accum, hard = SCALING_MINING_SEGMENT
+    log("scaling", f"{tag}: CUT the distillation to the mining segment "
+        f"alone (accum {accum}, hard_frac {hard}) from the CE role's "
+        "parameters, a fresh Adam state: no uniform segment before it, "
+        "nothing chained across segments")
+    scfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, chain_finetune_steps=SCALING_SEGMENT_STEPS,
+        chain_accum=accum, chain_hard_frac=hard))
+    res, roles["seg0"] = _role(
+        ck, f"{tag} mining segment (accum {accum}, hard_frac {hard})", scfg,
+        params_load=snap("ce"), params_save=snap("seg0"),
+        target_cache=tcache, stop_after="distill",
+        opt_save=snap("seg0", "opt"), data_cache=dcache)
+    info = res["ft_info"]
+    roles["seg0"].update(ce_before=info["train_ce_before"],
+                         ce_after=info["train_ce_after"])
+    log("scaling", f"{tag} mining segment: chain CE "
+        f"{info['train_ce_before']:.6f} -> {info['train_ce_after']:.6f}")
+    check(len(res["ft_losses"]) == SCALING_SEGMENT_STEPS
+          and np.isfinite(res["ft_losses"]).all(),
+          f"{tag} mining segment: {SCALING_SEGMENT_STEPS} finite steps")
+    opt = torch.load(snap("seg0", "opt"), weights_only=True)
+    check(int(opt["count"]) == SCALING_SEGMENT_STEPS,
+          f"{tag}: the Adam state saved after {int(opt['count'])} steps")
+    check(os.path.exists(tcache)
           and not any("(cached," in m for m in roles["seg0"]["log"]),
-          f"{tag}: segment 0 solved the MLE target, segment 1 read its cache")
-    p = infos[1].get("hard_draw_p")
+          f"{tag}: the segment solved the MLE target and cached it")
+    p = info.get("hard_draw_p")
     check(p is not None and float(p.max()) > 1.01 * float(p.min()),
           f"{tag}: the mining segment's draw weights are not uniform")
     log("scaling", f"{tag}: mining draw weights min {float(p.min()):.3e}, max "
         f"{float(p.max()):.3e} (uniform {1 / 3**n:.3e})")
-    for seg in range(2):
-        check(roles[f"seg{seg}"]["walk_launches"] == 0
-              and roles[f"seg{seg}"]["step_launches"] == 0,
-              f"{tag} segment {seg}: no kernel launch")
+    check(roles["seg0"]["walk_launches"] == 0
+          and roles["seg0"]["step_launches"] == 0,
+          f"{tag} mining segment: no kernel launch")
 
     with _TablesKept() as kept:
         res, rec = _role(ck, f"{tag} eval role", cfg.replace(
             train=dataclasses.replace(cfg.train, chain_finetune_steps=0)),
-            params_load=prev, data_cache=dcache)
+            params_load=snap("seg0"), data_cache=dcache)
     out = scaling_checks(ck, tag, cfg, res, rec, data_cut,
                          tables=kept.tables)
     del kept.tables
@@ -4047,10 +4072,9 @@ def phase_scaling(ck) -> dict:
             if tag != "ghz8_mle_hot":
                 rungs[tag] = scaling_run(ck, tag, cfg, cut)
                 continue
-            log("scaling", f"{tag}: CUT the distillation to one uniform and "
-                f"one mining segment of {SCALING_SEGMENT_STEPS} steps (the "
-                "recipe: 1600 steps; its campaign: 4 uniform and 2 mining "
-                "segments of 800)")
+            log("scaling", f"{tag}: CUT the distillation to "
+                f"{SCALING_SEGMENT_STEPS} steps (the recipe: 1600 steps; its "
+                "campaign: 4 uniform and 2 mining segments of 800)")
             with tempfile.TemporaryDirectory() as tmp:
                 rungs[tag] = scaling_segments(ck, tag, cfg, tmp,
                                               cut)
@@ -4490,8 +4514,11 @@ def campaign_ladder(d: str, smi: str) -> dict:
 
 
 def campaign_segments(d: str, data: str, smi: str) -> dict:
-    """``campaigns.segments`` on ``cpu_tiny``, 2 segments of 2 steps, on the
-    data file ``data``: the ce, segment 0, segment 1 and eval roles."""
+    """``campaigns.segments --opt_chain`` on ``cpu_tiny``, 2 segments of 2
+    steps, on the data file ``data``: the ce, segment 0, segment 1 and eval
+    roles; segment 1 starts from segment 0's parameters and loads its Adam
+    state (its saved ``count`` is segment 0's plus its own 2 steps), and
+    each segment lowers the full-grid chain CE."""
     from ddqst_tpu_torch.campaigns import read_rows
     from ddqst_tpu_torch.campaigns.segments import snapshot
 
@@ -4499,7 +4526,8 @@ def campaign_segments(d: str, data: str, smi: str) -> dict:
     stdout, s = run_campaign(
         ["segments", "--tag", "cpu_tiny", "--segments", "2",
          "--steps_per_segment", "2", "--workdir", work, "--out", out,
-         "--data_cache", data], "segments --tag cpu_tiny, 2 x 2 steps")
+         "--data_cache", data, "--opt_chain"],
+        "segments --tag cpu_tiny --opt_chain, 2 x 2 steps")
     roles = [line.split("] ", 1)[1].rsplit(":", 1)[0]
              for line in stdout.splitlines()
              if line.startswith("[segments]") and line.endswith("starting")]
@@ -4508,12 +4536,27 @@ def campaign_segments(d: str, data: str, smi: str) -> dict:
     check(all(os.path.exists(snapshot(work, "cpu_tiny", k))
               for k in (-1, 0, 1)),
           "the ce, segment 0 and segment 1 params exist")
+    counts = [int(torch.load(snapshot(work, "cpu_tiny", k, "opt"),
+                             weights_only=True)["count"]) for k in (0, 1)]
+    opt0 = snapshot(work, "cpu_tiny", 0, "opt")
+    check(counts == [2, 4] and f"chained distillation Adam state from {opt0}"
+          in stdout, f"segment 1 loaded segment 0's Adam state: counts "
+          f"{counts} (want [2, 4])")
+    segs = read_rows(os.path.join(work, "cpu_tiny_segments.jsonl"))
+    check([g["segment"] for g in segs] == [0, 1]
+          and segs[1]["ce_before"] == segs[0]["ce_after"]
+          and all(g["ce_after"] < g["ce_before"] for g in segs),
+          f"each segment lowers the chain CE, segment 1 from segment 0's "
+          f"parameters: {segs}")
     rows = read_rows(out)
     check(len(rows) == 1 and rows[0]["distill_steps_actual"] == 4,
           f"one eval row after 4 distillation steps: {rows}")
     check_row(rows[0], "cpu_tiny_seg2x2", smi, "segments")
-    log("campaigns", f"segments: roles {roles}; {json.dumps(rows[0])}")
-    return dict(row=rows[0], roles=roles, s=s)
+    log("campaigns", f"segments: roles {roles}; Adam counts {counts}; chain "
+        f"CE {[(g['ce_before'], g['ce_after']) for g in segs]}; "
+        f"{json.dumps(rows[0])}")
+    return dict(row=rows[0], roles=roles, opt_counts=counts, segments=segs,
+                s=s)
 
 
 def campaign_probe(d: str) -> dict:
@@ -4972,6 +5015,354 @@ def rqc3_ceiling_run(out_dir: str, smi: str, run: bool) -> dict:
     return out
 
 
+# ``profiles`` and ``--profiles``: ``campaigns.shadow_sector_profile`` on
+# the reference's CE snapshot and data cache at full width, against the JAX
+# package's record of that snapshot (``scripts/shadow_sector_profile.py
+# --bases 48 --seed 7``). The chain is exact and the basis draw is numpy's,
+# so the record holds row for row: the same 48 bases, and each ``kl_clean``
+# and ``kl_counts`` within PROFILE_ABS + PROFILE_REL · |the record's|.
+PROFILE_RECORD = "examples/shadow_sector_profile.jsonl"
+PROFILE_ABS, PROFILE_REL = 1e-4, 1e-3
+PROFILE_KEYS = ("kl_clean", "kl_counts")
+
+
+def profile_gaps(rows: list[dict], record: list[dict]) -> dict:
+    """Each key's largest |port - record| and largest share of its bound
+    over ``rows`` (the record's first ``len(rows)`` rows), checked."""
+    gaps = {}
+    for k in PROFILE_KEYS:
+        diff = [abs(r[k] - w[k]) for r, w in zip(rows, record)]
+        share = [d / (PROFILE_ABS + PROFILE_REL * abs(w[k]))
+                 for d, w in zip(diff, record)]
+        j = int(np.argmax(share))
+        gaps[k] = dict(max_abs_gap=max(diff), max_share_of_bound=share[j],
+                       worst_basis=rows[j]["basis"], port=rows[j][k],
+                       jax=record[j][k])
+        log("profiles", f"{k}: largest gap {max(diff):.3e} over "
+            f"{len(rows)} bases; worst against its bound at basis "
+            f"{rows[j]['basis']}: port {rows[j][k]} vs the record's "
+            f"{record[j][k]} ({share[j]:.3f} of {PROFILE_ABS:g} + "
+            f"{PROFILE_REL:g}·|record|)")
+    for r, w in zip(rows, record):
+        check(r["basis"] == w["basis"] and r["n_z"] == w["n_z"],
+              f"basis {r['basis']} is the record's {w['basis']}")
+        for k in PROFILE_KEYS:
+            check(abs(r[k] - w[k]) <= PROFILE_ABS + PROFILE_REL * abs(w[k]),
+                  f"basis {r['basis']}: {k} {r[k]} within {PROFILE_ABS:g} + "
+                  f"{PROFILE_REL:g}·|{w[k]}| of the record's")
+    return gaps
+
+
+def shadow_profile(ck, out_dir: str, smi: str) -> dict:
+    """``campaigns.shadow_sector_profile`` through its ``run`` on the
+    reference's CE snapshot and cache (``--bases 48 --seed 7``, the
+    defaults; rows to ``OUT_DIR/shadow_sector_profile.jsonl``) with the
+    launch counts set to 0 just before and read just after (none may
+    launch): the selection equal to the record's 48 bases, every row held
+    to the record."""
+    from ddqst_tpu_torch.campaigns import read_rows
+    from ddqst_tpu_torch.campaigns import shadow_sector_profile as ssp
+
+    record = read_rows(repo_file(PROFILE_RECORD))
+    args = ssp.parse_args([
+        os.path.relpath(repo_file(REFERENCE_SHADOW_PARAMS)), "--data",
+        os.path.relpath(repo_file(REFERENCE_SHADOW_DATA)), "--out",
+        os.path.join(out_dir, "shadow_sector_profile.jsonl")])
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    rows = ssp.run(args, log_fn=lambda m: log("profiles", m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(walk=ck.fused_chain_walk.launches,
+                    step=ck.fused_chain_step.launches)
+    log("profiles", f"N=10 transformer 128 / 512 / 4 / 4, T=100: {len(rows)}"
+        f" bases' exact chains in {wall:.1f} s; launches: walk "
+        f"{launches['walk']}, step {launches['step']}")
+    check(launches == dict(walk=0, step=0), "the profile launches no kernel")
+    check([r["basis"] for r in rows] == [r["basis"] for r in record],
+          f"the selection (--bases {args.bases} --seed {args.seed}) is the "
+          f"record's {len(record)} bases")
+    check(all(r["device"] == smi for r in rows),
+          "the rows carry the card's nvidia-smi line")
+    gaps = profile_gaps(rows, record)
+    return dict(bases=len(rows), s=wall, gaps=gaps, launches=launches)
+
+
+def phase_profiles(ck, smi: str) -> dict:
+    with tempfile.TemporaryDirectory() as d:
+        return shadow_profile(ck, d, smi)
+
+
+# ``--profiles`` part (b): GHZ-8 at full shape, ``ghz8_mle_hot``'s data and
+# MLE target rebuilt by ``campaigns.mle_target``. ``frontier_work/`` (the
+# record's snapshots) is absent, so the sector profile and the subset CE
+# run on a seeded initialisation of the rung's model: shapes and times are
+# held, not the record's numbers. Two routes to one full-grid chain CE
+# (``eval_chain_ce_subset`` over all 3^8 bases, ``finetune_chain(steps=0)``)
+# must agree within PROFILE_CE_REL.
+PROFILE_GHZ8 = "ghz8_mle_hot"
+PROFILE_GHZ8_MLE_ON_RAW = 0.99984  # RESULTS.md:307, the JAX package's row
+PROFILE_CE_REL = 1e-5
+
+
+def mle_on_raw(cfg, data_cache: str) -> dict:
+    """``run_experiment``'s ``raw_fidelity_mitigated`` of a data cache: MLE
+    on all its training counts at the config's readout_p, its fidelity
+    against the cache's clean state."""
+    from ddqst_tpu_torch import pipeline
+    from ddqst_tpu_torch.ops import metrics, mle
+    from ddqst_tpu_torch.qsim import noise
+
+    p = (noise.get_noise_config(cfg.data.noise_type).readout_p
+         if cfg.data.mitigate_readout else 0.0)
+    t0 = time.perf_counter()
+    data = pipeline.load_data_cache(data_cache, torch.device("cuda"))
+    solve: dict = {}
+    rho = mle.make_mle(cfg.data.num_qubits, data.basis_labels, readout_p=p)(
+        mle.bits_to_counts(data.bits), solve)
+    fid = float(metrics.state_fidelity(
+        torch.from_numpy(data.target).to(rho.device), rho))
+    return dict(fidelity=fid, iterations=solve["iterations"], readout_p=p,
+                s=time.perf_counter() - t0)
+
+
+def ghz8_profiles(ck, out_dir: str, smi: str,
+                  tag: str = PROFILE_GHZ8) -> dict:
+    """Part (b) of ``--profiles`` on ``tag``'s data, its rows under
+    ``out_dir`` (and the target's record, its MLE iterations and own
+    fidelity, as ``OUT_DIR/<tag>_mle_target.json``); the launch counts set
+    to 0 before and read after (none may launch)."""
+    from ddqst_tpu_torch.campaigns import (eval_chain_ce_subset,
+                                           ghz8_eval_floor,
+                                           ghz8_sector_profile, mle_target)
+    from ddqst_tpu_torch.campaigns.scaling import experiment
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.models.d3pm import init_params_
+    from ddqst_tpu_torch.ops.schedules import make_schedule
+    from ddqst_tpu_torch.train import finetune_chain
+    from ddqst_tpu_torch.utils.checkpoint import save_params
+
+    cfg, _ = experiment(tag)
+    n = cfg.data.num_qubits
+    out = {}
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        tgt = mle_target.run(mle_target.parse_args(
+            ["--tag", tag, "--workdir", work]))
+        out["mle_target"] = dict(tgt, s=time.perf_counter() - t0)
+        del out["mle_target"]["path"]
+        log("profiles", f"{tag}: data and target in "
+            f"{out['mle_target']['s']:.1f} s; the target's own fidelity "
+            f"{tgt['fidelity']:.5f} ({tgt['iterations']} MLE iterations)")
+        raw = mle_on_raw(cfg, mle_target.data_path(work, tag))
+        out["mle_target"]["mle_on_raw"] = raw
+        log("profiles", f"{tag}: MLE on raw (readout_p {raw['readout_p']}, "
+            f"run_experiment's raw_fidelity_mitigated) {raw['fidelity']:.5f} "
+            f"({raw['iterations']} iterations, {raw['s']:.1f} s), beside the "
+            f"target's {tgt['fidelity']:.5f} (readout_p 0); the JAX "
+            f"package's row: MLE on raw {PROFILE_GHZ8_MLE_ON_RAW}")
+        with open(os.path.join(out_dir, f"{tag}_mle_target.json"), "w") as f:
+            json.dump(dict(tag=tag, **out["mle_target"], device=smi), f)
+        floor = ghz8_eval_floor.run(ghz8_eval_floor.parse_args(
+            ["--workdir", work, "--out",
+             os.path.join(out_dir, "ghz8_eval_floor.jsonl")]))
+        for row in floor:
+            check(row["device"] == smi and 0 < row["fidelity"] <= 1,
+                  f"eval floor row {row}")
+        log("profiles", f"{tag}: eval floor sampled "
+            f"{floor[0]['fidelity']} ({floor[0]['wall_s']} s), exact "
+            f"{floor[1]['fidelity']} ({floor[1]['wall_s']} s), beside the "
+            f"target's own {tgt['fidelity']:.5f} (the script expects both "
+            "near 0.99984)")
+        out["eval_floor"] = floor
+
+        snap = os.path.join(work, f"{tag}_init_params.pt")
+        model = build_model(cfg.model, n, cfg.diffusion.num_timesteps).cuda()
+        init_params_(model, torch.Generator(device="cuda").manual_seed(0))
+        save_params(snap, model)
+        log("profiles", f"{tag}: the sector profile and the subset "
+            "CE run on the rung's model at its seeded initialisation, not "
+            "the record's snapshot (frontier_work/ is absent): only shapes "
+            "and times are held")
+        sectors = ghz8_sector_profile.run(ghz8_sector_profile.parse_args(
+            [snap, "--tag", tag, "--workdir", work, "--out",
+             os.path.join(out_dir, "ghz8_sector_excess.jsonl")]))
+        check([(r["sector"], r["bases"]) for r in sectors] == [
+            ("random", 48), ("low_ent", 48), ("xy", min(48, 2**n))]
+            and all(math.isfinite(r["excess_mean"]) for r in sectors),
+            "three sectors of 48 bases, finite")
+        out["sectors"] = sectors
+
+        tpath = mle_target.target_path(work, tag)
+        t0 = time.perf_counter()
+        (sub,) = eval_chain_ce_subset.run(eval_chain_ce_subset.parse_args(
+            [snap, "--tag", tag, "--target", tpath, "--bases",
+             str(3**n), "--chunk", "243"]),
+            log_fn=lambda m: log("profiles", m))
+        subset_s = time.perf_counter() - t0
+        with np.load(tpath) as z:
+            target = z["target"]
+        t0 = time.perf_counter()
+        _, _, info = finetune_chain(
+            model, target, make_schedule(cfg.diffusion.schedule,
+                                         cfg.diffusion.num_timesteps, "cuda"),
+            n, steps=0, exact=cfg.diffusion.exact, device="cuda")
+        torch.cuda.synchronize()
+        ft_s = time.perf_counter() - t0
+        rel = abs(sub["ce"] - info["train_ce_after"]) / abs(
+            info["train_ce_after"])
+        log("profiles", f"{tag}: full-grid chain CE over "
+            f"{len(sub['bases'])} bases: eval_chain_ce_subset {sub['ce']:.6f}"
+            f" in {subset_s:.1f} s (one pass); finetune_chain(steps=0) "
+            f"{info['train_ce_after']:.6f} (before "
+            f"{info['train_ce_before']:.6f}) in {ft_s:.1f} s (two passes); "
+            f"relative gap {rel:.2e}")
+        check(rel <= PROFILE_CE_REL, f"the two routes agree within "
+              f"{PROFILE_CE_REL:g} relative")
+        out["full_grid_ce"] = dict(subset=sub["ce"], subset_s=subset_s,
+                                   finetune=info["train_ce_after"],
+                                   finetune_s=ft_s, rel_gap=rel)
+    out["launches"] = dict(walk=ck.fused_chain_walk.launches,
+                           step=ck.fused_chain_step.launches)
+    log("profiles", f"{tag}: launches: walk "
+        f"{out['launches']['walk']}, step {out['launches']['step']}")
+    check(out["launches"] == dict(walk=0, step=0),
+          "part (b) launches no kernel")
+    return out
+
+
+# ``--diag``: the three GHZ-5 diagnostics, each ``python -m
+# ddqst_tpu_torch.campaigns.<name>`` in a child process, side by side, at
+# ``--steps STEPS --warm WARM``, beside the JAX package's records
+# (``examples/<name>.json``: other random streams, so a verdict, not a
+# check). ``probe`` times one arm's unit instead: CE training and
+# DIAG_PROBE_STEPS accum-4 steps, and from them each diagnostic's time at
+# its script's depth (``diag_minibatches``), which no call holds.
+DIAG_MODULES = ("diag_segment_descent", "diag_floor_escape",
+                "diag_hard_mining")
+DIAG_TIMEOUT_S = 3200
+DIAG_PROBE_STEPS = 20
+
+
+def diag_probe(ck) -> dict:
+    """One probe arm in this process: the diagnostics' data and CE
+    training, then DIAG_PROBE_STEPS steps at accum 4, timed."""
+    from ddqst_tpu_torch.campaigns import diag
+    from ddqst_tpu_torch.campaigns.recipes import diag_cfg
+    from ddqst_tpu_torch.ops.mle import bits_to_counts
+
+    dev = torch.device("cuda")
+    cfg = diag_cfg("diag5esc")
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    t0 = time.perf_counter()
+    data, g_train = diag.make_data(cfg, dev)
+    model, sched = diag.train_ce(cfg, data.bits, data.basis_idx, g_train,
+                                 dev, lambda m: log("diag", m))
+    ce_s = time.perf_counter() - t0
+    target = bits_to_counts(data.bits)
+    t0 = time.perf_counter()
+    _, losses, info = diag.distill(model, target, sched, cfg, dev,
+                                   steps=DIAG_PROBE_STEPS, salt=0, accum=4)
+    torch.cuda.synchronize()
+    arm_s = time.perf_counter() - t0
+    # Two full-grid CE passes a call: time one alone to split the arm.
+    t0 = time.perf_counter()
+    _, _, _ = diag.distill(model, target, sched, cfg, dev, steps=0, salt=0)
+    torch.cuda.synchronize()
+    evals_s = time.perf_counter() - t0
+    step_s = (arm_s - evals_s) / DIAG_PROBE_STEPS
+    out = dict(data_and_ce_s=ce_s, arm_s=arm_s, two_grid_passes_s=evals_s,
+               step_at_accum4_s=step_s, ce_before=info["train_ce_before"],
+               ce_after=info["train_ce_after"],
+               launches=dict(walk=ck.fused_chain_walk.launches,
+                             step=ck.fused_chain_step.launches))
+    out["estimate_s"] = {k: ce_s + v * step_s / 4
+                         for k, v in diag_minibatches().items()}
+    log("diag", f"probe: data and CE {ce_s:.1f} s; {DIAG_PROBE_STEPS} "
+        f"accum-4 steps {arm_s:.1f} s ({step_s:.3f} s a step, two grid "
+        f"passes {evals_s:.1f} s); chain CE {info['train_ce_before']:.5f} "
+        f"-> {info['train_ce_after']:.5f}; estimates (s, each alone): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in out["estimate_s"].items()))
+    check(out["launches"] == dict(walk=0, step=0), "the probe launches no "
+          "kernel")
+    check(np.isfinite(losses.cpu().numpy()).all(), "finite losses")
+    return out
+
+
+def diag_minibatches() -> dict:
+    """Minibatches of ``diag.BASIS_BATCH`` bases each diagnostic runs at
+    its script's depth (the modules' ``S``, ``WARM``, ``AVG_CHUNKS``); an
+    accum-k step runs k."""
+    from ddqst_tpu_torch.campaigns import (diag, diag_floor_escape,
+                                           diag_hard_mining,
+                                           diag_segment_descent)
+
+    sd, fe, hm = diag_segment_descent, diag_floor_escape, diag_hard_mining
+    grid = 3**5 // diag.BASIS_BATCH  # the ``full`` arm's clamped accum
+    return {
+        # single (2 S), params, optchain, lrdecay (S + S each) at accum 1;
+        # accum4 (S + S) at 4.
+        "diag_segment_descent": 4 * 2 * sd.S + 4 * 2 * sd.S,
+        # warm-up, cont / lr3 / lr10, avg (AVG_CHUNKS of S / AVG_CHUNKS)
+        # at 4; full: S / 15 steps over the whole grid.
+        "diag_floor_escape": 4 * (fe.WARM + 3 * fe.S + fe.AVG_CHUNKS
+                                  * (fe.S // fe.AVG_CHUNKS))
+        + grid * (fe.S // 15),
+        "diag_hard_mining": hm.ACCUM * (hm.WARM + len(hm.ARMS) * hm.S)}
+
+
+def diag_run(out_dir: str, smi: str, depth: list[str]) -> dict:
+    """The three diagnostics side by side, each a child process writing
+    ``OUT_DIR/<name>.json`` (its log ``OUT_DIR/<name>.log``), at ``depth``
+    ``[STEPS, WARM]`` (printed as a cut); each record beside the JAX
+    package's."""
+    from ddqst_tpu_torch.campaigns import diag_floor_escape as fe
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH", "")) if p)
+    os.makedirs(out_dir, exist_ok=True)
+    log("diag", f"CUT: {depth[0]} steps an arm or segment (the scripts': "
+        f"{fe.S}), {depth[1]} warm-up steps ({fe.WARM})")
+    procs = {}
+    t0 = time.perf_counter()
+    for name in DIAG_MODULES:
+        flags = ["--steps", depth[0]] + (
+            ["--warm", depth[1]] if name != "diag_segment_descent" else [])
+        with open(os.path.join(out_dir, f"{name}.log"), "w") as logf:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"ddqst_tpu_torch.campaigns.{name}",
+                 "--out", os.path.join(out_dir, f"{name}.json")] + flags,
+                stdout=logf, stderr=subprocess.STDOUT, env=env)
+    out = {}
+    for name, proc in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DIAG_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed"
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{name}.log")) as f:
+            tail = f.read().splitlines()[-40:]
+        for line in tail:
+            log("diag", f"{name}: {line}")
+        check(rc == 0, f"{name} exited 0 ({rc}) after {wall:.0f} s")
+        with open(os.path.join(out_dir, f"{name}.json")) as f:
+            got = json.load(f)
+        with open(repo_file(f"examples/{name}.json")) as f:
+            want = json.load(f)
+        check(set(got) == set(want) | {"device"} and got["device"] == smi,
+              f"{name}: the JAX record's keys and the card's line")
+        log("diag", f"{name} ({wall:.0f} s): port {json.dumps(got)}")
+        log("diag", f"{name}: JAX {json.dumps(want)}")
+        out[name] = dict(port=got, jax=want, s=wall)
+    return out
+
+
 # ``--repeat-check``: does training repeat bit for bit from one seed in two
 # processes? At two widths: ``campaigns.shadow_scale`` at the shadow width
 # (1 epoch, 100 bases), and ``campaigns.scaling --probe`` of RQC-4 at the
@@ -5373,6 +5764,33 @@ def main() -> int:
         out = rqc3_ceiling_run(sys.argv[2], smi, sys.argv[3:] == ["--run"])
         print(json.dumps({"rqc3_ceiling": out, "card": smi}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--profiles"]:
+        # python3 chip_smoke.py --profiles OUT_DIR: the N=10 sector profile
+        # of the reference's snapshot against the JAX package's record, all
+        # 48 bases; then GHZ-8 at full shape (the MLE target, the eval
+        # floor, the sector profile and two routes to the full-grid CE).
+        if len(sys.argv) != 3:
+            print("usage: chip_smoke.py --profiles OUT_DIR", file=sys.stderr)
+            return 2
+        build_all(_build)
+        out = dict(shadow=shadow_profile(ck, sys.argv[2], smi),
+                   ghz8=ghz8_profiles(ck, sys.argv[2], smi))
+        print(json.dumps({"profiles": out, "card": smi}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--diag"]:
+        # python3 chip_smoke.py --diag OUT_DIR probe | STEPS WARM: one
+        # probe arm, or the three GHZ-5 diagnostics side by side at a cut
+        # depth (their full recipes outlast a call; the probe says so).
+        if len(sys.argv) not in (4, 5) or (
+                len(sys.argv) == 4 and sys.argv[3] != "probe"):
+            print("usage: chip_smoke.py --diag OUT_DIR probe | STEPS WARM",
+                  file=sys.stderr)
+            return 2
+        build_all(_build)
+        out = (diag_probe(ck) if sys.argv[3:] == ["probe"] else
+               diag_run(sys.argv[2], smi, sys.argv[3:]))
+        print(json.dumps({"diag": out, "card": smi}), flush=True)
+        return 0
     if sys.argv[1:2] == ["--repeat-child"]:
         repeat_child(*sys.argv[2:4])
         return 0
@@ -5507,6 +5925,7 @@ def main() -> int:
     mesh = timed("mesh", phase_mesh)
     scaling = timed("scaling", phase_scaling, ck)
     campaigns = timed("campaigns", phase_campaigns, smi)
+    profiles = timed("profiles", phase_profiles, ck, smi)
 
     main_rec = kernel["main"]
     bench_rec = kernel["bench"]
@@ -5578,6 +5997,7 @@ def main() -> int:
         "launches_campaigns": {
             "scaling_cpu_tiny": campaigns["ladder"]["walk_launches"],
             "probe_rqc4_auto": campaigns["probe"]["walk_launches"]},
+        "launches_profiles": profiles["launches"]["walk"],
         "shape_rqc4_auto": list(RQC4_WALK_SHAPE),
         **{f"{k}_rqc4_auto": kernel["rqc4"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "threads",
@@ -5609,12 +6029,14 @@ def main() -> int:
             for tag in SCALING_STEP_SHAPES},
         "scaling_shapes": {tag: r for tag, r in scaling["kernels"].items()
                            if r["kernel"] == "fused_chain_step"},
+        "launches_profiles": profiles["launches"]["step"],
     }], "lane_instructions_per_s": rate["rates"],
         "bench_recipes": distill, "bench": bench["parts"], "shadow": shadow,
         "reference_shadow": reference, "shadow_n12": shadow_n12,
         "notebook": notebook,
         "denoise": denoise, "bf16": bf16, "train_profile": train_profile,
         "mesh": mesh, "scaling": scaling, "campaigns": campaigns,
+        "profiles": profiles,
         "phase_seconds": phase_s}),
         flush=True)
     print(smi, flush=True)

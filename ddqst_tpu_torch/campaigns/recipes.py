@@ -1,7 +1,8 @@
 """The campaigns' shared recipes, as plain functions of
 ``ddqst_tpu_torch.config``: the port's copies of ``quality_cfg``
 (``scripts/run_parity_suite.py:60-81``), ``coverage_steps`` and
-``auto_recipe`` (``scripts/run_scaling_ghz.py:29-66``)."""
+``auto_recipe`` (``scripts/run_scaling_ghz.py:29-66``), and ``diag_cfg``
+(the GHZ-5 diagnostics' ``make_cfg``)."""
 
 from __future__ import annotations
 
@@ -59,3 +60,28 @@ def auto_recipe(cfg: ExperimentConfig, *, basis_batch: int = 0,
         chain_val_fraction=val_fraction, chain_val_patience=val_patience,
         chain_basis_batch=basis_batch, chain_steps_per_call=steps_per_call,
         chain_target=target, chain_accum=accum))
+
+
+def diag_cfg(name: str, num_qubits: int = 5,
+             epochs: int = 10) -> ExperimentConfig:
+    """The GHZ-5 diagnostics' regime (``make_cfg`` of
+    ``scripts/diag_segment_descent.py``, ``diag_floor_escape.py`` and
+    ``diag_hard_mining.py``, which differ only in ``name``): the ``rqc``
+    preset with a FiLM 32 / 64 / 2 token model, T = 100 cosine with the
+    renoise sampler, batch 1,024 for ``epochs`` epochs, GHZ under readout
+    noise, 500 mitigated training shots a basis."""
+    base = get_preset("rqc")
+    return base.replace(
+        name=name,
+        model=type(base.model)(input_encoding="token", embed_dim=32,
+                               hidden_dim=64, num_blocks=2),
+        diffusion=type(base.diffusion)(num_timesteps=100, schedule="cosine",
+                                       sampler="renoise"),
+        train=type(base.train)(batch_size=1024, learning_rate=1e-3,
+                               optimizer="adam", num_epochs=epochs,
+                               lr_schedule="cosine", log_every=0,
+                               eval_every=0),
+        data=type(base.data)(num_qubits=num_qubits, state_type="ghz",
+                             noise_type="readout", shots_train=500,
+                             shots_infer=1000, mitigate_train_data=True),
+    )

@@ -278,12 +278,19 @@ def mle_born_target(counts: torch.Tensor, basis_labels: np.ndarray,
     solve: dict = {}
     rho_t = mle.make_mle(n, basis_labels)(counts, solve)
     mle_iterations["target"] = solve["iterations"]
-    d = 2**n
+    return born_probs(rho_t, basis_labels)
+
+
+def born_probs(rho: torch.Tensor, basis_labels: np.ndarray) -> torch.Tensor:
+    """``[B, 2^N]`` Born probabilities of ``rho`` in each basis of
+    ``basis_labels``, on ``rho``'s device (factored above
+    ``mle._FACTORED_BLOCK_ELEMS`` elements of rotations)."""
+    d = rho.shape[-1]
     if basis_labels.shape[0] * d * d > mle._FACTORED_BLOCK_ELEMS:
-        return mle.factored_born_probs(rho_t, basis_labels)
+        return mle.factored_born_probs(rho, basis_labels)
     rots = torch.from_numpy(
-        measure.rotation_unitaries(basis_labels)).to(counts.device)
-    return measure.batched_probs_mixed(rho_t[None], rots)[0]
+        measure.rotation_unitaries(basis_labels)).to(rho.device)
+    return measure.batched_probs_mixed(rho[None], rots)[0]
 
 
 def save_target(path: str, target: torch.Tensor) -> None:

@@ -529,3 +529,39 @@ def test_embed_backward_repeats_bit_for_bit(cuda, rows, m, e):
     ref = table.weight.grad
     assert float((grads[0] - ref).abs().max()) <= 1e-5 * float(
         ref.abs().max())
+
+
+def test_shadow_sector_profile_on_the_card_reproduces_the_record(cuda,
+                                                                 tmp_path):
+    """``campaigns.shadow_sector_profile`` on the card at full width
+    (transformer 128 / 512 / 4 / 4, N = 10, T = 100) on the reference's CE
+    snapshot and data cache: the selection is the JAX package's record's
+    48 bases, and on its first 2 each ``kl_clean`` and ``kl_counts`` lies
+    within 1e-4 + 1e-3·|the record's| of ``examples/shadow_sector_profile.
+    jsonl``; no kernel launches."""
+    import os
+
+    from ddqst_tpu_torch import pipeline
+    from ddqst_tpu_torch.campaigns import read_rows
+    from ddqst_tpu_torch.campaigns import shadow_sector_profile as ssp
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    params = os.path.join(root, "examples", "reference_params",
+                          "dist_seg_ce_params.pt")
+    cache = os.path.join(root, "shadow_work", "dist_seg_data.npz")
+    record = read_rows(os.path.join(root, "examples",
+                                    "shadow_sector_profile.jsonl"))
+    args = ssp.parse_args([params, "--data", cache,
+                           "--out", str(tmp_path / "port.jsonl")])
+    b_all = pipeline.load_data_cache(cache).bits.shape[0]
+    sel = ssp.select(b_all, args.bases, args.seed)
+    assert sel.tolist() == [r["basis"] for r in record]
+    ck.fused_chain_walk.launches = ck.fused_chain_step.launches = 0
+    rows = ssp.run(args, log_fn=lambda m: None, limit=2)
+    assert ck.fused_chain_walk.launches == ck.fused_chain_step.launches == 0
+    assert len(rows) == 2
+    for got, want in zip(rows, record):
+        assert got["basis"] == want["basis"]
+        for k in ("kl_clean", "kl_counts"):
+            assert abs(got[k] - want[k]) <= 1e-4 + 1e-3 * abs(want[k]), (
+                k, got, want)

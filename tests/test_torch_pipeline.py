@@ -210,7 +210,11 @@ def test_port_imports_no_jax():
         "'campaigns.shadow_scale', 'campaigns.segments', "
         "'campaigns.shadow_segments', 'campaigns.parity_suite', "
         "'campaigns.rqc3_ceiling', 'campaigns.mle_target', "
-        "'campaigns.exact_rescore'):\n"
+        "'campaigns.exact_rescore', 'campaigns.average_params', "
+        "'campaigns.eval_chain_ce_subset', 'campaigns.ghz8_sector_profile', "
+        "'campaigns.shadow_sector_profile', 'campaigns.ghz8_eval_floor', "
+        "'campaigns.diag', 'campaigns.diag_segment_descent', "
+        "'campaigns.diag_floor_escape', 'campaigns.diag_hard_mining'):\n"
         "    assert 'ddqst_tpu_torch.' + name in sys.modules, name\n"
         "from ddqst_tpu_torch.qsim import native_engine, states\n"
         "psi = native_engine.statevectors([states.prep_circuit('bell', 2)])\n"
