@@ -262,7 +262,9 @@ result line is printed; nothing falls back to the CPU):
    ``--scaling-part``, each in a child process: CE stopped after epoch 1's
    checkpoint in one and resumed in the next, which distils and
    evaluates; its raw-inversion fidelity equal to the JAX package's on
-   that file within 1e-5.
+   that file within 1e-5. RQC-6's parts and phase campaigns' driver
+   processes run beside the rungs of this process: the card is idle most
+   of a host-bound step, and each process counts its own launches.
    Each run has its launch counts and peak memory set to 0 just before and
    read just after, and must launch as ``SCALING_PLAN`` says (3 walks at
    N=5, 4 staged walks at N=6, 600 step launches at N=7 (100 at the cut's
@@ -274,11 +276,13 @@ result line is printed; nothing falls back to the CPU):
    MLE of that distribution, ρ a state, MLE on the raw counts at least 0.999
    where the data is uncut; at N=8 the CE role's parameters load back, the
    mining segment solves and caches the target and draws non-uniformly.
-   Then both kernels at the rungs' shapes, each against its plain version
-   bit for bit and timed beside it and its bound. It prints the stage
-   seconds, the peak memory and the fidelities beside the reference's.
+   It prints the stage seconds, the peak memory and the fidelities beside
+   the reference's. Then, once every other process has ended (phase
+   ``scaling_kernels``), both kernels at the rungs' shapes, each against
+   its plain version bit for bit and timed beside it and its bound.
 16. campaigns — the port's campaign drivers as a user runs them, each a
-   child process on the card, in three chains side by side: ``python -m
+   child process on the card, in three chains side by side, started
+   before phase scaling and waited for after it: ``python -m
    ddqst_tpu_torch.campaigns.scaling --only cpu_tiny`` (one row with the
    script's keys, ``device`` the card's ``nvidia-smi`` line, a fidelity
    in [0, 1]), again with the same ``--out`` (no row added); ``python -m
@@ -309,6 +313,9 @@ To compare two checkouts' kernels on one card, ``python3 chip_smoke.py
 --time-kernels [DIR]`` builds and times only the kernels of the checkout at
 DIR (default: this one), with this script's timer and inputs, and prints one
 JSON line; run it in turns (old, new, new, old) on one card.
+``python3 chip_smoke.py --ce-step-times [DIR]`` times only a CE training
+step of ``ghz6_auto`` at full width with the package of the checkout at
+DIR, alone in its process (one JSON line); run it in turns in the same way.
 
 ``python3 chip_smoke.py --bench [ARGS]`` runs only the port's bench,
 ``python -m ddqst_tpu_torch.bench ARGS``, in this process: by default at
@@ -347,15 +354,20 @@ differ. One JSON line.
 runs one part of a rung split across processes or chip calls
 (``SCALING_PARTS``: RQC-6 as ``ce1``, CE epochs 1-75 stopped after epoch
 75's checkpoint, and ``ce2``, epochs 76-150 resumed from it, the held-out
-distillation, generation and the estimators; GHZ-7's split as a plan). It
+distillation, generation and the estimators; RQC-5 and GHZ-6 as CE halves
+``ce1`` and ``ce2`` and then ``d``, the held-out distillation and the tail;
+GHZ-7's split as a plan). It
 refuses to start when a file it reads is missing from IN_DIR, writes what
 the next part reads (a checkpoint, parameters, an Adam state, caches) and
 its record ``TAG_PART.json`` to OUT_DIR, and prints one JSON line. The
 evaluating part holds the rung's checks, the raw-inversion fidelity and,
 uncut, MLE on the raw counts against the JAX package's on the same file,
 and records the fidelity beside the reference's row. With ``--cut``, the
-default run's cuts. ``python3 chip_smoke.py --scaling-cut TAG`` runs only
-that cut rung, through its parts in child processes.
+default run's cuts; with ``--no-stop K`` a distilling part runs K steps
+without the held-out early stop (a diagnostic, not the recipe: its record
+is ``TAG_PART_nostopK.json`` and it writes no row). ``python3
+chip_smoke.py --scaling-cut TAG`` runs only that cut rung, through its
+parts in child processes.
 
 ``python3 chip_smoke.py --scaling-costs`` measures the stages of the GHZ-7
 and GHZ-8 rungs alone (the data step, MLE on the raw counts at 50, 200 and
@@ -3476,14 +3488,18 @@ def scaling_rung(tag: str):
 
 
 # The JAX package's records of each rung uncut, on a TPU (quality only):
-# RESULTS.md:249, :424, :426, :272; GHZ-8 after its 1600 uniform steps
-# (:398), 0.87904 / 0.91254 after one / two 800-step mining segments
-# (:400-401).
+# RESULTS.md:249, :424, :425, :250, :426, :272; GHZ-8 after its 1600
+# uniform steps (:398), 0.87904 / 0.91254 after one / two 800-step mining
+# segments (:400-401).
 REFERENCE_SCALING = {
     "rqc4_auto": dict(fidelity=0.97117, raw_fidelity=0.92724,
                       raw_fidelity_mitigated=0.99981),
     "ghz5_auto": dict(fidelity=0.97031, raw_fidelity=0.84628,
                       raw_fidelity_mitigated=0.99994),
+    "rqc5_auto": dict(fidelity=0.99494, raw_fidelity=0.85564,
+                      raw_fidelity_mitigated=0.99982),
+    "ghz6_auto": dict(fidelity=0.97845, raw_fidelity=0.75445,
+                      raw_fidelity_mitigated=0.99996),
     "rqc6_auto": dict(fidelity=0.99059, raw_fidelity=0.76961,
                       raw_fidelity_mitigated=0.99982),
     "ghz7_mle_hot": dict(fidelity=0.96752, raw_fidelity=0.55760,
@@ -3500,7 +3516,8 @@ REFERENCE_SCALING = {
 # 2,187 x 834 = 1,823,958 chains < 32·6^7, so the 'seq' walk: T step
 # launches a call; N = 8 (gen_tables_once): the tables once, 3,000 in 10
 # walks of 300 (2^21 // 6,561 = 319 a walk).
-SCALING_PLAN = {"rqc4_auto": (2, 0), "ghz5_auto": (3, 0), "rqc6_auto": (4, 0),
+SCALING_PLAN = {"rqc4_auto": (2, 0), "ghz5_auto": (3, 0), "rqc5_auto": (3, 0),
+                "ghz6_auto": (4, 0), "rqc6_auto": (4, 0),
                 "ghz7_mle_hot": (0, 600), "ghz8_mle_hot": (10, 0)}
 # Each launch's shape: the walk's (C, N, S), the step's (G, N, B).
 SCALING_WALK_SHAPES = {"ghz5_auto": (243, 5, 6667),
@@ -3555,7 +3572,19 @@ SCALING_MLE_ITERS = {"ghz5_auto": 500, "rqc6_auto": 500,
 # CE halves of 30 epochs of 6,407 steps (19-24 min each), the MLE target
 # solved in ``d1``, 1,600 distillation steps at 2.0-2.8 s in three parts
 # (17-26 min each), then the eval part (600 step launches, MLE solves).
+# RQC-5 and GHZ-6: CE halves, each leaving a checkpoint (about 44 MB; a
+# call brings back at most 64 MiB, so one a call), then the held-out
+# distillation and the eval in a part of its own: at the 10-11 ms a CE step
+# measured in some calls, a CE half with all 800 steps after it would not
+# fit one call. RQC-5: 1,186 steps an epoch, 17-32 min a half; GHZ-6:
+# RQC-6's shapes, 24-46 min a half (the JAX run kept step 775 of 800).
 SCALING_PARTS = {
+    "rqc5_auto": {"ce1": dict(ce=(0, 150), every=50),
+                  "ce2": dict(ce=(150, 300), every=50),
+                  "d": dict(steps=800, eval=True)},
+    "ghz6_auto": {"ce1": dict(ce=(0, 75), every=25),
+                  "ce2": dict(ce=(75, 150), every=25),
+                  "d": dict(steps=800, eval=True)},
     "rqc6_auto": {"ce1": dict(ce=(0, 75), every=25),
                   "ce2": dict(ce=(75, 150), every=25, steps=800,
                               eval=True)},
@@ -3575,6 +3604,8 @@ SCALING_CUT_PARTS = {
 # ``tools/make_reference_data.py`` (``--tag TAG --out
 # examples/reference_data/TAG_seed0.npz``).
 SCALING_DATA = {"rqc4_auto": "examples/reference_data/rqc4_auto_seed0.npz",
+                "rqc5_auto": "examples/reference_data/rqc5_auto_seed0.npz",
+                "ghz6_auto": "examples/reference_data/ghz6_auto_seed0.npz",
                 "rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz"}
 # The JAX package's numbers on that file (the same tool, on the CPU): the
 # raw-inversion fidelity, MLE on the raw counts solved to its tolerance and
@@ -3584,6 +3615,12 @@ SCALING_DATA_JAX = {
     "rqc4_auto": dict(raw_fidelity=0.9273253083229065,
                       raw_fidelity_mitigated=0.9998022317886353,
                       mle_iterations=633),
+    "rqc5_auto": dict(raw_fidelity=0.8559212684631348,
+                      raw_fidelity_mitigated=0.999823808670044,
+                      mle_iterations=586),
+    "ghz6_auto": dict(raw_fidelity=0.7544494867324829,
+                      raw_fidelity_mitigated=0.9999563097953796,
+                      mle_iterations=570),
     "rqc6_auto": dict(raw_fidelity=0.7702612280845642,
                       raw_fidelity_mitigated=0.9998176097869873,
                       mle_iterations=535)}
@@ -3592,9 +3629,12 @@ SCALING_DATA_MLE_TOL = 1e-4
 # A cut part's limit in the default run (RQC-6's parts take about 30 and 60
 # s on the card).
 SCALING_PART_TIMEOUT_S = 600
-# The reference run's trace distance and held-out step (RESULTS.md:433-435),
+# The reference run's trace distance and held-out step (RESULTS.md:433-435,
+# :250; examples/results_scaling.jsonl:11, :14),
 # and how far below its fidelity the port's still agrees.
 REFERENCE_RUN = {"rqc4_auto": dict(trace_distance=0.03514),
+                 "rqc5_auto": dict(trace_distance=0.01162),
+                 "ghz6_auto": dict(trace_distance=0.0252, best_step=775),
                  "rqc6_auto": dict(trace_distance=0.0173, best_step=25)}
 REFERENCE_FIDELITY_MARGIN = 0.005
 
@@ -3854,13 +3894,22 @@ def scaling_checks(ck, tag: str, cfg, res: dict, rec: dict,
                **{k: v for k, v in rec.items()
                   if k not in ("log", "log_s")})
     if "chain_info" in res:
-        info = res["chain_info"]
-        out.update(ce_before=info["train_ce_before"],
-                   ce_after=info["train_ce_after"],
-                   distill_steps_run=len(res["ft_losses"]))
-        if "best_step" in info:
-            out.update(best_step=info["best_step"],
-                       best_val_ce=info["best_val_ce"])
+        out.update(chain_record(res["chain_info"], res["ft_losses"]))
+    return out
+
+
+def chain_record(info: dict, ft_losses) -> dict:
+    """A distillation's numbers in a rung's record: the full-grid chain CE
+    before and after, the steps run and, with a held-out split, the best
+    step, its CE and the held-out history ``[[step, CE], ...]``."""
+    out = dict(ce_before=info["train_ce_before"],
+               ce_after=info["train_ce_after"],
+               distill_steps_run=len(ft_losses))
+    if "best_step" in info:
+        out.update(best_step=info["best_step"],
+                   best_val_ce=info["best_val_ce"],
+                   val_history=[[int(k), float(ce)] for k, ce
+                                in info["val_history"]])
     return out
 
 
@@ -4051,7 +4100,7 @@ def scaling_split_cut(tag: str) -> dict:
     check((last["walk_launches"], last["step_launches"]) == SCALING_PLAN[tag],
           f"{tag}: the evaluating part launched as the plan says")
     out = dict(last, parts=parts, wall_s=time.perf_counter() - t0)
-    log("scaling", f"{tag}: the split rung, cut, added {out['wall_s']:.1f} s "
+    log("scaling", f"{tag}: the split rung, cut, took {out['wall_s']:.1f} s "
         "(its child processes' start included)")
     return out
 
@@ -4059,35 +4108,37 @@ def scaling_split_cut(tag: str) -> dict:
 def phase_scaling(ck) -> dict:
     """The scaling ladder at full width with the default run's cuts: GHZ-5
     and GHZ-7 in one ``run_experiment`` each, GHZ-8 through the segment
-    protocol, RQC-6 split across child processes; then both kernels at the
-    rungs' shapes."""
+    protocol, all in this process, while RQC-6's parts run in child
+    processes beside them (each process counts its own launches). The
+    kernels at the rungs' shapes are timed after the phase, when no other
+    process shares the card (``scaling_kernel_rows``)."""
     t_phase = time.perf_counter()
     rungs = {}
-    for tag in ("ghz5_auto", "ghz7_mle_hot", "ghz8_mle_hot"):
-        cfg, cut = cut_rung(tag), tag in SCALING_SHOTS_CUT
-        log("scaling", f"{tag}: CUT every MLE solve to "
-            f"{SCALING_MLE_ITERS[tag]} iterations (uncut: to its tolerance, "
-            "at most 4,000)")
-        with _MleCapped(SCALING_MLE_ITERS[tag]):
-            if tag != "ghz8_mle_hot":
-                rungs[tag] = scaling_run(ck, tag, cfg, cut)
-                continue
-            log("scaling", f"{tag}: CUT the distillation to "
-                f"{SCALING_SEGMENT_STEPS} steps (the recipe: 1600 steps; its "
-                "campaign: 4 uniform and 2 mining segments of 800)")
-            with tempfile.TemporaryDirectory() as tmp:
-                rungs[tag] = scaling_segments(ck, tag, cfg, tmp,
-                                              cut)
-    for tag in SCALING_CUT_PARTS:
-        rungs[tag] = scaling_split_cut(tag)
-    split_s = sum(rungs[tag]["wall_s"] for tag in SCALING_CUT_PARTS)
-    path_s = time.perf_counter() - t_phase
-    kernels = scaling_kernel_rows(ck)
+    with ThreadPoolExecutor(len(SCALING_CUT_PARTS)) as pool:
+        split = {tag: pool.submit(scaling_split_cut, tag)
+                 for tag in SCALING_CUT_PARTS}
+        for tag in ("ghz5_auto", "ghz7_mle_hot", "ghz8_mle_hot"):
+            cfg, cut = cut_rung(tag), tag in SCALING_SHOTS_CUT
+            log("scaling", f"{tag}: CUT every MLE solve to "
+                f"{SCALING_MLE_ITERS[tag]} iterations (uncut: to its "
+                "tolerance, at most 4,000)")
+            with _MleCapped(SCALING_MLE_ITERS[tag]):
+                if tag != "ghz8_mle_hot":
+                    rungs[tag] = scaling_run(ck, tag, cfg, cut)
+                    continue
+                log("scaling", f"{tag}: CUT the distillation to "
+                    f"{SCALING_SEGMENT_STEPS} steps (the recipe: 1600 steps; "
+                    "its campaign: 4 uniform and 2 mining segments of 800)")
+                with tempfile.TemporaryDirectory() as tmp:
+                    rungs[tag] = scaling_segments(ck, tag, cfg, tmp, cut)
+        own_s = time.perf_counter() - t_phase
+        rungs.update({tag: f.result() for tag, f in split.items()})
+    split_s = max(rungs[tag]["wall_s"] for tag in SCALING_CUT_PARTS)
     phase_s = time.perf_counter() - t_phase
-    log("scaling", f"phase time {phase_s:.1f} s ({path_s:.1f} s the rungs and "
-        f"their checks, {split_s:.1f} s of it the split rungs' parts; the "
-        "budget is about 450 s)")
-    return dict(rungs=rungs, kernels=kernels, phase_s=phase_s, path_s=path_s)
+    log("scaling", f"phase time {phase_s:.1f} s: {own_s:.1f} s the rungs in "
+        f"this process and their checks, {split_s:.1f} s the split rungs' "
+        "parts beside them")
+    return dict(rungs=rungs, phase_s=phase_s, own_s=own_s, split_s=split_s)
 
 
 def scaling_uncut(ck, tags: list[str]) -> list[dict]:
@@ -4280,18 +4331,17 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
         kept = C._steps(train_kw["checkpoint_dir"])
         check(kept == [plan["stop"]], f"{tag} {part}: one checkpoint kept, "
               f"epoch {plan['stop']} ({kept})")
-        # The stage seconds from the log: the data until fit's first line.
-        t_fit = next(t for m, t in zip(rec["log"], rec["log_s"])
-                     if "training on" in m)
-        a, b = spec["ce"]
-        n_steps = (b - a) * max(3**cfg.data.num_qubits * cfg.data.shots_train
-                                // tr.batch_size, 1)
-        out.update(timings=dict(datagen=t_fit, train=rec["wall_s"] - t_fit),
-                   ce_epochs=[a, b], train_steps=n_steps,
-                   ms_per_step=(rec["wall_s"] - t_fit) * 1e3 / n_steps)
-        log("scaling", f"{tag} {part}: CE stopped after epoch {b} "
-            f"({n_steps} steps, {out['ms_per_step']:.3f} ms a step); "
-            f"checkpoint {os.path.join(train_kw['checkpoint_dir'], str(b))}")
+        out.update(_ce_timing(rec, spec["ce"], cfg))
+        log("scaling", f"{tag} {part}: CE stopped after epoch "
+            f"{spec['ce'][1]} ({out['train_steps']} steps, "
+            f"{out['ms_per_step']:.3f} ms a step); checkpoint "
+            f"{os.path.join(train_kw['checkpoint_dir'], str(spec['ce'][1]))}")
+    elif "ce" in spec and "timings" not in res:
+        # CE to its end with nothing after it (``stop_after='distill'``).
+        out.update(_ce_timing(rec, spec["ce"], cfg))
+        log("scaling", f"{tag} {part}: CE epochs {spec['ce'][0] + 1}-"
+            f"{spec['ce'][1]} ({out['train_steps']} steps, "
+            f"{out['ms_per_step']:.3f} ms a step)")
     else:
         out.update(train_steps=res.get("train_steps"),
                    ce_epochs=list(spec["ce"]) if "ce" in spec else None)
@@ -4300,13 +4350,22 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
                                   / res["train_steps"])
         info = res.get("chain_info") or res.get("ft_info")
         if info is not None:
-            out.update(ce_before=info["train_ce_before"],
-                       ce_after=info["train_ce_after"],
-                       distill_steps_run=len(res["ft_losses"]))
-            if "best_step" in info:
-                out.update(best_step=info["best_step"],
-                           best_val_ce=info["best_val_ce"])
+            out.update(chain_record(info, res["ft_losses"]))
     return out, res, rec
+
+
+def _ce_timing(rec: dict, ce: tuple, cfg) -> dict:
+    """A CE part's stage seconds from its log (a result without
+    ``timings``): the data until fit's first line, then training; its
+    steps and ms a step."""
+    t_fit = next(t for m, t in zip(rec["log"], rec["log_s"])
+                 if "training on" in m)
+    a, b = ce
+    n_steps = (b - a) * max(3**cfg.data.num_qubits * cfg.data.shots_train
+                            // cfg.train.batch_size, 1)
+    return dict(timings=dict(datagen=t_fit, train=rec["wall_s"] - t_fit),
+                ce_epochs=[a, b], train_steps=n_steps,
+                ms_per_step=(rec["wall_s"] - t_fit) * 1e3 / n_steps)
 
 
 def scaling_part_checks(ck, tag: str, cfg, res: dict, rec: dict,
@@ -4357,8 +4416,47 @@ def scaling_part_checks(ck, tag: str, cfg, res: dict, rec: dict,
         f"distance {res['trace_distance']:.5f} vs "
         f"{ref.get('trace_distance')}; "
         f"held-out step {out.get('best_step')} vs {ref.get('best_step')}; "
-        f"chain CE {out.get('ce_before')} -> {out.get('ce_after')}")
+        f"chain CE {out.get('ce_before')} -> {out.get('ce_after')}; held-out "
+        f"history {out.get('val_history')}")
     return out
+
+
+def no_stop(cfg, parts: dict, part: str, steps: int) -> tuple:
+    """A diagnostic form of a distilling part (``--no-stop K``), not the
+    recipe: ``steps`` distillation steps with the held-out patience past
+    them, so every held-out evaluation runs and the selection keeps the
+    best of all. Returns the config and split to run it with."""
+    import dataclasses
+
+    if not parts[part].get("steps"):
+        raise ValueError(f"part {part!r} does not distil")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, chain_finetune_steps=steps,
+        chain_val_patience=steps + 1))
+    return cfg, dict(parts, **{part: dict(parts[part], steps=steps)})
+
+
+def split_row(tag: str, cfg, res: dict, in_dir: str, parts: list[str],
+              wall_s: float, smi: str) -> tuple[dict, dict]:
+    """A split rung's row in ``campaigns.scaling``'s schema (its ``row``),
+    from the evaluating (last) part's result: ``wall_s`` the sum of every
+    part's, the earlier parts' read from their records ``TAG_PART.json`` in
+    ``in_dir`` (a missing one is logged and left out). Returns the row and
+    each part's seconds."""
+    from ddqst_tpu_torch.campaigns.scaling import experiment, row
+
+    walls = {}
+    for p in parts[:-1]:
+        path = os.path.join(in_dir, f"{tag}_{p}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                walls[p] = json.load(f)["wall_s"]
+        else:
+            log("scaling", f"{tag}: no record {path}; its seconds are not "
+                "in the row's wall_s")
+    walls[parts[-1]] = wall_s
+    return row(tag, cfg, experiment(tag)[1], res, sum(walls.values()),
+               smi), walls
 
 
 def scaling_costs() -> dict:
@@ -4587,20 +4685,19 @@ def campaign_probe(d: str) -> dict:
     return dict(line, walk_shape=list(RQC4_WALK_SHAPE), s=s)
 
 
-def phase_campaigns(smi: str) -> dict:
-    """The three chains of driver processes at once."""
+def start_campaigns(pool, d: str, smi: str) -> dict:
+    """The three chains of driver processes, started on ``pool`` (3
+    threads) in the folder ``d`` once the data they share is made in this
+    thread; their futures."""
     from ddqst_tpu_torch.pipeline import ensure_data_cache
 
-    with tempfile.TemporaryDirectory() as d:
-        data = os.path.join(d, "cpu_tiny_data.npz")
-        ensure_data_cache(scaling_rung("cpu_tiny"), 0, data,
-                          lambda m: log("campaigns", m),
-                          device=torch.device("cuda"))
-        with ThreadPoolExecutor(3) as pool:
-            futs = dict(ladder=pool.submit(campaign_ladder, d, smi),
-                        segments=pool.submit(campaign_segments, d, data, smi),
-                        probe=pool.submit(campaign_probe, d))
-            return {k: f.result() for k, f in futs.items()}
+    data = os.path.join(d, "cpu_tiny_data.npz")
+    ensure_data_cache(scaling_rung("cpu_tiny"), 0, data,
+                      lambda m: log("campaigns", m),
+                      device=torch.device("cuda"))
+    return dict(ladder=pool.submit(campaign_ladder, d, smi),
+                segments=pool.submit(campaign_segments, d, data, smi),
+                probe=pool.submit(campaign_probe, d))
 
 
 def campaign_rung(ck, tag: str, out_dir: str, smi: str) -> dict:
@@ -5647,6 +5744,24 @@ def time_kernels(ck) -> dict:
     return out
 
 
+# Steps a turn of ``--ce-step-times``: timed after a warm-up of as many.
+CE_STEP_TIMES_STEPS = 400
+
+
+def ce_step_ms(root: str, tag: str = "ghz6_auto") -> dict:
+    """``--ce-step-times [DIR]``: ms a CE training step of rung ``tag`` at
+    full width (``train_steps_per_s`` on random rows, one batch a step), with
+    the package of the checkout at ``DIR`` (``kernels_of`` puts it first),
+    alone in this process."""
+    ck = kernels_of(root)
+    cfg = scaling_rung(tag)
+    rate = train_steps_per_s(cfg, CE_STEP_TIMES_STEPS * cfg.train.batch_size,
+                             1)
+    return dict(tag=tag, ms=1e3 / rate, steps=CE_STEP_TIMES_STEPS,
+                batch=cfg.train.batch_size,
+                package=os.path.dirname(os.path.dirname(ck.__file__)))
+
+
 def kernels_of(root: str):
     """``ddqst_tpu_torch.ops.cuda_kernels`` of the checkout at ``root``
     (``--time-kernels``). This script imports nothing of the package at
@@ -5692,6 +5807,14 @@ def main() -> int:
                         os.path.dirname(__file__))
         print(json.dumps({"time_kernels_ms": time_kernels(ck),
                           "package": os.path.dirname(ck.__file__)}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--ce-step-times"]:
+        # python3 chip_smoke.py --ce-step-times [DIR]: only the ms of a CE
+        # step of ghz6_auto with the checkout at DIR (default: this one),
+        # one JSON line; run it for two checkouts in turns to compare them.
+        print(json.dumps({"ce_step_times": ce_step_ms(
+            sys.argv[2] if sys.argv[2:] else os.path.dirname(__file__))}),
+            flush=True)
         return 0
     try:
         from ddqst_tpu_torch.ops import _build
@@ -5833,23 +5956,41 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--scaling-part"]:
         # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
-        # [--cut]: one part of a split rung (SCALING_PARTS), its record
-        # written to OUT_DIR/TAG_PART.json and printed as one JSON line.
-        args = [a for a in sys.argv[2:] if a != "--cut"]
-        cut = "--cut" in sys.argv[2:]
+        # [--cut | --no-stop K]: one part of a split rung (SCALING_PARTS),
+        # its record written to OUT_DIR/TAG_PART.json and printed as one
+        # JSON line.
+        args, cut, diag = sys.argv[2:], False, 0
+        if "--cut" in args:
+            args, cut = [a for a in args if a != "--cut"], True
+        if "--no-stop" in args:
+            i = args.index("--no-stop")
+            diag, args = int(args[i + 1]), args[:i] + args[i + 2:]
         if len(args) != 4:
             print("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
-                  "OUT_DIR [--cut]", file=sys.stderr)
+                  "OUT_DIR [--cut | --no-stop K]", file=sys.stderr)
             return 2
         tag, part, in_dir, out_dir = args
         cfg, parts, _ = part_setup(tag, part, in_dir, out_dir, cut)
+        if diag:
+            cfg, parts = no_stop(cfg, parts, part, diag)
         build_all(_build)
         with (_MleCapped(SCALING_MLE_ITERS[tag]) if cut
               else contextlib.nullcontext()):
             out, res, rec = scaling_part(ck, tag, part, in_dir, out_dir, cut,
-                                         cfg=cfg)
+                                         cfg=cfg, parts=parts)
             if parts[part].get("eval"):
                 out.update(scaling_part_checks(ck, tag, cfg, res, rec, cut))
+                if diag:
+                    out["verdict"] = (f"diagnostic: {diag} steps without the "
+                                      "early stop, not the recipe")
+                    part = f"{part}_nostop{diag}"
+                elif not cut:
+                    out["row"], out["part_walls"] = split_row(
+                        tag, cfg, res, in_dir, list(parts), out["wall_s"],
+                        smi)
+                    with open(os.path.join(out_dir, "scaling.jsonl"),
+                              "a") as f:
+                        f.write(json.dumps(out["row"]) + "\n")
         out["card"] = smi
         with open(os.path.join(out_dir, f"{tag}_{part}.json"), "w") as f:
             json.dump(out, f)
@@ -5923,8 +6064,15 @@ def main() -> int:
     bf16 = timed("bf16", phase_bf16, ck, res)
     train_profile = timed("train_profile", phase_train_profile)
     mesh = timed("mesh", phase_mesh)
-    scaling = timed("scaling", phase_scaling, ck)
-    campaigns = timed("campaigns", phase_campaigns, smi)
+    # The campaigns' driver processes run beside phase scaling (as its split
+    # rung's parts do); phase campaigns is the wait for them after it. The
+    # kernels are timed once every other process has left the card.
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(3) as pool:
+        chains = start_campaigns(pool, d, smi)
+        scaling = timed("scaling", phase_scaling, ck)
+        campaigns = timed("campaigns", lambda: {k: f.result()
+                                                for k, f in chains.items()})
+    scaling["kernels"] = timed("scaling_kernels", scaling_kernel_rows, ck)
     profiles = timed("profiles", phase_profiles, ck, smi)
 
     main_rec = kernel["main"]

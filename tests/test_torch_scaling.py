@@ -277,6 +277,8 @@ RUNGS = {  # tag: (N, shots_infer, gen_tables_once, (walks, walk (C, S)),
            #       (step calls a T, step B))
     "rqc4_auto": (4, 30000, False, (2, (81, 15000)), (0, None)),
     "ghz5_auto": (5, 20000, False, (3, (243, 6667)), (0, None)),
+    "rqc5_auto": (5, 20000, False, (3, (243, 6667)), (0, None)),
+    "ghz6_auto": (6, 10000, False, (4, (729, 2500)), (0, None)),
     "rqc6_auto": (6, 10000, False, (4, (729, 2500)), (0, None)),
     "ghz7_mle_hot": (7, 5000, False, (0, None), (6, 2187 * 834)),
     "ghz8_mle_hot": (8, 3000, True, (10, (6561, 300)), (0, None)),

@@ -12,13 +12,19 @@ iterations; (d) at a tiny config (N = 3, width 16, T = 4, 2 epochs) a CE
 stopped after epoch 1 and resumed in a second part gives the parameters,
 losses and metrics of one uninterrupted ``run_experiment`` bit for bit, and
 a GHZ-7-shaped split (CE halves, two chained distillation parts on a shared
-MLE target, an eval part) runs through its files; (e) a part whose inputs
-are missing raises before any work; (f) the splits cover the recipes.
+MLE target, an eval part) runs through its files, and GHZ-6's and RQC-5's
+held-out splits (the distillation and eval in a part of their own) give
+one run's parameters, losses, held-out history and metrics bit for bit;
+(e) a part whose inputs are missing raises before any work; (f) the splits
+cover the recipes; (g) the split rung's row and the ``--no-stop``
+diagnostic.
 """
 
 import dataclasses
 import importlib.util
+import json
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -168,6 +174,61 @@ def test_split_ce_equals_one_run(tmp_path):
     assert torch.equal(got["samples"], want["samples"])
 
 
+# The ladder's held-out splits at the tiny config: GHZ-6's and RQC-5's (CE
+# halves, then the distillation and eval in a part of its own) and RQC-6's
+# (the second CE half distils and evaluates), the distillation holding out
+# 15% of the shots.
+HELD_OUT_SPLITS = {
+    "ghz6": {"ce1": dict(ce=(0, 1), every=1), "ce2": dict(ce=(1, 2), every=1),
+             "d": dict(steps=6, eval=True)},
+    "rqc6": {"ce1": dict(ce=(0, 1), every=1),
+             "ce2": dict(ce=(1, 2), every=1, steps=6, eval=True)},
+}
+
+
+@pytest.mark.parametrize("shape", list(HELD_OUT_SPLITS))
+def test_split_held_out_distillation_equals_one_run(tmp_path, shape):
+    """The CE parts train on every shot, the last part holds out the same
+    shots as one uninterrupted ``run_experiment``: the parameters, CE and
+    distillation losses, ``best_step``, ``val_history`` and metrics equal
+    that run's bit for bit."""
+    parts = HELD_OUT_SPLITS[shape]
+    cfg = _tiny()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                chain_finetune_steps=6))
+    assert cfg.train.chain_val_fraction == 0.15
+    data = tpipe.ensure_data_cache(cfg, 0, str(tmp_path / "data.npz"),
+                                   log_fn=lambda m: None, device="cpu")
+    with chip_smoke._MleCapped(30):
+        want = tpipe.run_experiment(cfg, seed=0, device="cpu",
+                                    data_cache=data, log_fn=lambda m: None)
+    info = want["chain_info"]
+    assert len(info["val_history"]) > 2
+    work = tmp_path / "work"
+    ce_losses = []
+    for part in parts:
+        out, got, _ = _part(work, part, parts, cfg, data)
+        if "losses" in got:
+            ce_losses.append(np.asarray(got["losses"]))
+    # A part stopped on its checkpoint returns no losses: ce2 has epoch 2's.
+    ce_losses = np.concatenate(ce_losses)
+    assert len(ce_losses) == 1
+    np.testing.assert_array_equal(
+        ce_losses, np.asarray(want["losses"])[-len(ce_losses):])
+    for (k, p), q in zip(got["state"].state_dict().items(),
+                         want["state"].state_dict().values()):
+        assert torch.equal(p, q), k
+    np.testing.assert_array_equal(got["ft_losses"], want["ft_losses"])
+    assert out["best_step"] == info["best_step"]
+    assert out["val_history"] == [[k, ce] for k, ce in info["val_history"]]
+    assert out["best_val_ce"] == info["best_val_ce"]
+    assert out["distill_steps_run"] == len(want["ft_losses"])
+    for k in ("fidelity", "raw_fidelity", "raw_fidelity_mitigated",
+              "trace_distance"):
+        assert got[k] == want[k], k
+    assert torch.equal(got["samples"], want["samples"])
+
+
 def test_ghz7_shaped_split_chains_its_files(tmp_path):
     """CE halves, two distillation parts chained by their parameters, Adam
     state (``chain_key_salt`` + k) and one MLE target cache, then the eval
@@ -216,7 +277,8 @@ def test_committed_rung_refuses_without_its_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("tag,cut,epochs,steps", [
     ("rqc6_auto", False, 150, 800), ("ghz7_mle_hot", False, 60, 1600),
-    ("rqc6_auto", True, 2, 10)])
+    ("rqc6_auto", True, 2, 10), ("rqc5_auto", False, 300, 800),
+    ("ghz6_auto", False, 150, 800)])
 def test_splits_cover_the_recipe(tag, cut, epochs, steps):
     parts = (chip_smoke.SCALING_CUT_PARTS if cut
              else chip_smoke.SCALING_PARTS)[tag]
@@ -233,6 +295,27 @@ def test_splits_cover_the_recipe(tag, cut, epochs, steps):
         chip_smoke.part_files(tag, {k: dict(p, total=epochs)
                                     for k, p in parts.items()}, part, "i",
                               "o", mle_target=cfg.train.chain_target == "mle")
+
+
+def test_committed_ghz6_ce_parameters_start_its_distilling_part(tmp_path):
+    """GHZ-6's CE parameters from the card's uncut run (epochs 1-150,
+    ``examples/reference_params/ghz6_auto_ce2_params.pt``) load strictly
+    into the recipe's model, finite, and part ``d`` needs nothing else."""
+    from ddqst_tpu_torch.models import build_model
+    from ddqst_tpu_torch.utils.checkpoint import restore_params
+
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "examples",
+                        "reference_params", "ghz6_auto_ce2_params.pt")
+    cfg = chip_smoke.scaling_rung("ghz6_auto")
+    model = restore_params(path, build_model(
+        cfg.model, 6, cfg.diffusion.num_timesteps))
+    assert all(bool(p.isfinite().all()) for p in model.parameters())
+    shutil.copy(path, tmp_path / "ghz6_auto_ce2_params.pt")
+    _, _, plan = chip_smoke.part_setup("ghz6_auto", "d", str(tmp_path),
+                                       str(tmp_path), cut=False)
+    assert plan["kw"]["params_load"] == str(tmp_path /
+                                            "ghz6_auto_ce2_params.pt")
+    assert "opt_load" not in plan["kw"] and plan["salt"] == 0
 
 
 def test_cut_split_runs_the_cut_epochs(tmp_path):
@@ -255,3 +338,51 @@ def test_a_stop_off_its_checkpoint_is_refused():
     with pytest.raises(ValueError, match="neither distils"):
         chip_smoke.part_files("x", {"ce1": dict(ce=(0, 2), every=2, total=4,
                                                 steps=3)}, "ce1", "i", "o")
+
+
+def test_split_row_sums_the_parts(tmp_path):
+    """The evaluating part's row: ``campaigns.scaling``'s keys, the rung's
+    note, ``wall_s`` the sum of the parts' records found in ``IN_DIR``."""
+    for part, wall in (("ce1", 100.0), ("ce2", 200.25)):
+        with open(tmp_path / f"ghz6_auto_{part}.json", "w") as f:
+            json.dump(dict(wall_s=wall), f)
+    res = dict(fidelity=0.978451, raw_fidelity=0.754449,
+               raw_fidelity_mitigated=0.999956, trace_distance=0.025201)
+    cfg = chip_smoke.scaling_rung("ghz6_auto")
+    row, walls = chip_smoke.split_row("ghz6_auto", cfg, res, str(tmp_path),
+                                      ["ce1", "ce2", "d"], 50.0, "card")
+    assert walls == {"ce1": 100.0, "ce2": 200.25, "d": 50.0}
+    assert row == dict(
+        tag="ghz6_auto", num_qubits=6, fidelity=0.97845, raw_fidelity=0.75445,
+        raw_fidelity_mitigated=0.99996, trace_distance=0.0252,
+        note="GHZ-6, automated distillation recipe (96-basis minibatch)",
+        wall_s=350.2, device="card")
+    assert set(row) == chip_smoke.CAMPAIGN_ROW_KEYS
+    os.remove(tmp_path / "ghz6_auto_ce1.json")
+    _, walls = chip_smoke.split_row("ghz6_auto", cfg, res, str(tmp_path),
+                                    ["ce1", "ce2", "d"], 50.0, "card")
+    assert walls == {"ce2": 200.25, "d": 50.0}
+
+
+def test_no_stop_runs_every_step_and_keeps_the_best(tmp_path):
+    """``--no-stop K`` (a diagnostic): K distillation steps, the held-out
+    patience past them, every evaluation in the history; the recipe and
+    the split themselves unchanged."""
+    parts = HELD_OUT_SPLITS["ghz6"]
+    cfg = _tiny()
+    dcfg, dparts = chip_smoke.no_stop(cfg, parts, "d", 8)
+    assert (dcfg.train.chain_finetune_steps, dcfg.train.chain_val_patience,
+            dparts["d"]["steps"]) == (8, 9, 8)
+    assert parts["d"]["steps"] == 6 and cfg.train.chain_val_patience == 4
+    with pytest.raises(ValueError, match="does not distil"):
+        chip_smoke.no_stop(cfg, parts, "ce2", 8)
+    data = tpipe.ensure_data_cache(cfg, 0, str(tmp_path / "data.npz"),
+                                   log_fn=lambda m: None, device="cpu")
+    _part(tmp_path, "ce1", parts, cfg, data)
+    _part(tmp_path, "ce2", parts, cfg, data)
+    out, res, _ = _part(tmp_path, "d", dparts, dcfg, data)
+    assert out["distill_steps_run"] == 8
+    steps = [k for k, _ in out["val_history"]]
+    assert steps[0] == 0 and steps[-1] == 8 and steps == sorted(steps)
+    assert out["best_val_ce"] == min(ce for _, ce in out["val_history"])
+    assert np.isfinite(res["fidelity"])
