@@ -365,7 +365,15 @@ uncut, MLE on the raw counts against the JAX package's on the same file,
 and records the fidelity beside the reference's row. With ``--cut``, the
 default run's cuts; with ``--no-stop K`` a distilling part runs K steps
 without the held-out early stop (a diagnostic, not the recipe: its record
-is ``TAG_PART_nostopK.json`` and it writes no row). ``python3
+is ``TAG_PART_nostopK.json`` and it writes no row). Two more diagnostics of
+a distilling part keep the recipe and change only its random stream, and
+combine with ``--no-stop``: ``--draws FILE`` takes the part's minibatches
+from the rows of a basis-draw file (``tools/make_reference_data.py
+--draws``, the JAX package's own draws), refusing a file that is short,
+of another basis batch, rung, seed or salt before any work, and checks
+that it used one row a step; ``--salt K`` adds K to the part's
+``chain_key_salt``. Their records are ``TAG_PART_jax_seedS.json`` /
+``TAG_PART_saltK.json``, and their rows name the stream. ``python3
 chip_smoke.py --scaling-cut TAG`` runs only that cut rung, through its
 parts in child processes.
 
@@ -4263,8 +4271,9 @@ def part_setup(tag: str, part: str, in_dir: str, out_dir: str, cut: bool,
 
 def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
                  cut: bool = False, *, cfg=None, parts: dict | None = None,
-                 data: str | None = None,
-                 device: str = "cuda") -> tuple[dict, dict, dict]:
+                 data: str | None = None, device: str = "cuda",
+                 salt: int = 0,
+                 draws: tuple | None = None) -> tuple[dict, dict, dict]:
     """``--scaling-part TAG PART IN_DIR OUT_DIR``: one part of a rung split
     across processes (``SCALING_PARTS``, or with ``cut`` the default run's
     ``SCALING_CUT_PARTS``), through ``run_experiment`` with the recipe
@@ -4278,7 +4287,10 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     distils against the MLE target ``TAG_target.npz`` (the mode adds the
     record, ``TAG_PART.json``). Returns ``(record, result, role record)``;
     ``cfg``, ``parts``, ``data`` and ``device`` stand in for the rung's for
-    a test on the CPU. The evaluation's checks are ``scaling_part_checks``."""
+    a test on the CPU. ``salt`` is added to the part's ``chain_key_salt``;
+    ``draws`` (``load_draws``' rows and name) are the minibatches it takes
+    (``_Draws``), one row a step run, which it checks at the end. The
+    evaluation's checks are ``scaling_part_checks``."""
     import dataclasses
 
     cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut, cfg,
@@ -4290,7 +4302,7 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     names = list(parts)
     steps = spec.get("steps", 0)
     train_kw = dict(chain_finetune_steps=steps,
-                    chain_key_salt=tr.chain_key_salt + plan["salt"],
+                    chain_key_salt=tr.chain_key_salt + plan["salt"] + salt,
                     log_every=tr.log_every or (1 if cut else 25))
     tmp = None
     if "ce" in spec and (spec["ce"][0] or plan["stop"] is not None):
@@ -4314,7 +4326,9 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     try:
         stop = (_CeStop(plan["stop"]) if plan["stop"] is not None
                 else contextlib.nullcontext())
-        with stop:
+        stand_in = (_Draws(draws[0], 3**cfg.data.num_qubits) if draws
+                    else contextlib.nullcontext())
+        with stop, stand_in:
             res, rec = _role(ck, f"{tag} {part}", pcfg, device=device, **kw)
     finally:
         if tmp:
@@ -4322,6 +4336,15 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     out = dict(tag=tag, part=part, cut=cut, split=describe_split(parts),
                parts=names, **{k: v for k, v in rec.items()
                               if k not in ("log", "log_s")})
+    if steps:
+        out.update(chain_key_salt=train_kw["chain_key_salt"],
+                   salt_offset=salt)
+    if draws:
+        ran = len(res["ft_losses"])
+        check(stand_in.used == ran, f"{tag} {part}: one row of the draw "
+              f"file a step ({stand_in.used} rows, {ran} steps)")
+        out.update(draws=draws[1], draw_rows_used=stand_in.used,
+                   first_losses=[float(v) for v in res["ft_losses"][:25]])
     if plan["stop"] is not None:
         check(res.get("ce_stopped_at") == plan["stop"],
               f"{tag} {part}: CE stopped after epoch {plan['stop']}'s "
@@ -4434,6 +4457,111 @@ def no_stop(cfg, parts: dict, part: str, steps: int) -> tuple:
         cfg.train, chain_finetune_steps=steps,
         chain_val_patience=steps + 1))
     return cfg, dict(parts, **{part: dict(parts[part], steps=steps)})
+
+
+def load_draws(path: str, tag: str, cfg, steps: int, salt: int,
+               seed: int = 0) -> tuple[np.ndarray, str]:
+    """A basis-draw file (``tools/make_reference_data.py --draws``) for a
+    distilling part of ``tag`` that runs ``steps`` steps at ``seed`` with
+    ``salt`` added to the recipe's ``chain_key_salt``: its rows and their
+    name (``jax_seedS``, ``_saltK`` after it for a salt). Raises
+    ``ValueError``, before any work, for a file that has fewer than
+    ``steps`` rows or rows of another length than the recipe's basis batch,
+    or that was drawn for another rung, seed, salt or chunk length."""
+    tr = cfg.train
+    with np.load(path) as f:
+        rows = f["draws"]
+        meta = {k: f[k].item() for k in ("tag", "seed", "salt",
+                                         "steps_per_call")}
+    if rows.ndim != 2 or rows.shape[0] < steps or (
+            rows.shape[1] != tr.chain_basis_batch):
+        raise ValueError(f"{path}: draws {list(rows.shape)}, the part needs "
+                         f"[>= {steps}, {tr.chain_basis_batch}]")
+    want = dict(tag=tag, seed=seed, salt=salt,
+                steps_per_call=tr.chain_steps_per_call)
+    for k, v in want.items():
+        if meta[k] != v:
+            raise ValueError(f"{path}: drawn for {k} {meta[k]!r}, the part "
+                             f"runs {k} {v!r}")
+    return rows, f"jax_seed{seed}" + (f"_salt{salt}" if salt else "")
+
+
+class _Draws:
+    """Within the block, ``torch.multinomial`` hands out the rows of a
+    basis-draw file in order, one a call, on the device of the weights it
+    is given: the distillation's minibatch draw (``train.finetune_chain``)
+    on another package's stream, the package's API unchanged. Any other
+    call, or one past the last row, raises. ``used`` counts the rows
+    handed out."""
+
+    def __init__(self, rows: np.ndarray, num_bases: int):
+        self.rows, self.num_bases, self.used = rows, num_bases, 0
+
+    def __enter__(self):
+        self.own = torch.multinomial
+
+        def draw(p, num_samples, replacement=False, *, generator=None):
+            if (replacement or tuple(p.shape) != (self.num_bases,)
+                    or num_samples != self.rows.shape[1]):
+                raise RuntimeError(
+                    f"torch.multinomial{(tuple(p.shape), num_samples)} is "
+                    "not the distillation's draw")
+            if self.used == len(self.rows):
+                raise RuntimeError(f"all {self.used} rows of the draw file "
+                                   "are used")
+            row = torch.from_numpy(self.rows[self.used].astype(np.int64))
+            self.used += 1
+            return row.to(p.device)
+
+        torch.multinomial = draw
+        return self
+
+    def __exit__(self, *exc):
+        torch.multinomial = self.own
+
+
+SCALING_PART_USAGE = ("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
+                      "OUT_DIR [--cut | --no-stop K] [--draws FILE] "
+                      "[--salt K]")
+
+
+def scaling_part_args(argv: list[str]) -> dict:
+    """``--scaling-part``'s arguments, checked before any work: the part's
+    inputs (``part_setup``: ``FileNotFoundError``), then the diagnostics,
+    which run only uncut and only on a distilling part (``--no-stop K``,
+    ``--salt K``, ``--draws FILE`` against the part by ``load_draws``):
+    ``ValueError``. Returns what ``scaling_part`` and the record need."""
+    args = list(argv)
+
+    def take(flag: str):
+        if flag not in args:
+            return None
+        i = args.index(flag)
+        if i + 1 == len(args):
+            raise ValueError(f"{flag} needs a value; {SCALING_PART_USAGE}")
+        value = args[i + 1]
+        del args[i:i + 2]
+        return value
+
+    cut = "--cut" in args
+    args = [a for a in args if a != "--cut"]
+    diag = int(take("--no-stop") or 0)
+    salt = int(take("--salt") or 0)
+    draws = take("--draws")
+    if len(args) != 4:
+        raise ValueError(SCALING_PART_USAGE)
+    tag, part, in_dir, out_dir = args
+    cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut)
+    if (diag or salt or draws) and (cut or not parts[part].get("steps")):
+        raise ValueError(f"{tag} {part}: --no-stop, --salt and --draws take "
+                         "an uncut distilling part")
+    if diag:
+        cfg, parts = no_stop(cfg, parts, part, diag)
+    return dict(tag=tag, part=part, in_dir=in_dir, out_dir=out_dir, cut=cut,
+                cfg=cfg, parts=parts, no_stop=diag, salt=salt,
+                draws=None if draws is None else load_draws(
+                    draws, tag, cfg, parts[part]["steps"],
+                    plan["salt"] + salt))
 
 
 def split_row(tag: str, cfg, res: dict, in_dir: str, parts: list[str],
@@ -5956,41 +6084,41 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--scaling-part"]:
         # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
-        # [--cut | --no-stop K]: one part of a split rung (SCALING_PARTS),
-        # its record written to OUT_DIR/TAG_PART.json and printed as one
-        # JSON line.
-        args, cut, diag = sys.argv[2:], False, 0
-        if "--cut" in args:
-            args, cut = [a for a in args if a != "--cut"], True
-        if "--no-stop" in args:
-            i = args.index("--no-stop")
-            diag, args = int(args[i + 1]), args[:i] + args[i + 2:]
-        if len(args) != 4:
-            print("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
-                  "OUT_DIR [--cut | --no-stop K]", file=sys.stderr)
+        # [--cut | --no-stop K] [--draws FILE] [--salt K]: one part of a
+        # split rung (SCALING_PARTS), its record written to
+        # OUT_DIR/TAG_PART[_diagnostics].json and printed as one JSON line.
+        try:
+            a = scaling_part_args(sys.argv[2:])
+        except ValueError as e:
+            print(f"chip_smoke: {e}", file=sys.stderr)
             return 2
-        tag, part, in_dir, out_dir = args
-        cfg, parts, _ = part_setup(tag, part, in_dir, out_dir, cut)
-        if diag:
-            cfg, parts = no_stop(cfg, parts, part, diag)
+        tag, part, in_dir, out_dir, cut, cfg, parts, diag = (
+            a[k] for k in ("tag", "part", "in_dir", "out_dir", "cut", "cfg",
+                           "parts", "no_stop"))
         build_all(_build)
         with (_MleCapped(SCALING_MLE_ITERS[tag]) if cut
               else contextlib.nullcontext()):
             out, res, rec = scaling_part(ck, tag, part, in_dir, out_dir, cut,
-                                         cfg=cfg, parts=parts)
+                                         cfg=cfg, parts=parts,
+                                         salt=a["salt"], draws=a["draws"])
+            stream = "".join(
+                ([f"_{a['draws'][1]}"] if a["draws"] else [])
+                + ([f"_salt{a['salt']}"] if a["salt"] else []))
             if parts[part].get("eval"):
                 out.update(scaling_part_checks(ck, tag, cfg, res, rec, cut))
                 if diag:
                     out["verdict"] = (f"diagnostic: {diag} steps without the "
                                       "early stop, not the recipe")
-                    part = f"{part}_nostop{diag}"
                 elif not cut:
                     out["row"], out["part_walls"] = split_row(
                         tag, cfg, res, in_dir, list(parts), out["wall_s"],
                         smi)
+                    if stream:
+                        out["row"]["note"] += f"; draw stream {stream[1:]}"
                     with open(os.path.join(out_dir, "scaling.jsonl"),
                               "a") as f:
                         f.write(json.dumps(out["row"]) + "\n")
+            part += (f"_nostop{diag}" if diag else "") + stream
         out["card"] = smi
         with open(os.path.join(out_dir, f"{tag}_{part}.json"), "w") as f:
             json.dump(out, f)

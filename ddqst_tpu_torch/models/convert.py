@@ -7,7 +7,9 @@ JAX. A flax ``Dense`` kernel is ``[in, out]`` and becomes the transposed
 ``scale`` becomes its ``weight``. The attention's ``DenseGeneral`` kernels
 are flattened first: q/k/v ``[E, H, D]`` to ``[E, H·D]`` (bias ``[H, D]`` to
 ``[H·D]``) and ``out`` ``[H, D, E]`` to ``[H·D, E]``, head-major as
-``models.transformer.SelfAttention`` reads them.
+``models.transformer.SelfAttention`` reads them. ``params_to_flax`` undoes
+each of these steps, so a model the port trained can run in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -76,6 +78,59 @@ def params_from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected flax param group {name!r}")
     return sd
+
+
+_EMBEDS = ("x_emb", "time_emb", "basis_emb", "circuit_emb", "bit_emb")
+_LAYER_NORMS = ("ln_f", "ln1", "ln2")
+_ATTENTION_INPUTS = ("query", "key", "value")
+
+
+def params_to_flax(state_dict: Mapping,
+                   num_heads: int | None = None) -> dict:
+    """The port's ``state_dict()`` -> the flax params tree of the same model,
+    every leaf a numpy array: the inverse of :func:`params_from_flax`, so
+    ``params_to_flax(params_from_flax(p))`` equals ``p`` leaf for leaf.
+    Flax's ``apply`` takes it as ``{'params': tree}``. A transformer's
+    attention kernels need ``num_heads`` to be split into heads again;
+    ``ValueError`` without it."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        a = value.detach().cpu().numpy()
+        if key == "pos_emb":
+            tree[key] = a
+            continue
+        *mod, leaf = key.split(".")
+        if mod[0] == "fcs":
+            mod = [f"fc_{mod[1]}"]
+        elif mod[0] == "blocks":
+            mod = [f"block_{mod[1]}", *mod[2:]]
+        node = tree
+        for m in mod:
+            node = node.setdefault(m, {})
+        name = mod[-1]
+        if name in _EMBEDS:
+            node["embedding"] = a
+        elif name in _LAYER_NORMS:
+            node["scale" if leaf == "weight" else "bias"] = a
+        elif mod[-2:-1] == ["attn"]:
+            if num_heads is None:
+                raise ValueError(f"{key}: an attention kernel needs "
+                                 "num_heads")
+            if name in _ATTENTION_INPUTS:  # [H·D, E] -> kernel [E, H, D]
+                node[{"weight": "kernel"}.get(leaf, leaf)] = (
+                    np.ascontiguousarray(a.T).reshape(a.shape[1], num_heads,
+                                                      -1)
+                    if leaf == "weight" else a.reshape(num_heads, -1))
+            elif leaf == "weight":  # out: [E, H·D] -> kernel [H, D, E]
+                node["kernel"] = np.ascontiguousarray(a.T).reshape(
+                    num_heads, -1, a.shape[0])
+            else:
+                node["bias"] = a
+        elif leaf == "weight":
+            node["kernel"] = np.ascontiguousarray(a.T)
+        else:
+            node["bias"] = a
+    return tree
 
 
 def chain_opt_from_flax(tree_np: Mapping) -> dict:

@@ -3,11 +3,14 @@ package's committed seed-0 data (``examples/reference_data/
 ghz6_auto_seed0.npz``), the port against ``ddqst_tpu``, on the CPU.
 
 GHZ-6 is the first rung whose distillation draws a minibatch of bases (96
-of 729) each step. Both packages start from one set of JAX-initialised
-parameters and run the recipe's distillation (held-out split of 15% of the
-shots, the counts target, lr 1e-3, the held-out selection) for two steps;
-the port draws the same bases as JAX (its ``torch.multinomial`` draw is
-replaced by ``jax.random.choice`` on JAX's keys). The losses, the full-grid
+of 729) each step. Both packages start from one set of parameters that the
+port initialised (carried into JAX by ``params_to_flax``) and run the
+recipe's distillation (held-out split of 15% of the shots, the counts
+target, lr 1e-3, the held-out selection) for two steps; the port draws the
+same bases as JAX: its ``torch.multinomial`` draw hands out the first rows
+of the committed draws (``examples/reference_data/
+ghz6_auto_draws_seed0.npz``, JAX's own, held against ``jax.random.choice``
+in ``tests/test_torch_ghz6_witness.py``). The losses, the full-grid
 chain CE before and after, the held-out history and the step it keeps, the
 parameters and the Adam moments agree within ``TOL``. The width is cut to a
 CPU test (embed 16, hidden 32, 1 block; T = 100 and the shapes otherwise).
@@ -29,7 +32,8 @@ from ddqst_tpu.ops import mle as jmle
 from ddqst_tpu.ops.schedules import make_schedule as jmake_schedule
 from ddqst_tpu_torch import pipeline as tpipe
 from ddqst_tpu_torch.campaigns import scaling
-from ddqst_tpu_torch.models import chain_opt_from_flax, params_from_flax
+from ddqst_tpu_torch.models import (build_model, chain_opt_from_flax,
+                                    params_from_flax, params_to_flax)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -40,6 +44,8 @@ torch.set_num_threads(1)
 
 DATA = os.path.join(ROOT, "examples", "reference_data",
                     "ghz6_auto_seed0.npz")
+DRAWS = os.path.join(ROOT, "examples", "reference_data",
+                     "ghz6_auto_draws_seed0.npz")
 TAG, N, STEPS = "ghz6_auto", 6, 2
 TOL = 1e-5
 
@@ -62,11 +68,14 @@ def steps(tmp_path_factory):
     t_steps = jc.diffusion.num_timesteps
     data = jpipe.load_data_cache(DATA)
     _, k_train, _ = jax.random.split(jax.random.key(0), 3)
+    torch.manual_seed(0)
+    sd = build_model(tc.model, N, t_steps).state_dict()
+    ppath = str(tmp / "params.pt")
+    torch.save(sd, ppath)
     state = jtrain.create_state(k_train, jbuild_model(jc.model, N, t_steps),
                                 jc.train, N)
-    ppath = str(tmp / "params.pt")
-    torch.save(params_from_flax(
-        jax.tree_util.tree_map(np.asarray, state.params)), ppath)
+    state = state.replace(params=jax.tree_util.tree_map(
+        jax.numpy.asarray, params_to_flax(sd)))
 
     # JAX: run_experiment's held-out split and distillation call
     # (ddqst_tpu/pipeline.py:677-737), on the file's data.
@@ -85,11 +94,9 @@ def steps(tmp_path_factory):
     leaves = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     jopt = jinfo.pop("final_opt_state")
 
-    # JAX's draws: one chunk of STEPS steps from fold_in(key, 0), each
-    # step's key choosing basis_batch bases without replacement.
-    keys = jax.random.split(jax.random.fold_in(key, 0), STEPS)
-    draws = [np.asarray(jax.random.choice(k, 3**N, (tr.chain_basis_batch,),
-                                          replace=False)) for k in keys]
+    # JAX's draws: the committed file's first STEPS rows.
+    with np.load(DRAWS) as f:
+        draws = list(f["draws"][:STEPS])
 
     def multinomial(p, num, replacement=False, generator=None):
         assert num == tr.chain_basis_batch and not replacement

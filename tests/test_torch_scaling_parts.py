@@ -17,7 +17,10 @@ held-out splits (the distillation and eval in a part of their own) give
 one run's parameters, losses, held-out history and metrics bit for bit;
 (e) a part whose inputs are missing raises before any work; (f) the splits
 cover the recipes; (g) the split rung's row and the ``--no-stop``
-diagnostic.
+diagnostic; (h) the ``--draws`` and ``--salt`` diagnostics: a draw file that
+does not fit the part is refused before any work, the rows are the
+minibatches the part takes, one a step, and ``--salt K`` runs the part at
+``chain_key_salt`` + K.
 """
 
 import dataclasses
@@ -338,6 +341,117 @@ def test_a_stop_off_its_checkpoint_is_refused():
     with pytest.raises(ValueError, match="neither distils"):
         chip_smoke.part_files("x", {"ce1": dict(ce=(0, 2), every=2, total=4,
                                                 steps=3)}, "ce1", "i", "o")
+
+
+GHZ6_DRAWS = os.path.join(ROOT, "examples", "reference_data",
+                          "ghz6_auto_draws_seed0.npz")
+GHZ6_CE = os.path.join(ROOT, "examples", "reference_params",
+                       "ghz6_auto_ce2_params.pt")
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("short", r"\[>= 800, 96\]"), ("tag", "drawn for tag"),
+    ("file_salt", "drawn for salt"), ("part_salt", "drawn for salt"),
+    ("cut", "uncut distilling part"), ("ce_part", "uncut distilling part")])
+def test_draws_that_do_not_fit_the_part_are_refused(tmp_path, bad, match):
+    """``--draws`` on GHZ-6's ``d`` refuses, before any work, a file with
+    one row too few, one drawn for another rung or salt, the committed
+    salt-0 file under ``--salt 1``, and any diagnostic on a cut or CE
+    part; the committed file itself fits."""
+    shutil.copy(GHZ6_CE, tmp_path / "ghz6_auto_ce2_params.pt")
+    with np.load(GHZ6_DRAWS) as f:
+        rows, meta = f["draws"], {k: f[k] for k in f.files if k != "draws"}
+    if bad == "short":
+        rows = rows[:-1]
+    elif bad == "tag":
+        meta["tag"] = np.array("rqc6_auto")
+    elif bad == "file_salt":
+        meta["salt"] = np.int64(1)
+    path = tmp_path / "draws.npz"
+    np.savez(path, draws=rows, **meta)
+    out = tmp_path / "out"
+    argv = ["ghz6_auto", "d", str(tmp_path), str(out), "--draws", str(path)]
+    if bad == "part_salt":
+        argv += ["--salt", "1"]
+    elif bad == "cut":
+        argv = ["rqc6_auto", "ce1", str(tmp_path), str(out), "--cut",
+                "--salt", "1"]
+    elif bad == "ce_part":
+        argv = ["ghz6_auto", "ce1", str(tmp_path), str(out), "--salt", "1"]
+    ck.fused_chain_walk.launches = 7
+    with pytest.raises(ValueError, match=match):
+        chip_smoke.scaling_part_args(argv)
+    assert not out.exists() and ck.fused_chain_walk.launches == 7
+    a = chip_smoke.scaling_part_args(
+        ["ghz6_auto", "d", str(tmp_path), str(out), "--draws", GHZ6_DRAWS,
+         "--no-stop", "300"])
+    assert a["draws"][1] == "jax_seed0" and a["draws"][0].shape == (800, 96)
+    assert a["parts"]["d"]["steps"] == 300 and a["salt"] == 0
+
+
+def _minibatched():
+    """The tiny stack with a minibatch of 8 of the 27 bases a step, so the
+    draw stream decides the distillation."""
+    cfg = _tiny()
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, chain_finetune_steps=6, chain_basis_batch=8))
+
+
+def _tiny_draws(tmp_path):
+    cfg, parts = _minibatched(), HELD_OUT_SPLITS["ghz6"]
+    data = tpipe.ensure_data_cache(cfg, 0, str(tmp_path / "data.npz"),
+                                   log_fn=lambda m: None, device="cpu")
+    _part(tmp_path, "ce1", parts, cfg, data)
+    _part(tmp_path, "ce2", parts, cfg, data)
+    return cfg, parts, data
+
+
+def test_draws_are_the_minibatches_one_row_a_step(tmp_path):
+    """The rows the port's own stream draws, written as a draw file and
+    handed back through ``--draws``, give that run's distillation bit for
+    bit; the record names the file's stream, counts one row a step and
+    keeps the first losses."""
+    cfg, parts, data = _tiny_draws(tmp_path)
+    own, seen = torch.multinomial, []
+
+    def spy(*args, **kw):
+        seen.append(own(*args, **kw))
+        return seen[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "multinomial", spy)
+        want, wres, _ = _part(tmp_path, "d", parts, cfg, data)
+    assert len(seen) == want["distill_steps_run"] > 0
+    path = tmp_path / "draws.npz"
+    np.savez(path, draws=torch.stack(seen).numpy().astype(np.int16),
+             tag=np.array("tiny"), seed=np.int64(0), salt=np.int64(0),
+             steps_per_call=np.int64(cfg.train.chain_steps_per_call))
+    draws = chip_smoke.load_draws(str(path), "tiny", cfg, len(seen), 0)
+    with pytest.raises(ValueError, match="the part needs"):
+        chip_smoke.load_draws(str(path), "tiny", cfg, len(seen) + 1, 0)
+    got, gres, _ = _part(tmp_path, "d", parts, cfg, data, draws=draws)
+    np.testing.assert_array_equal(gres["ft_losses"], wres["ft_losses"])
+    assert got["val_history"] == want["val_history"]
+    assert got["distill_steps_run"] == len(seen)
+    assert got["draws"] == "jax_seed0" and got["draw_rows_used"] == len(seen)
+    assert got["first_losses"] == [float(v) for v in gres["ft_losses"]]
+    assert gres["fidelity"] == wres["fidelity"]
+
+
+def test_salt_moves_the_parts_chain_key_salt(tmp_path):
+    """``--salt 2`` runs the part as the recipe at ``chain_key_salt`` + 2
+    would, which draws other bases than salt 0, and records both."""
+    cfg, parts, data = _tiny_draws(tmp_path)
+    base, _, _ = _part(tmp_path, "d", parts, cfg, data)
+    got, gres, _ = _part(tmp_path, "d", parts, cfg, data, salt=2)
+    assert (got["chain_key_salt"], got["salt_offset"]) == (
+        cfg.train.chain_key_salt + 2, 2)
+    assert base["chain_key_salt"] == cfg.train.chain_key_salt
+    moved = cfg.replace(train=dataclasses.replace(
+        cfg.train, chain_key_salt=cfg.train.chain_key_salt + 2))
+    _, wres, _ = _part(tmp_path, "d", parts, moved, data)
+    np.testing.assert_array_equal(gres["ft_losses"], wres["ft_losses"])
+    assert base["val_history"] != got["val_history"]
 
 
 def test_split_row_sums_the_parts(tmp_path):

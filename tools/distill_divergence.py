@@ -23,6 +23,20 @@ step it would have kept.
 
 Run from the root of a checkout. The width is cut to ``WIDTH`` (embed,
 hidden, blocks); T = 100 and the data's shapes are the recipe's.
+
+With ``--params PT`` it is a witness at the recipe's own width instead:
+both packages start from the port's model in ``PT`` (carried into JAX by
+``ddqst_tpu_torch.models.params_to_flax``) and take JAX's own draws (the
+rows of ``tools/make_reference_data.py --draws``). It prints, for each
+package, the full-grid chain CE and the held-out CE at step 0, the losses
+of the steps run, the held-out CE after them, and the largest gap between
+the packages, as one JSON line:
+
+    JAX_PLATFORMS=cpu python tools/distill_divergence.py --steps 3 \
+        --params examples/reference_params/ghz6_auto_ce2_params.pt
+
+At the ``rqc`` width (128 / 512 / 4) a step costs about 2.5 minutes of 8
+CPU cores and a full-grid CE about one minute, so keep ``--steps`` small.
 """
 
 import argparse
@@ -48,9 +62,12 @@ from ddqst_tpu.ops import mle as jmle  # noqa: E402
 from ddqst_tpu.ops.schedules import make_schedule as jsched  # noqa: E402
 from ddqst_tpu_torch import pipeline as tpipe  # noqa: E402
 from ddqst_tpu_torch.campaigns import scaling  # noqa: E402
-from ddqst_tpu_torch.models import params_from_flax  # noqa: E402
+from ddqst_tpu_torch.models import params_from_flax, params_to_flax  # noqa: E402
 
 import run_scaling_ghz  # noqa: E402
+
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+from make_reference_data import recipe_draws  # noqa: E402
 
 TAG, N = "ghz6_auto", 6
 DATA = os.path.join(ROOT, "examples", "reference_data", "ghz6_auto_seed0.npz")
@@ -60,11 +77,15 @@ RTOL = 1e-4
 
 
 def cut(cfg, args):
-    return cfg.replace(
-        model=dataclasses.replace(cfg.model, embed_dim=WIDTH[0],
-                                  hidden_dim=WIDTH[1], num_blocks=WIDTH[2]),
-        train=dataclasses.replace(cfg.train, chain_finetune_steps=args.steps,
-                                  chain_val_patience=args.steps + 1))
+    """The recipe with ``--steps`` steps and no early stop; without
+    ``--params``, at the cut width."""
+    if not args.params:
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, embed_dim=WIDTH[0], hidden_dim=WIDTH[1],
+            num_blocks=WIDTH[2]))
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, chain_finetune_steps=args.steps,
+        chain_val_patience=args.steps + 1))
 
 
 def patience_stop(history):
@@ -81,12 +102,46 @@ def patience_stop(history):
     return history[-1][0], best
 
 
+def witness(args, jlosses, jinfo, tres, seconds: dict) -> dict:
+    """``--params``' record: each package's step-0 CEs, losses and
+    held-out CE after the last step, and the largest gap between the
+    packages."""
+    def numbers(losses, info):
+        hist = [float(c) for _, c in info["val_history"]]
+        return dict(chain_ce_step0=float(info["train_ce_before"]),
+                    val_ce_step0=hist[0],
+                    losses=[float(v) for v in np.asarray(losses)],
+                    val_ce_after=hist[-1])
+
+    both = {"jax": numbers(jlosses, jinfo),
+            "port": numbers(tres["ft_losses"], tres["ft_info"])}
+
+    def flat(d):
+        return [d["chain_ce_step0"], d["val_ce_step0"], *d["losses"],
+                d["val_ce_after"]]
+
+    j, p = (np.asarray(flat(both[k])) for k in ("jax", "port"))
+    return dict(tag=TAG, params=os.path.relpath(args.params, ROOT),
+                draws="jax_seed0", steps=args.steps,
+                width="recipe", **both,
+                max_abs_gap=float(np.abs(p - j).max()),
+                max_rel_gap=float((np.abs(p - j) / np.abs(j)).max()),
+                seconds=seconds, torch_threads=torch.get_num_threads(),
+                cpu_count=os.cpu_count(), jax_version=jax.__version__,
+                torch_version=torch.__version__)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--ce-epochs", type=int, default=0)
+    ap.add_argument("--params", default="",
+                    help="the port's model to start both packages from, at "
+                    "the recipe's width")
     args = ap.parse_args(argv)
-    torch.set_num_threads(4)
+    if args.params and args.ce_epochs:
+        ap.error("--params starts from a model; --ce-epochs trains one")
+    torch.set_num_threads(os.cpu_count())
 
     jc = cut(next(c for t, c, _ in run_scaling_ghz.experiments()
                   if t == TAG), args)
@@ -110,6 +165,10 @@ def main(argv=None) -> int:
             stop_after="distill", log_fn=lambda m: None)
         state = state.replace(params=jckpt.restore_params(ce_path,
                                                           state.params))
+    if args.params:
+        state = state.replace(params=jax.tree_util.tree_map(
+            jax.numpy.asarray, params_to_flax(torch.load(
+                args.params, map_location="cpu", weights_only=True))))
     ce_s = time.perf_counter() - t0
 
     # JAX: run_experiment's held-out split and distillation call.
@@ -129,22 +188,17 @@ def main(argv=None) -> int:
     jax_s = time.perf_counter() - t0
 
     # JAX's draws, chunk by chunk as finetune_chain makes them.
-    draws, done = [], 0
-    while done < args.steps:
-        length = min(tr.chain_steps_per_call, args.steps - done)
-        for k in jax.random.split(jax.random.fold_in(key, done), length):
-            draws.append(np.asarray(jax.random.choice(
-                k, 3**N, (tr.chain_basis_batch,), replace=False)))
-        done += length
+    draws = list(recipe_draws(jc, seed=0))
 
     def multinomial(p, num, replacement=False, generator=None):
         assert num == tr.chain_basis_batch and not replacement
         return torch.from_numpy(draws.pop(0).astype(np.int64))
 
     with tmp_dir:
-        ppath = os.path.join(tmp_dir.name, "params.pt")
-        torch.save(params_from_flax(
-            jax.tree_util.tree_map(np.asarray, state.params)), ppath)
+        ppath = args.params or os.path.join(tmp_dir.name, "params.pt")
+        if not args.params:
+            torch.save(params_from_flax(
+                jax.tree_util.tree_map(np.asarray, state.params)), ppath)
         own = torch.multinomial
         torch.multinomial = multinomial
         t0 = time.perf_counter()
@@ -159,6 +213,10 @@ def main(argv=None) -> int:
     if draws:
         raise RuntimeError(f"{len(draws)} of JAX's draws were not used")
 
+    if args.params:
+        print(json.dumps(witness(args, jlosses, jinfo, tres, dict(
+            jax=jax_s, port=port_s))), flush=True)
+        return 0
     jl, pl = np.asarray(jlosses, np.float64), np.asarray(tres["ft_losses"])
     rel = np.abs(pl - jl) / np.abs(jl)
     apart = np.nonzero(rel > RTOL)[0]

@@ -14,6 +14,16 @@
   'nu'}``, as ``ddqst_tpu/pipeline.py``'s ``opt_save`` writes it) becomes
   the file ``restore_chain_opt`` loads strictly (``opt_load=...``); each
   moment is laid out as its parameter is.
+- ``--kind torch_params``, the other way: a state dict the port wrote
+  (``--src MODEL.pt``) becomes an orbax params directory (``--out DIR``)
+  that ``ddqst_tpu.utils.checkpoint.restore_params`` reads and
+  ``ddqst_tpu.pipeline.run_experiment(params_load=...)`` starts from, so the
+  JAX package can run the port's models. A transformer needs
+  ``--num-heads``.
+
+    JAX_PLATFORMS=cpu python tools/flax_to_torch.py --kind torch_params \\
+        --src examples/reference_params/ghz6_auto_ce2_params.pt \\
+        --out ladder_work/ghz6_auto_ce2_flax
 
 Reading an orbax snapshot needs orbax and so JAX, which is why this script
 lives outside both packages: it runs on the CPU, and its output is what the
@@ -35,7 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 
 from ddqst_tpu.utils import checkpoint as jax_ckpt  # noqa: E402
-from ddqst_tpu_torch.models import chain_opt_from_flax, params_from_flax  # noqa: E402
+from ddqst_tpu_torch.models import (  # noqa: E402
+    chain_opt_from_flax, params_from_flax, params_to_flax)
 from ddqst_tpu_torch.utils import checkpoint as torch_ckpt  # noqa: E402
 
 
@@ -70,15 +81,39 @@ def convert_chain_opt(src: str, out: str) -> dict:
     return opt
 
 
+def convert_torch_params(src: str, out: str,
+                         num_heads: int | None = None) -> dict:
+    """The port's state dict at ``src`` -> a flax params snapshot at
+    ``out`` (the tree ``params_to_flax`` gives, without a ``params`` key,
+    as ``ddqst_tpu.utils.checkpoint.save_params`` writes one)."""
+    import torch
+
+    tree = params_to_flax(torch.load(src, map_location="cpu",
+                                     weights_only=True), num_heads)
+    jax_ckpt.save_params(out, tree)
+    return tree
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kind", choices=("params", "chain_opt"), required=True)
+    ap.add_argument("--kind", choices=("params", "chain_opt", "torch_params"),
+                    required=True)
     ap.add_argument("--src", required=True,
-                    help="the JAX package's snapshot directory")
-    ap.add_argument("--out", required=True, help="the torch file to write")
+                    help="the JAX package's snapshot directory (with "
+                    "torch_params: the port's .pt file)")
+    ap.add_argument("--out", required=True, help="the torch file to write "
+                    "(with torch_params: the snapshot directory)")
+    ap.add_argument("--num-heads", type=int, default=None,
+                    help="torch_params of a transformer: its heads")
     args = ap.parse_args(argv)
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    if args.kind == "torch_params":
+        tree = convert_torch_params(args.src, args.out, args.num_heads)
+        leaves = jax.tree_util.tree_leaves(tree)
+        print(f"{args.src} -> {args.out}: {len(leaves)} arrays, "
+              f"{sum(a.size for a in leaves)} elements")
+        return 0
     if args.kind == "params":
         sd = convert_params(args.src, args.out)
     else:
