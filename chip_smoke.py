@@ -356,7 +356,8 @@ runs one part of a rung split across processes or chip calls
 75's checkpoint, and ``ce2``, epochs 76-150 resumed from it, the held-out
 distillation, generation and the estimators; RQC-5 and GHZ-6 as CE halves
 ``ce1`` and ``ce2`` and then ``d``, the held-out distillation and the tail;
-GHZ-7's split as a plan). It
+GHZ-7 as ``ce1``, ``ce2``, ``d1``-``d3`` and ``eval``, on its committed
+seed-0 file). It
 refuses to start when a file it reads is missing from IN_DIR, writes what
 the next part reads (a checkpoint, parameters, an Adam state, caches) and
 its record ``TAG_PART.json`` to OUT_DIR, and prints one JSON line. The
@@ -373,9 +374,14 @@ from the rows of a basis-draw file (``tools/make_reference_data.py
 of another basis batch, rung, seed or salt before any work, and checks
 that it used one row a step; ``--salt K`` adds K to the part's
 ``chain_key_salt``. Their records are ``TAG_PART_jax_seedS.json`` /
-``TAG_PART_saltK.json``, and their rows name the stream. ``python3
-chip_smoke.py --scaling-cut TAG`` runs only that cut rung, through its
-parts in child processes.
+``TAG_PART_saltK.json``, and their rows name the stream.
+``--matmul-precision bfloat16`` (with any of those, on a distilling part)
+runs the part and its checks within
+``ops.precision.default_matmul_precision("bfloat16")``, the TPU's default
+precision emulated in the model's products (the estimators stay float32);
+its record is ``TAG_PART_bf16[...].json`` and its row's note names it.
+``python3 chip_smoke.py --scaling-cut TAG`` runs only that cut rung,
+through its parts in child processes.
 
 ``python3 chip_smoke.py --scaling-costs`` measures the stages of the GHZ-7
 and GHZ-8 rungs alone (the data step, MLE on the raw counts at 50, 200 and
@@ -3576,10 +3582,11 @@ SCALING_MLE_ITERS = {"ghz5_auto": 500, "rqc6_auto": 500,
 # distillation Adam state). ``steps``: the part's distillation steps, the
 # k-th distilling part with ``chain_key_salt`` + k; ``eval``: generation and
 # the estimators follow. RQC-6 on the H100: CE at 5.3-7.7 ms a step, 3,559
-# steps an epoch, about 24-34 min a half. GHZ-7, a plan not yet run uncut:
-# CE halves of 30 epochs of 6,407 steps (19-24 min each), the MLE target
-# solved in ``d1``, 1,600 distillation steps at 2.0-2.8 s in three parts
-# (17-26 min each), then the eval part (600 step launches, MLE solves).
+# steps an epoch, about 24-34 min a half. GHZ-7: CE halves of 30 epochs of
+# 6,407 steps (1,665-2,305 s each beside other processes, 8.7-12.0 ms a
+# step; the checkpoint between them 47 MB), the MLE target solved in
+# ``d1``, 1,600 distillation steps at 2.0-2.8 s in three parts (17-26 min
+# each), then the eval part (600 step launches, MLE solves).
 # RQC-5 and GHZ-6: CE halves, each leaving a checkpoint (about 44 MB; a
 # call brings back at most 64 MiB, so one a call), then the held-out
 # distillation and the eval in a part of its own: at the 10-11 ms a CE step
@@ -3614,7 +3621,9 @@ SCALING_CUT_PARTS = {
 SCALING_DATA = {"rqc4_auto": "examples/reference_data/rqc4_auto_seed0.npz",
                 "rqc5_auto": "examples/reference_data/rqc5_auto_seed0.npz",
                 "ghz6_auto": "examples/reference_data/ghz6_auto_seed0.npz",
-                "rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz"}
+                "rqc6_auto": "examples/reference_data/rqc6_auto_seed0.npz",
+                "ghz7_mle_hot":
+                    "examples/reference_data/ghz7_mle_hot_seed0.npz"}
 # The JAX package's numbers on that file (the same tool, on the CPU): the
 # raw-inversion fidelity, MLE on the raw counts solved to its tolerance and
 # that solve's iterations. The rows of REFERENCE_SCALING were measured on
@@ -3631,7 +3640,10 @@ SCALING_DATA_JAX = {
                       mle_iterations=570),
     "rqc6_auto": dict(raw_fidelity=0.7702612280845642,
                       raw_fidelity_mitigated=0.9998176097869873,
-                      mle_iterations=535)}
+                      mle_iterations=535),
+    "ghz7_mle_hot": dict(raw_fidelity=0.5573741793632507,
+                         raw_fidelity_mitigated=0.9999403953552246,
+                         mle_iterations=936)}
 SCALING_DATA_RAW_TOL = 1e-5
 SCALING_DATA_MLE_TOL = 1e-4
 # A cut part's limit in the default run (RQC-6's parts take about 30 and 60
@@ -4289,8 +4301,12 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     ``cfg``, ``parts``, ``data`` and ``device`` stand in for the rung's for
     a test on the CPU. ``salt`` is added to the part's ``chain_key_salt``;
     ``draws`` (``load_draws``' rows and name) are the minibatches it takes
-    (``_Draws``), one row a step run, which it checks at the end. The
-    evaluation's checks are ``scaling_part_checks``."""
+    (``_Draws``), one row a step run, which it checks at the end. A
+    distilling part records the matmul precision it ran at
+    (``ops.precision.current()``). The evaluation's checks are
+    ``scaling_part_checks``."""
+    from ddqst_tpu_torch.ops import precision
+
     import dataclasses
 
     cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut, cfg,
@@ -4338,7 +4354,7 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
                               if k not in ("log", "log_s")})
     if steps:
         out.update(chain_key_salt=train_kw["chain_key_salt"],
-                   salt_offset=salt)
+                   salt_offset=salt, matmul_precision=precision.current())
     if draws:
         ran = len(res["ft_losses"])
         check(stand_in.used == ran, f"{tag} {part}: one row of the draw "
@@ -4522,15 +4538,18 @@ class _Draws:
 
 SCALING_PART_USAGE = ("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
                       "OUT_DIR [--cut | --no-stop K] [--draws FILE] "
-                      "[--salt K]")
+                      "[--salt K] [--matmul-precision float32|bfloat16]")
+# A distilling part's record and row name a diagnostic precision so.
+PRECISION_TAGS = {"float32": "", "bfloat16": "bf16"}
 
 
 def scaling_part_args(argv: list[str]) -> dict:
     """``--scaling-part``'s arguments, checked before any work: the part's
     inputs (``part_setup``: ``FileNotFoundError``), then the diagnostics,
     which run only uncut and only on a distilling part (``--no-stop K``,
-    ``--salt K``, ``--draws FILE`` against the part by ``load_draws``):
-    ``ValueError``. Returns what ``scaling_part`` and the record need."""
+    ``--salt K``, ``--draws FILE`` against the part by ``load_draws``,
+    ``--matmul-precision`` one of ``ops.precision.MODES``): ``ValueError``.
+    Returns what ``scaling_part`` and the record need."""
     args = list(argv)
 
     def take(flag: str):
@@ -4548,17 +4567,23 @@ def scaling_part_args(argv: list[str]) -> dict:
     diag = int(take("--no-stop") or 0)
     salt = int(take("--salt") or 0)
     draws = take("--draws")
+    mm = take("--matmul-precision")
+    if mm is not None and mm not in PRECISION_TAGS:
+        raise ValueError(f"unknown matmul precision {mm!r}; options: "
+                         f"{list(PRECISION_TAGS)}")
     if len(args) != 4:
         raise ValueError(SCALING_PART_USAGE)
     tag, part, in_dir, out_dir = args
     cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut)
-    if (diag or salt or draws) and (cut or not parts[part].get("steps")):
-        raise ValueError(f"{tag} {part}: --no-stop, --salt and --draws take "
-                         "an uncut distilling part")
+    if ((diag or salt or draws or mm)
+            and (cut or not parts[part].get("steps"))):
+        raise ValueError(f"{tag} {part}: --no-stop, --salt, --draws and "
+                         "--matmul-precision take an uncut distilling part")
     if diag:
         cfg, parts = no_stop(cfg, parts, part, diag)
     return dict(tag=tag, part=part, in_dir=in_dir, out_dir=out_dir, cut=cut,
                 cfg=cfg, parts=parts, no_stop=diag, salt=salt,
+                matmul_precision=mm or "float32",
                 draws=None if draws is None else load_draws(
                     draws, tag, cfg, parts[part]["steps"],
                     plan["salt"] + salt))
@@ -6084,9 +6109,14 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--scaling-part"]:
         # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
-        # [--cut | --no-stop K] [--draws FILE] [--salt K]: one part of a
-        # split rung (SCALING_PARTS), its record written to
+        # [--cut | --no-stop K] [--draws FILE] [--salt K]
+        # [--matmul-precision NAME]: one part of a split rung
+        # (SCALING_PARTS), its record written to
         # OUT_DIR/TAG_PART[_diagnostics].json and printed as one JSON line.
+        # The precision covers the part and its checks (the exact chain is
+        # the model's at that precision); the estimators stay float32.
+        from ddqst_tpu_torch.ops import precision
+
         try:
             a = scaling_part_args(sys.argv[2:])
         except ValueError as e:
@@ -6096,14 +6126,17 @@ def main() -> int:
             a[k] for k in ("tag", "part", "in_dir", "out_dir", "cut", "cfg",
                            "parts", "no_stop"))
         build_all(_build)
+        mm = a["matmul_precision"]
         with (_MleCapped(SCALING_MLE_ITERS[tag]) if cut
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                precision.default_matmul_precision(mm):
             out, res, rec = scaling_part(ck, tag, part, in_dir, out_dir, cut,
                                          cfg=cfg, parts=parts,
                                          salt=a["salt"], draws=a["draws"])
             stream = "".join(
                 ([f"_{a['draws'][1]}"] if a["draws"] else [])
                 + ([f"_salt{a['salt']}"] if a["salt"] else []))
+            mm_tag = PRECISION_TAGS[mm]
             if parts[part].get("eval"):
                 out.update(scaling_part_checks(ck, tag, cfg, res, rec, cut))
                 if diag:
@@ -6115,10 +6148,14 @@ def main() -> int:
                         smi)
                     if stream:
                         out["row"]["note"] += f"; draw stream {stream[1:]}"
+                    if mm_tag:
+                        out["row"]["note"] += (f"; matmul precision {mm} "
+                                               "(bf16-input products)")
                     with open(os.path.join(out_dir, "scaling.jsonl"),
                               "a") as f:
                         f.write(json.dumps(out["row"]) + "\n")
-            part += (f"_nostop{diag}" if diag else "") + stream
+            part += ((f"_{mm_tag}" if mm_tag else "")
+                     + (f"_nostop{diag}" if diag else "") + stream)
         out["card"] = smi
         with open(os.path.join(out_dir, f"{tag}_{part}.json"), "w") as f:
             json.dump(out, f)

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddqst_tpu_torch.config import ModelConfig
+from ddqst_tpu_torch.ops import precision
 
 # Std of a unit normal truncated to [-2, 2]: flax's truncated_normal rescale.
 _TRUNC_STD = 0.87962566103423978
@@ -65,7 +66,11 @@ def compute_dtype(name: str) -> torch.dtype:
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``
-    and the product computed in it."""
+    and the product computed in it. At float32 within
+    ``ops.precision.default_matmul_precision("bfloat16")`` the product is
+    the TPU's bf16-input pass (``ops.precision.linear``)."""
+    if dtype == torch.float32 and precision.active():
+        return precision.linear(x.float(), layer.weight, layer.bias)
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 

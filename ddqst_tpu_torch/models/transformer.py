@@ -33,6 +33,10 @@ its ``tp_group``: q/k/v and ``mlp1`` compute this rank's heads and hidden
 units from ``copy_to_model`` of their input, and ``out`` and ``mlp2`` sum
 their partial products over the group (``reduce_from_model``) before adding
 their biases once. Without a group the arithmetic is the one above.
+
+``ops.precision``'s emulation of the TPU's bf16-input products does not
+cover attention, so within ``default_matmul_precision("bfloat16")`` the
+forward raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddqst_tpu_torch.models.d3pm import dense, embed, init_params_
+from ddqst_tpu_torch.ops import precision
 from ddqst_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
@@ -183,6 +188,7 @@ class TransformerDenoiser(nn.Module):
     def forward(
         self, x: torch.Tensor, t: torch.Tensor, basis: torch.Tensor
     ) -> torch.Tensor:
+        precision.refuse("the transformer")
         dt = self.compute_dtype
         basis = basis.long()
         if basis.dim() == x.dim() - 1:

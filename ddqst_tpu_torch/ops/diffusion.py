@@ -60,7 +60,7 @@ import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from ddqst_tpu_torch.device import resolve_device, synchronize
-from ddqst_tpu_torch.ops import cuda_kernels
+from ddqst_tpu_torch.ops import cuda_kernels, precision
 from ddqst_tpu_torch.ops.schedules import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -541,7 +541,10 @@ def chain_distribution(
             yq = y_bits[None, None, :, q]
             f = pq * yq + (1.0 - pq) * (1.0 - yq)
             trans = f if trans is None else trans * f
-        new = torch.einsum("bx,bxy->by", dist, trans)
+        if precision.active():
+            new = precision.chain_product(dist, trans)
+        else:
+            new = torch.einsum("bx,bxy->by", dist, trans)
         return new / new.sum(dim=-1, keepdim=True)
 
     remat = checkpoint and torch.is_grad_enabled()

@@ -565,3 +565,56 @@ def test_shadow_sector_profile_on_the_card_reproduces_the_record(cuda,
         for k in ("kl_clean", "kl_counts"):
             assert abs(got[k] - want[k]) <= 1e-4 + 1e-3 * abs(want[k]), (
                 k, got, want)
+
+
+def test_bf16_pass_products_on_the_card_equal_the_cpu(cuda):
+    """``ops.precision``'s bf16-input products (the TPU's default matmul
+    precision, emulated), forward and backward from the same upstream
+    gradients, card against CPU: within 1e-5 of the largest entry (the
+    float32 sums' order); the context leaves TF32 off and the mode
+    float32 behind."""
+    from ddqst_tpu_torch.ops import precision
+
+    rng = np.random.default_rng(7)
+    x0 = rng.standard_normal((256, 512)).astype(np.float32)
+    w0 = (rng.standard_normal((512, 512)) / 22).astype(np.float32)
+    b0 = rng.standard_normal(512).astype(np.float32)
+    gy = rng.standard_normal((256, 512)).astype(np.float32)
+    p0 = rng.dirichlet(np.ones(128), 12).astype(np.float32)
+    t0 = rng.uniform(0, 1, (12, 128, 128)).astype(np.float32)
+    gq = rng.standard_normal((12, 128)).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        x, w, b, p, t = (torch.from_numpy(a).to(dev).requires_grad_()
+                         for a in (x0, w0, b0, p0, t0))
+        with precision.default_matmul_precision("bfloat16"):
+            y = precision.linear(x, w, b)
+            q = precision.chain_product(p, t)
+            # The upstream gradients are given, not taken from y and q: a
+            # float32-noise gap there would round some of them to another
+            # bfloat16 value on each device.
+            torch.autograd.backward([y, q], [torch.from_numpy(gy).to(dev),
+                                             torch.from_numpy(gq).to(dev)])
+        out.append([a.detach().cpu() for a in
+                    (y, q, x.grad, w.grad, b.grad, p.grad, t.grad)])
+    assert precision.current() == "float32"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    for got, want in zip(*out[::-1]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+def test_round_bf16_on_the_card_is_the_cpus(cuda):
+    """``ops.precision.round_bf16`` gives the same bits on the card as on
+    the CPU, exact ties included."""
+    from ddqst_tpu_torch.ops import precision
+
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    u[: 1 << 16] = (u[: 1 << 16] & 0xFFFF0000) | 0x8000  # exact ties
+    a = torch.from_numpy(u.view(np.float32))
+    a = a[~torch.isnan(a)]
+    want = precision.round_bf16(a)
+    got = precision.round_bf16(a.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

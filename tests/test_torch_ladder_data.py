@@ -1,6 +1,7 @@
 """The RQC-5 and GHZ-6 rungs' committed seed-0 data, against the JAX package.
 
-For each of ``rqc5_auto`` and ``ghz6_auto``: (a)
+For each of ``rqc5_auto`` and ``ghz6_auto`` (``ghz7_mle_hot`` in
+``test_torch_ladder_data_ghz7.py``, on these tests): (a)
 ``examples/reference_data/<tag>_seed0.npz`` equals a fresh
 ``ddqst_tpu.pipeline.ensure_data_cache`` of ``scripts/run_scaling_ghz.py``'s
 config at seed 0, array for array; (b) ``chip_smoke.scaling_rung(tag)`` is
@@ -47,11 +48,9 @@ def _tool():
     return mod
 
 
-@pytest.fixture(scope="module", params=TAGS)
-def rung(request, tmp_path_factory):
+def make_rung(tag: str, tmp_path_factory, mle_iters: int = MLE_ITERS) -> dict:
     """The rung's JAX config, a fresh JAX cache at seed 0, the committed
-    file as each package reads it."""
-    tag = request.param
+    file as each package reads it, and the MLE cap its test takes."""
     tool = _tool()
     cfg = tool.rung_cfg(tag)
     path = os.path.join(ROOT, chip_smoke.SCALING_DATA[tag])
@@ -59,7 +58,12 @@ def rung(request, tmp_path_factory):
     jpipe.ensure_data_cache(cfg, 0, fresh, log_fn=lambda m: None)
     return dict(tag=tag, n=cfg.data.num_qubits, tool=tool, cfg=cfg,
                 path=path, fresh=fresh, jax=jpipe.load_data_cache(path),
-                port=tpipe.load_data_cache(path, "cpu"))
+                port=tpipe.load_data_cache(path, "cpu"), mle_iters=mle_iters)
+
+
+@pytest.fixture(scope="module", params=TAGS)
+def rung(request, tmp_path_factory):
+    return make_rung(request.param, tmp_path_factory)
 
 
 def test_committed_data_is_a_fresh_jax_cache(rung):
@@ -69,7 +73,7 @@ def test_committed_data_is_a_fresh_jax_cache(rung):
         for k in want.files:
             assert got[k].dtype == want[k].dtype, k
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        assert got["bits"].shape == (3**n, 5000, n)
+        assert got["bits"].shape == (3**n, rung["cfg"].data.shots_train, n)
 
 
 def test_chip_smoke_rung_is_the_scripts(rung):
@@ -99,14 +103,14 @@ def test_port_reads_the_same_counts_and_raw_inversion(rung):
 
 def test_mle_on_raw_capped_matches_jax(rung):
     jd, td, n = rung["jax"], rung["port"], rung["n"]
+    iters = rung["mle_iters"]
     with rung["tool"].CountedSolve() as solve:
         want = jmle.make_mle(n, jd.basis_labels, readout_p=0.01,
-                             iterations=MLE_ITERS)(
+                             iterations=iters)(
             jmle.bits_to_counts(jd.bits).astype(jnp.float32))
     info: dict = {}
     got = tmle.make_mle(n, td.basis_labels, readout_p=0.01,
-                        iterations=MLE_ITERS)(tmle.bits_to_counts(td.bits),
-                                              info)
-    assert info["iterations"] == solve.iterations[0] == MLE_ITERS
+                        iterations=iters)(tmle.bits_to_counts(td.bits), info)
+    assert info["iterations"] == solve.iterations[0] == iters
     np.testing.assert_allclose(got.numpy(), np.asarray(to_complex(want)),
                                atol=RHO_ATOL)

@@ -20,7 +20,10 @@ cover the recipes; (g) the split rung's row and the ``--no-stop``
 diagnostic; (h) the ``--draws`` and ``--salt`` diagnostics: a draw file that
 does not fit the part is refused before any work, the rows are the
 minibatches the part takes, one a step, and ``--salt K`` runs the part at
-``chain_key_salt`` + K.
+``chain_key_salt`` + K; (i) ``--matmul-precision``: refused off an uncut
+distilling part and for an unknown name, and at ``bfloat16`` the part's
+distillation, held-out CE and tables run through ``ops.precision``'s
+bf16-pass products (counting stand-ins) and the record says so.
 """
 
 import dataclasses
@@ -44,6 +47,7 @@ from ddqst_tpu_torch.ops import cuda_kernels as ck
 from ddqst_tpu_torch.ops import metrics as tM
 from ddqst_tpu_torch.ops import mle as tmle
 from ddqst_tpu_torch.ops import pauli as tpauli
+from ddqst_tpu_torch.ops import precision
 
 torch.set_num_threads(1)
 
@@ -500,3 +504,75 @@ def test_no_stop_runs_every_step_and_keeps_the_best(tmp_path):
     assert steps[0] == 0 and steps[-1] == 8 and steps == sorted(steps)
     assert out["best_val_ce"] == min(ce for _, ce in out["val_history"])
     assert np.isfinite(res["fidelity"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["ghz6_auto", "ce1", "--matmul-precision", "bfloat16"],
+     "uncut distilling part"),
+    (["ghz6_auto", "ce2", "--matmul-precision", "float32"],
+     "uncut distilling part"),
+    (["rqc6_auto", "ce2", "--cut", "--matmul-precision", "bfloat16"],
+     "uncut distilling part"),
+    (["ghz6_auto", "d", "--matmul-precision", "float16"],
+     "unknown matmul precision"),
+    (["ghz6_auto", "d", "--matmul-precision"], "needs a value")])
+def test_matmul_precision_off_a_distilling_part_is_refused(tmp_path, argv,
+                                                           match):
+    """``--matmul-precision`` on a CE part, a cut part, with an unknown
+    name or no name raises before any work; on GHZ-6's ``d`` from the
+    committed CE parameters it is taken, beside a salt."""
+    inp, out = tmp_path / "in", tmp_path / "out"
+    os.makedirs(inp)
+    shutil.copy(GHZ6_CE, inp / "ghz6_auto_ce2_params.pt")
+    # The CE parts' checkpoints, present so only the flag is refused.
+    for ckpt in ("ghz6_auto_ckpt/75", "rqc6_auto_ckpt/1"):
+        os.makedirs(inp / ckpt)
+        open(inp / ckpt / "checkpoint.pt", "w").close()
+    full = argv[:2] + [str(inp), str(out)] + argv[2:]
+    with pytest.raises(ValueError, match=match):
+        chip_smoke.scaling_part_args(full)
+    assert not out.exists()
+    a = chip_smoke.scaling_part_args(
+        ["ghz6_auto", "d", str(inp), str(out), "--matmul-precision",
+         "bfloat16", "--salt", "2"])
+    assert (a["matmul_precision"], a["salt"]) == ("bfloat16", 2)
+    a = chip_smoke.scaling_part_args(["ghz6_auto", "d", str(inp), str(out)])
+    assert a["matmul_precision"] == "float32"
+
+
+def test_matmul_precision_reaches_the_parts_distillation(tmp_path,
+                                                         monkeypatch):
+    """At the tiny stack the ``d`` part within the ``bfloat16`` context (as
+    ``--matmul-precision`` runs it) takes its distillation steps, held-out
+    CE and generation tables through the bf16-pass products (counted by
+    stand-ins that call through) and records the precision; at float32
+    nothing reaches them, and the two parts' losses differ."""
+    cfg, parts, data = _tiny_draws(tmp_path)
+    calls = {"linear": 0, "chain_product": 0}
+
+    def counted(name):
+        own = getattr(precision, name)
+
+        def stand_in(*a):
+            calls[name] += 1
+            return own(*a)
+        return stand_in
+
+    for name in calls:
+        monkeypatch.setattr(precision, name, counted(name))
+    base, bres, _ = _part(tmp_path, "d", parts, cfg, data)
+    assert calls == {"linear": 0, "chain_product": 0}
+    assert base["matmul_precision"] == "float32"
+    with precision.default_matmul_precision("bfloat16"):
+        got, gres, _ = _part(tmp_path, "d", parts, cfg, data)
+    assert precision.current() == "float32"
+    assert got["matmul_precision"] == "bfloat16"
+    t_steps = cfg.diffusion.num_timesteps
+    # Every distillation step and held-out evaluation runs T chain products
+    # (the backward recomputes them once more under the checkpoint).
+    assert calls["chain_product"] >= t_steps * (
+        got["distill_steps_run"] + len(got["val_history"]))
+    assert calls["linear"] > calls["chain_product"]
+    assert got["distill_steps_run"] == base["distill_steps_run"]
+    assert not np.array_equal(gres["ft_losses"], bres["ft_losses"])
+    assert np.isfinite(gres["fidelity"])
