@@ -380,6 +380,12 @@ runs the part and its checks within
 ``ops.precision.default_matmul_precision("bfloat16")``, the TPU's default
 precision emulated in the model's products (the estimators stay float32);
 its record is ``TAG_PART_bf16[...].json`` and its row's note names it.
+``--row-note TEXT`` (an uncut evaluating part only) adds what the records
+cannot say to the row's note, such as parts that shared the card. Every
+record holds the sha256 of the parameters the part starts from and leaves
+(``params_in_sha256`` / ``params_out_sha256``), and the step kernel's
+launches timed on the path by CUDA event pairs (``step_ms_mean``,
+``step_ms_total``) beside the generation stage's seconds.
 ``python3 chip_smoke.py --scaling-cut TAG`` runs only that cut rung,
 through its parts in child processes.
 
@@ -3785,7 +3791,8 @@ def _role(ck, what: str, cfg, device: str = "cuda",
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        res = run_experiment(cfg, seed=0, log_fn=say, device=device, **kw)
+        with ck.StepTimer() as timer:
+            res = run_experiment(cfg, seed=0, log_fn=say, device=device, **kw)
     except _CeStopped as stop:
         res = dict(ce_stopped_at=stop.epoch)
     if cuda:
@@ -3794,14 +3801,22 @@ def _role(ck, what: str, cfg, device: str = "cuda",
                walk_launches=ck.fused_chain_walk.launches,
                step_launches=ck.fused_chain_step.launches,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
-               else None)
+               else None, **timer.summary())
+    check(rec["step_timed_launches"] == rec["step_launches"],
+          f"{what}: every step launch timed once")
     tm = res.get("timings")
+    rec["generation_s"] = None
     if tm is not None:
         rec["timings"] = dict(tm)
+        if "walk" in tm:
+            rec["generation_s"] = tm.get("tables", 0.0) + tm["walk"]
     log("scaling", f"{what}: wall {rec['wall_s']:.2f} s, "
         + (f"peak {rec['peak_gb']:.2f} GB allocated, " if cuda else "")
         + "launches: walk "
         f"{rec['walk_launches']}, step {rec['step_launches']}" + (
+            f" ({rec['step_ms_mean']:.4f} ms a launch by CUDA events, "
+            f"{rec['step_ms_total']:.2f} ms in all)"
+            if rec["step_ms_total"] is not None else "") + (
             "; stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tm.items())
             if tm else ""))
     return res, rec
@@ -4281,6 +4296,17 @@ def part_setup(tag: str, part: str, in_dir: str, out_dir: str, cut: bool,
     return cfg, parts, plan
 
 
+def file_sha256(path: str) -> str:
+    """The sha256 of a file's bytes, as ``sha256sum`` prints it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
 def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
                  cut: bool = False, *, cfg=None, parts: dict | None = None,
                  data: str | None = None, device: str = "cuda",
@@ -4297,7 +4323,13 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     parameters and Adam state (``TAG_PART_params.pt`` / ``_opt.pt``), the
     first part without committed data ``TAG_data.npz``, the first that
     distils against the MLE target ``TAG_target.npz`` (the mode adds the
-    record, ``TAG_PART.json``). Returns ``(record, result, role record)``;
+    record, ``TAG_PART.json``). The record holds the sha256 of the
+    parameters the part starts from (``params_in_sha256``: the previous
+    part's parameter file, or the checkpoint a CE part resumes from; ``None``
+    for a fresh start) and of those it leaves (``params_out_sha256``: its
+    parameter file or its one checkpoint; ``None`` for an evaluating part),
+    so each part's input is its predecessor's output. Returns ``(record,
+    result, role record)``;
     ``cfg``, ``parts``, ``data`` and ``device`` stand in for the rung's for
     a test on the CPU. ``salt`` is added to the part's ``chain_key_salt``;
     ``draws`` (``load_draws``' rows and name) are the minibatches it takes
@@ -4339,6 +4371,13 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
         if steps:
             kw["opt_save"] = os.path.join(out_dir, f"{tag}_{part}_opt.pt")
     pcfg = cfg.replace(train=dataclasses.replace(tr, **train_kw))
+    params_in = kw.get("params_load") or (
+        os.path.join(plan["resume_from"], "checkpoint.pt")
+        if plan["resume_from"] else None)
+    params_in_sha = file_sha256(params_in) if params_in else None
+    if params_in_sha:
+        log("scaling", f"{tag} {part}: starts from {params_in} (sha256 "
+            f"{params_in_sha})")
     try:
         stop = (_CeStop(plan["stop"]) if plan["stop"] is not None
                 else contextlib.nullcontext())
@@ -4349,9 +4388,14 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
+    params_out = kw.get("params_save") or (
+        os.path.join(train_kw["checkpoint_dir"], str(plan["stop"]),
+                     "checkpoint.pt") if plan["stop"] is not None else None)
     out = dict(tag=tag, part=part, cut=cut, split=describe_split(parts),
-               parts=names, **{k: v for k, v in rec.items()
-                              if k not in ("log", "log_s")})
+               parts=names, params_in_sha256=params_in_sha,
+               params_out_sha256=file_sha256(params_out) if params_out
+               else None,
+               **{k: v for k, v in rec.items() if k not in ("log", "log_s")})
     if steps:
         out.update(chain_key_salt=train_kw["chain_key_salt"],
                    salt_offset=salt, matmul_precision=precision.current())
@@ -4390,7 +4434,34 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
         info = res.get("chain_info") or res.get("ft_info")
         if info is not None:
             out.update(chain_record(info, res["ft_losses"]))
+        if steps and "timings" not in res:
+            out.update(_distill_stages(rec, len(res["ft_losses"])))
     return out, res, rec
+
+
+# The pipeline's log lines that open a distillation, close its target and
+# close the distillation (its full-grid chain CE after the steps).
+_DISTILL_MARKS = (("start", "exact-chain distillation:"),
+                  ("target", "distillation target:"),
+                  ("end", "chain CE ("))
+
+
+def _distill_stages(rec: dict, steps: int) -> dict:
+    """A distilling part's stage seconds from its log (a ``stop_after``
+    result has no timings): ``target_s`` from the distillation's first line
+    to the target's, ``distill_s`` from there to the chain CE line (the
+    steps and the full-grid chain CE before and after them) and
+    ``distill_s_per_step``. Empty when a line is missing."""
+    at: dict = {}
+    for m, t in zip(rec["log"], rec["log_s"]):
+        for key, mark in _DISTILL_MARKS:
+            if mark in m:
+                at.setdefault(key, t)
+    if len(at) < len(_DISTILL_MARKS) or not steps:
+        return {}
+    distill = at["end"] - at["target"]
+    return dict(target_s=at["target"] - at["start"], distill_s=distill,
+                distill_s_per_step=distill / steps)
 
 
 def _ce_timing(rec: dict, ce: tuple, cfg) -> dict:
@@ -4538,7 +4609,8 @@ class _Draws:
 
 SCALING_PART_USAGE = ("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
                       "OUT_DIR [--cut | --no-stop K] [--draws FILE] "
-                      "[--salt K] [--matmul-precision float32|bfloat16]")
+                      "[--salt K] [--matmul-precision float32|bfloat16] "
+                      "[--row-note TEXT]")
 # A distilling part's record and row name a diagnostic precision so.
 PRECISION_TAGS = {"float32": "", "bfloat16": "bf16"}
 
@@ -4548,8 +4620,11 @@ def scaling_part_args(argv: list[str]) -> dict:
     inputs (``part_setup``: ``FileNotFoundError``), then the diagnostics,
     which run only uncut and only on a distilling part (``--no-stop K``,
     ``--salt K``, ``--draws FILE`` against the part by ``load_draws``,
-    ``--matmul-precision`` one of ``ops.precision.MODES``): ``ValueError``.
-    Returns what ``scaling_part`` and the record need."""
+    ``--matmul-precision`` one of ``ops.precision.MODES``), and
+    ``--row-note TEXT``, which only an uncut evaluating part takes (added to
+    its row's note, for what the records cannot say, such as parts that
+    shared the card): ``ValueError``. Returns what ``scaling_part`` and the
+    record need."""
     args = list(argv)
 
     def take(flag: str):
@@ -4568,6 +4643,7 @@ def scaling_part_args(argv: list[str]) -> dict:
     salt = int(take("--salt") or 0)
     draws = take("--draws")
     mm = take("--matmul-precision")
+    note = take("--row-note")
     if mm is not None and mm not in PRECISION_TAGS:
         raise ValueError(f"unknown matmul precision {mm!r}; options: "
                          f"{list(PRECISION_TAGS)}")
@@ -4579,10 +4655,13 @@ def scaling_part_args(argv: list[str]) -> dict:
             and (cut or not parts[part].get("steps"))):
         raise ValueError(f"{tag} {part}: --no-stop, --salt, --draws and "
                          "--matmul-precision take an uncut distilling part")
+    if note is not None and (cut or not parts[part].get("eval")):
+        raise ValueError(f"{tag} {part}: --row-note takes an uncut "
+                         "evaluating part")
     if diag:
         cfg, parts = no_stop(cfg, parts, part, diag)
     return dict(tag=tag, part=part, in_dir=in_dir, out_dir=out_dir, cut=cut,
-                cfg=cfg, parts=parts, no_stop=diag, salt=salt,
+                cfg=cfg, parts=parts, no_stop=diag, salt=salt, row_note=note,
                 matmul_precision=mm or "float32",
                 draws=None if draws is None else load_draws(
                     draws, tag, cfg, parts[part]["steps"],
@@ -6110,8 +6189,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--scaling-part"]:
         # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
         # [--cut | --no-stop K] [--draws FILE] [--salt K]
-        # [--matmul-precision NAME]: one part of a split rung
-        # (SCALING_PARTS), its record written to
+        # [--matmul-precision NAME] [--row-note TEXT]: one part of a split
+        # rung (SCALING_PARTS), its record written to
         # OUT_DIR/TAG_PART[_diagnostics].json and printed as one JSON line.
         # The precision covers the part and its checks (the exact chain is
         # the model's at that precision); the estimators stay float32.
@@ -6151,6 +6230,8 @@ def main() -> int:
                     if mm_tag:
                         out["row"]["note"] += (f"; matmul precision {mm} "
                                                "(bf16-input products)")
+                    if a["row_note"]:
+                        out["row"]["note"] += f"; {a['row_note']}"
                     with open(os.path.join(out_dir, "scaling.jsonl"),
                               "a") as f:
                         f.write(json.dumps(out["row"]) + "\n")

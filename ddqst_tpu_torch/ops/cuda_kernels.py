@@ -17,7 +17,8 @@ A wrapper takes the plain version only for tensors that lie on the CPU
 (that is what the CPU tests exercise). For CUDA tensors it launches the
 kernel or raises; nothing falls back. ``<wrapper>.launches`` counts kernel
 launches (never plain-version calls), so a run can show that its main path
-went through the kernel.
+went through the kernel. Within a ``StepTimer`` block every launch of
+``fused_chain_step`` is also timed by a CUDA event pair on its stream.
 """
 
 from __future__ import annotations
@@ -361,16 +362,61 @@ def fused_chain_step(
         raise ValueError(f"unsupported device {table.device}")
     out = torch.empty_like(rows)
     fn = _chain_step_fn()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
+    cur = torch.cuda.current_stream(table.device)
+    timer = StepTimer.active
+    if timer is not None:
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record(cur)
     with torch.cuda.device(table.device):
         err = fn(table.data_ptr(), rows.data_ptr(),
                  None if row_base is None else row_base.data_ptr(),
                  out.data_ptr(), table.shape[0], num_qubits, rows.shape[0],
-                 step, seed, stream)
+                 step, seed, cur.cuda_stream)
     if err != 0:
         raise RuntimeError(f"chain_step kernel launch failed: cudaError {err}")
     fused_chain_step.launches += 1
+    if timer is not None:
+        pair[1].record(cur)
+        timer.pairs.append(pair)
     return out
 
 
 fused_chain_step.launches = 0
+
+
+class StepTimer:
+    """Within the block, each launch of :func:`fused_chain_step` records a
+    CUDA event pair on its stream, one event just before the kernel and one
+    just after; plain-version calls record nothing. The kernel's inputs,
+    outputs and launch count are those of a run without the timer.
+    ``ms()`` waits for the last event and returns each timed launch's
+    milliseconds. Blocks do not nest."""
+
+    active: "StepTimer | None" = None
+
+    def __init__(self):
+        self.pairs: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def __enter__(self) -> "StepTimer":
+        if StepTimer.active is not None:
+            raise RuntimeError("a StepTimer is already active")
+        StepTimer.active = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        StepTimer.active = None
+
+    def ms(self) -> list[float]:
+        if self.pairs:
+            self.pairs[-1][1].synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+    def summary(self) -> dict:
+        """``step_timed_launches``, ``step_ms_total`` (the sum of the
+        launches' milliseconds) and ``step_ms_mean``; the times are
+        ``None`` when no launch was timed."""
+        ms = self.ms()
+        total = sum(ms) if ms else None
+        return dict(step_timed_launches=len(ms), step_ms_total=total,
+                    step_ms_mean=total / len(ms) if ms else None)

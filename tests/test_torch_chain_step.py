@@ -188,3 +188,28 @@ def test_integer_threshold_equals_the_float_compare():
     assert _threshold(tiny) == 1                        # only k = 0
     assert _threshold(np.float32(1.0)) == 2**24         # always
     assert _threshold(np.float32(1 - 2.0**-24)) == 2**24 - 1
+
+
+def test_step_timer_times_no_plain_call():
+    """On CPU tensors the wrapper runs the plain version inside a
+    ``StepTimer`` as outside it: the same bits, no launch and no event, and
+    the summary's times are ``None``."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.uniform(0, 1, (24, 3)).astype(np.float32))
+    rows = torch.from_numpy(rng.integers(0, 24, 300).astype(np.int32))
+    before = ck.fused_chain_step.launches
+    with ck.StepTimer() as timer:
+        out = ck.fused_chain_step(5, table, rows, 3, step=1)
+    assert torch.equal(out, ck.fused_chain_step_reference(5, table, rows, 3, 1))
+    assert ck.fused_chain_step.launches == before and not timer.pairs
+    assert timer.summary() == dict(step_timed_launches=0, step_ms_total=None,
+                                   step_ms_mean=None)
+    assert ck.StepTimer.active is None
+
+
+def test_step_timers_do_not_nest():
+    with ck.StepTimer():
+        with pytest.raises(RuntimeError, match="already active"):
+            with ck.StepTimer():
+                pass
+    assert ck.StepTimer.active is None

@@ -165,6 +165,36 @@ def test_step_kernel_rejects_what_it_cannot_take(cuda):
         ck.fused_chain_step(0, torch.zeros((8, 31), device=cuda), rows, 31)
 
 
+def test_step_timer_times_each_launch_once_and_changes_no_bit(cuda):
+    """``StepTimer`` around the GHZ-7 'seq' walk's launches (the path's
+    table shape, ``row_base`` form): one event pair a launch, the launch
+    count unchanged, each launch's bits equal to the plain version's, and
+    the total the sum of the pairs' times."""
+    g, n, b = 3**7 * 2**7, 7, 3**7 * 50
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(
+        rng.uniform(0.05, 0.95, (g, n)).astype(np.float32)).to(cuda)
+    row_base = torch.from_numpy(
+        (np.repeat(np.arange(3**7), 50) * 2**n).astype(np.int32)).to(cuda)
+    x = torch.from_numpy(rng.integers(0, 2**n, b).astype(np.int32)).to(cuda)
+    before = ck.fused_chain_step.launches
+    with ck.StepTimer() as timer:
+        for step in range(5):
+            want = ck.fused_chain_step_reference(2**40 + 9, table, x, n, step,
+                                                 row_base=row_base)
+            x = ck.fused_chain_step(2**40 + 9, table, x, n, step,
+                                    row_base=row_base)
+            assert torch.equal(x, want)
+    assert ck.fused_chain_step.launches == before + 5
+    ms = timer.ms()
+    rec = timer.summary()
+    assert len(ms) == rec["step_timed_launches"] == 5
+    assert all(v > 0 for v in ms)
+    assert rec["step_ms_total"] == sum(ms)
+    assert rec["step_ms_mean"] == sum(ms) / 5
+    assert ck.StepTimer.active is None
+
+
 @pytest.mark.parametrize("precompute", [True, False])
 def test_p_sample_grid_runs_the_step_kernel_per_step(cuda, precompute):
     model = d3pm.ConditionalD3PM(2, 9, 20, embed_dim=16, hidden_dim=32,

@@ -23,7 +23,11 @@ minibatches the part takes, one a step, and ``--salt K`` runs the part at
 ``chain_key_salt`` + K; (i) ``--matmul-precision``: refused off an uncut
 distilling part and for an unknown name, and at ``bfloat16`` the part's
 distillation, held-out CE and tables run through ``ops.precision``'s
-bf16-pass products (counting stand-ins) and the record says so.
+bf16-pass products (counting stand-ins) and the record says so; (j) every
+part records the sha256 of the parameters it starts from and leaves, each
+part's input its predecessor's output (or the hash of the file it was
+really handed), the eval record the step kernel's timing fields, and
+``--row-note`` only on an uncut evaluating part.
 """
 
 import dataclasses
@@ -236,27 +240,131 @@ def test_split_held_out_distillation_equals_one_run(tmp_path, shape):
     assert torch.equal(got["samples"], want["samples"])
 
 
-def test_ghz7_shaped_split_chains_its_files(tmp_path):
+GHZ7_SHAPED = {"ce1": dict(ce=(0, 1), every=1),
+               "ce2": dict(ce=(1, 2), every=1),
+               "d1": dict(steps=1), "d2": dict(steps=2),
+               "eval": dict(eval=True)}
+
+
+@pytest.fixture(scope="module")
+def ghz7_split(tmp_path_factory):
+    """The GHZ-7-shaped split at the tiny config, every part in order in one
+    folder: its folder, the config and each part's record and result."""
+    tmp = tmp_path_factory.mktemp("ghz7_split")
+    cfg = _tiny(target="mle", val_fraction=0.0)
+    outs, results = {}, {}
+    for part in GHZ7_SHAPED:
+        outs[part], results[part], _ = _part(tmp, part, GHZ7_SHAPED, cfg,
+                                             None)
+    return dict(dir=tmp, cfg=cfg, outs=outs, res=results)
+
+
+def test_ghz7_shaped_split_chains_its_files(ghz7_split):
     """CE halves, two distillation parts chained by their parameters, Adam
     state (``chain_key_salt`` + k) and one MLE target cache, then the eval
     part; the data written by the first part and read by the rest."""
-    cfg = _tiny(target="mle", val_fraction=0.0)
-    parts = {"ce1": dict(ce=(0, 1), every=1), "ce2": dict(ce=(1, 2), every=1),
-             "d1": dict(steps=1), "d2": dict(steps=2), "eval": dict(eval=True)}
-    outs = {}
-    for part in parts:
-        outs[part], res, rec = _part(tmp_path, part, parts, cfg, None)
+    tmp_path, outs = ghz7_split["dir"], ghz7_split["outs"]
+    res = ghz7_split["res"]["eval"]
     files = set(os.listdir(tmp_path))
     assert {"tiny_data.npz", "tiny_target.npz", "tiny_ce2_params.pt",
             "tiny_d1_params.pt", "tiny_d1_opt.pt", "tiny_d2_params.pt",
             "tiny_d2_opt.pt"} <= files
     assert outs["d1"]["distill_steps_run"] == 1
     assert outs["d2"]["distill_steps_run"] == 2
+    for part in ("d1", "d2"):  # the stages from the part's log
+        rec = outs[part]
+        assert rec["target_s"] > 0 and rec["distill_s"] > 0
+        assert rec["distill_s_per_step"] == (
+            rec["distill_s"] / rec["distill_steps_run"])
+        assert rec["target_s"] + rec["distill_s"] < rec["wall_s"]
     assert torch.load(tmp_path / "tiny_d2_opt.pt",
                       weights_only=True)["count"] == 3
     assert abs(outs["d2"]["ce_before"] - outs["d1"]["ce_after"]) <= (
         1e-5 * outs["d1"]["ce_after"])
     assert "chain_info" not in res and np.isfinite(res["fidelity"])
+
+
+def test_each_part_starts_from_its_predecessors_parameters(ghz7_split):
+    """Every part's ``params_in_sha256`` is its predecessor's
+    ``params_out_sha256``: ce1's checkpoint, then each parameter file; ce1
+    starts fresh and the eval part writes none."""
+    outs, names = ghz7_split["outs"], list(GHZ7_SHAPED)
+    assert outs["ce1"]["params_in_sha256"] is None
+    assert outs["eval"]["params_out_sha256"] is None
+    for prev, part in zip(names, names[1:]):
+        assert outs[part]["params_in_sha256"] == (
+            outs[prev]["params_out_sha256"]), part
+        assert len(outs[part]["params_in_sha256"]) == 64
+
+
+def test_d1_starts_from_ce2s_parameter_file(ghz7_split):
+    """d1's input hash is ce2's output hash and the hash of the file ce2
+    left, as ``sha256sum`` gives it."""
+    import hashlib
+
+    outs = ghz7_split["outs"]
+    with open(ghz7_split["dir"] / "tiny_ce2_params.pt", "rb") as f:
+        want = hashlib.sha256(f.read()).hexdigest()
+    assert outs["d1"]["params_in_sha256"] == outs["ce2"][
+        "params_out_sha256"] == want
+    assert chip_smoke.file_sha256(
+        str(ghz7_split["dir"] / "tiny_d1_params.pt")) == outs["d1"][
+            "params_out_sha256"]
+
+
+def test_a_part_records_the_hash_of_the_parameters_it_was_handed(
+        ghz7_split, tmp_path):
+    """A d1 handed another parameter file (d2's, under ce2's name) records
+    that file's hash, not ce2's, so a row cannot claim a CE model it did
+    not start from."""
+    for name in ("tiny_data.npz", "tiny_target.npz"):
+        shutil.copy(ghz7_split["dir"] / name, tmp_path / name)
+    shutil.copy(ghz7_split["dir"] / "tiny_d2_params.pt",
+                tmp_path / "tiny_ce2_params.pt")
+    got, _, _ = _part(tmp_path, "d1", GHZ7_SHAPED, ghz7_split["cfg"], None)
+    outs = ghz7_split["outs"]
+    assert got["params_in_sha256"] == outs["d2"]["params_out_sha256"]
+    assert got["params_in_sha256"] != outs["ce2"]["params_out_sha256"]
+
+
+def test_eval_record_carries_the_step_timing_fields(ghz7_split):
+    """The eval part's record has the step kernel's timing fields: on the
+    CPU no launch, so 0 timed launches and no times; the generation stage's
+    host seconds beside them. A part that does not generate has none."""
+    ev, d1 = ghz7_split["outs"]["eval"], ghz7_split["outs"]["d1"]
+    assert (ev["step_launches"], ev["step_timed_launches"]) == (0, 0)
+    assert ev["step_ms_mean"] is None and ev["step_ms_total"] is None
+    tm = ghz7_split["res"]["eval"]["timings"]
+    assert ev["generation_s"] == tm["tables"] + tm["walk"] > 0
+    assert d1["generation_s"] is None and d1["step_timed_launches"] == 0
+
+
+@pytest.mark.parametrize("tag,part,cut,ok", [
+    ("ghz7_mle_hot", "eval", False, True),
+    ("ghz7_mle_hot", "d3", False, False),
+    ("rqc6_auto", "ce2", True, False)])
+def test_row_note_takes_an_uncut_evaluating_part(tmp_path, tag, part, cut,
+                                                 ok):
+    """``--row-note`` reaches the arguments of GHZ-7's eval part and is
+    refused on a distilling part and on a cut run, before any work."""
+    parts = (chip_smoke.SCALING_CUT_PARTS if cut
+             else chip_smoke.SCALING_PARTS)[tag]
+    plan = chip_smoke.part_files(tag, {k: dict(p, total=0) for k, p in
+                                       parts.items()}, part, str(tmp_path),
+                                 str(tmp_path / "o"), mle_target=True)
+    for need in plan["needs"]:  # the inputs, empty: nothing reads them
+        os.makedirs(os.path.dirname(need), exist_ok=True)
+        if not os.path.exists(need):
+            open(need, "wb").close()
+    argv = ([tag, part, str(tmp_path), str(tmp_path / "o"), "--row-note",
+             "CE halves shared the card"] + (["--cut"] if cut else []))
+    if not ok:
+        with pytest.raises(ValueError, match="--row-note"):
+            chip_smoke.scaling_part_args(argv)
+        return
+    got = chip_smoke.scaling_part_args(argv)
+    assert got["row_note"] == "CE halves shared the card"
+    assert chip_smoke.scaling_part_args(argv[:4])["row_note"] is None
 
 
 @pytest.mark.parametrize("part", ["ce2", "d1"])
