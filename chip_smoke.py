@@ -381,7 +381,14 @@ runs the part and its checks within
 precision emulated in the model's products (the estimators stay float32);
 its record is ``TAG_PART_bf16[...].json`` and its row's note names it.
 ``--row-note TEXT`` (an uncut evaluating part only) adds what the records
-cannot say to the row's note, such as parts that shared the card. Every
+cannot say to the row's note, such as parts that shared the card.
+``--seed K`` (any uncut part) runs it at ``run_experiment``'s seed K: the
+CE model's initialisation and batch order, the distillation's basis
+stream and the generation's draws, on the same committed data. Its
+record is ``TAG_PART_seedK[...].json`` with ``seed``, the row's note
+names the seed, and a part refuses, before any work, a predecessor's
+record in IN_DIR of another seed or whose output hash is not the file it
+was handed, so a chain runs at one seed. Every
 record holds the sha256 of the parameters the part starts from and leaves
 (``params_in_sha256`` / ``params_out_sha256``), and the step kernel's
 launches timed on the path by CUDA event pairs (``step_ms_mean``,
@@ -3768,10 +3775,11 @@ class _CeStop:
         C.save_checkpoint = self.save
 
 
-def _role(ck, what: str, cfg, device: str = "cuda",
+def _role(ck, what: str, cfg, device: str = "cuda", seed: int = 0,
           **kw) -> tuple[dict, dict]:
-    """One ``run_experiment`` on ``device`` (the card), with the launch
-    counts and the peak memory set to 0 just before and read just after.
+    """One ``run_experiment`` at ``seed`` on ``device`` (the card), with the
+    launch counts and the peak memory set to 0 just before and read just
+    after.
     The record holds the stage seconds where the result has them (a
     ``stop_after`` result has JAX's three keys only), the run's log lines
     and when each came. A run that ``_CeStop`` stopped returns
@@ -3792,7 +3800,8 @@ def _role(ck, what: str, cfg, device: str = "cuda",
     t0 = time.perf_counter()
     try:
         with ck.StepTimer() as timer:
-            res = run_experiment(cfg, seed=0, log_fn=say, device=device, **kw)
+            res = run_experiment(cfg, seed=seed, log_fn=say, device=device,
+                                 **kw)
     except _CeStopped as stop:
         res = dict(ce_stopped_at=stop.epoch)
     if cuda:
@@ -4296,6 +4305,44 @@ def part_setup(tag: str, part: str, in_dir: str, out_dir: str, cut: bool,
     return cfg, parts, plan
 
 
+def part_record_name(tag: str, part: str, seed: int = 0,
+                     diagnostics: str = "") -> str:
+    """The file name of a part's record at ``seed``, the suffix of its
+    diagnostics after the seed: ``TAG_PART.json``, ``TAG_PART_seedK.json``
+    for K > 0, e.g. ``TAG_PART_seed1_salt2.json``."""
+    return (f"{tag}_{part}" + (f"_seed{seed}" if seed else "")
+            + diagnostics + ".json")
+
+
+def predecessor_check(tag: str, names: list[str], part: str, in_dir: str,
+                      seed: int, params_in_sha: str | None) -> None:
+    """One seed a chain: the record of the part before ``part`` in
+    ``IN_DIR`` (``TAG_PREV_seedK.json`` at seed K > 0, else
+    ``TAG_PREV.json``), where there is one, must have been run at ``seed``
+    (a record without ``seed`` was run at 0) and have left the parameters
+    this part was handed (its ``params_out_sha256`` is ``params_in_sha``;
+    a record without the key is not held to it). Raises ``ValueError``
+    otherwise, before any work."""
+    k = names.index(part)
+    if not k:
+        return
+    found = [p for p in dict.fromkeys(
+        os.path.join(in_dir, part_record_name(tag, names[k - 1], s))
+        for s in (seed, 0)) if os.path.exists(p)]
+    if not found:
+        return
+    with open(found[0]) as f:
+        prev = json.load(f)
+    if prev.get("seed", 0) != seed:
+        raise ValueError(f"{tag} {part} at seed {seed}: its predecessor's "
+                         f"record {found[0]} was run at seed "
+                         f"{prev.get('seed', 0)}")
+    want = prev.get("params_out_sha256")
+    if want is not None and want != params_in_sha:
+        raise ValueError(f"{tag} {part}: handed parameters with sha256 "
+                         f"{params_in_sha}, but {found[0]} left {want}")
+
+
 def file_sha256(path: str) -> str:
     """The sha256 of a file's bytes, as ``sha256sum`` prints it."""
     import hashlib
@@ -4310,7 +4357,7 @@ def file_sha256(path: str) -> str:
 def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
                  cut: bool = False, *, cfg=None, parts: dict | None = None,
                  data: str | None = None, device: str = "cuda",
-                 salt: int = 0,
+                 salt: int = 0, seed: int = 0,
                  draws: tuple | None = None) -> tuple[dict, dict, dict]:
     """``--scaling-part TAG PART IN_DIR OUT_DIR``: one part of a rung split
     across processes (``SCALING_PARTS``, or with ``cut`` the default run's
@@ -4328,8 +4375,13 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     part's parameter file, or the checkpoint a CE part resumes from; ``None``
     for a fresh start) and of those it leaves (``params_out_sha256``: its
     parameter file or its one checkpoint; ``None`` for an evaluating part),
-    so each part's input is its predecessor's output. Returns ``(record,
-    result, role record)``;
+    so each part's input is its predecessor's output, and the ``seed`` it
+    ran at (``run_experiment``'s: the CE model's initialisation and batch
+    order, the distillation's basis stream, the generation's draws; the
+    data is the committed file's). Before any work it holds the
+    predecessor's record in ``IN_DIR``, where there is one
+    (``predecessor_check``), to this part's seed and input. Returns
+    ``(record, result, role record)``;
     ``cfg``, ``parts``, ``data`` and ``device`` stand in for the rung's for
     a test on the CPU. ``salt`` is added to the part's ``chain_key_salt``;
     ``draws`` (``load_draws``' rows and name) are the minibatches it takes
@@ -4344,10 +4396,19 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
     cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut, cfg,
                                   parts, data)
     tr, spec, kw = cfg.train, parts[part], plan["kw"]
-    log("scaling", f"{tag} part {part}{' (CUT)' if cut else ''}, split "
-        f"{describe_split(parts)}; {tr.num_epochs} CE epochs in all")
-    os.makedirs(out_dir, exist_ok=True)
     names = list(parts)
+    params_in = kw.get("params_load") or (
+        os.path.join(plan["resume_from"], "checkpoint.pt")
+        if plan["resume_from"] else None)
+    params_in_sha = file_sha256(params_in) if params_in else None
+    predecessor_check(tag, names, part, in_dir, seed, params_in_sha)
+    log("scaling", f"{tag} part {part}{' (CUT)' if cut else ''}, split "
+        f"{describe_split(parts)}; {tr.num_epochs} CE epochs in all"
+        + (f"; seed {seed}" if seed else ""))
+    if params_in_sha:
+        log("scaling", f"{tag} {part}: starts from {params_in} (sha256 "
+            f"{params_in_sha})")
+    os.makedirs(out_dir, exist_ok=True)
     steps = spec.get("steps", 0)
     train_kw = dict(chain_finetune_steps=steps,
                     chain_key_salt=tr.chain_key_salt + plan["salt"] + salt,
@@ -4371,20 +4432,14 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
         if steps:
             kw["opt_save"] = os.path.join(out_dir, f"{tag}_{part}_opt.pt")
     pcfg = cfg.replace(train=dataclasses.replace(tr, **train_kw))
-    params_in = kw.get("params_load") or (
-        os.path.join(plan["resume_from"], "checkpoint.pt")
-        if plan["resume_from"] else None)
-    params_in_sha = file_sha256(params_in) if params_in else None
-    if params_in_sha:
-        log("scaling", f"{tag} {part}: starts from {params_in} (sha256 "
-            f"{params_in_sha})")
     try:
         stop = (_CeStop(plan["stop"]) if plan["stop"] is not None
                 else contextlib.nullcontext())
         stand_in = (_Draws(draws[0], 3**cfg.data.num_qubits) if draws
                     else contextlib.nullcontext())
         with stop, stand_in:
-            res, rec = _role(ck, f"{tag} {part}", pcfg, device=device, **kw)
+            res, rec = _role(ck, f"{tag} {part}", pcfg, device=device,
+                             seed=seed, **kw)
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -4392,7 +4447,7 @@ def scaling_part(ck, tag: str, part: str, in_dir: str, out_dir: str,
         os.path.join(train_kw["checkpoint_dir"], str(plan["stop"]),
                      "checkpoint.pt") if plan["stop"] is not None else None)
     out = dict(tag=tag, part=part, cut=cut, split=describe_split(parts),
-               parts=names, params_in_sha256=params_in_sha,
+               parts=names, seed=seed, params_in_sha256=params_in_sha,
                params_out_sha256=file_sha256(params_out) if params_out
                else None,
                **{k: v for k, v in rec.items() if k not in ("log", "log_s")})
@@ -4609,7 +4664,8 @@ class _Draws:
 
 SCALING_PART_USAGE = ("usage: chip_smoke.py --scaling-part TAG PART IN_DIR "
                       "OUT_DIR [--cut | --no-stop K] [--draws FILE] "
-                      "[--salt K] [--matmul-precision float32|bfloat16] "
+                      "[--salt K] [--seed K] "
+                      "[--matmul-precision float32|bfloat16] "
                       "[--row-note TEXT]")
 # A distilling part's record and row name a diagnostic precision so.
 PRECISION_TAGS = {"float32": "", "bfloat16": "bf16"}
@@ -4620,7 +4676,8 @@ def scaling_part_args(argv: list[str]) -> dict:
     inputs (``part_setup``: ``FileNotFoundError``), then the diagnostics,
     which run only uncut and only on a distilling part (``--no-stop K``,
     ``--salt K``, ``--draws FILE`` against the part by ``load_draws``,
-    ``--matmul-precision`` one of ``ops.precision.MODES``), and
+    ``--matmul-precision`` one of ``ops.precision.MODES``), ``--seed K``
+    (K >= 0, ``run_experiment``'s seed), which any uncut part takes, and
     ``--row-note TEXT``, which only an uncut evaluating part takes (added to
     its row's note, for what the records cannot say, such as parts that
     shared the card): ``ValueError``. Returns what ``scaling_part`` and the
@@ -4641,6 +4698,7 @@ def scaling_part_args(argv: list[str]) -> dict:
     args = [a for a in args if a != "--cut"]
     diag = int(take("--no-stop") or 0)
     salt = int(take("--salt") or 0)
+    seed = take("--seed")
     draws = take("--draws")
     mm = take("--matmul-precision")
     note = take("--row-note")
@@ -4649,6 +4707,11 @@ def scaling_part_args(argv: list[str]) -> dict:
                          f"{list(PRECISION_TAGS)}")
     if len(args) != 4:
         raise ValueError(SCALING_PART_USAGE)
+    if seed is not None and (cut or not seed.isdigit()):
+        raise ValueError(f"--seed takes an integer of 0 or more and an "
+                         f"uncut part (--seed {seed}"
+                         + (", --cut)" if cut else ")"))
+    seed = int(seed or 0)
     tag, part, in_dir, out_dir = args
     cfg, parts, plan = part_setup(tag, part, in_dir, out_dir, cut)
     if ((diag or salt or draws or mm)
@@ -4661,25 +4724,47 @@ def scaling_part_args(argv: list[str]) -> dict:
     if diag:
         cfg, parts = no_stop(cfg, parts, part, diag)
     return dict(tag=tag, part=part, in_dir=in_dir, out_dir=out_dir, cut=cut,
-                cfg=cfg, parts=parts, no_stop=diag, salt=salt, row_note=note,
-                matmul_precision=mm or "float32",
+                cfg=cfg, parts=parts, no_stop=diag, salt=salt, seed=seed,
+                row_note=note, matmul_precision=mm or "float32",
                 draws=None if draws is None else load_draws(
                     draws, tag, cfg, parts[part]["steps"],
-                    plan["salt"] + salt))
+                    plan["salt"] + salt, seed))
+
+
+def part_names(a: dict) -> tuple[str, str]:
+    """For ``scaling_part_args``' result ``a``: the part's record file name
+    (``part_record_name`` with the seed, then the precision, ``--no-stop``,
+    draw file and salt suffixes) and what an uncut evaluating part adds to
+    its row's note (the seed, the draw stream, the precision,
+    ``--row-note``)."""
+    stream = "".join(([f"_{a['draws'][1]}"] if a["draws"] else [])
+                     + ([f"_salt{a['salt']}"] if a["salt"] else []))
+    mm = a["matmul_precision"]
+    mm_tag = PRECISION_TAGS[mm]
+    name = part_record_name(a["tag"], a["part"], a["seed"], (
+        (f"_{mm_tag}" if mm_tag else "")
+        + (f"_nostop{a['no_stop']}" if a["no_stop"] else "") + stream))
+    note = "".join(
+        ([f"; seed {a['seed']}"] if a["seed"] else [])
+        + ([f"; draw stream {stream[1:]}"] if stream else [])
+        + ([f"; matmul precision {mm} (bf16-input products)"] if mm_tag
+           else [])
+        + ([f"; {a['row_note']}"] if a["row_note"] else []))
+    return name, note
 
 
 def split_row(tag: str, cfg, res: dict, in_dir: str, parts: list[str],
-              wall_s: float, smi: str) -> tuple[dict, dict]:
+              wall_s: float, smi: str, seed: int = 0) -> tuple[dict, dict]:
     """A split rung's row in ``campaigns.scaling``'s schema (its ``row``),
     from the evaluating (last) part's result: ``wall_s`` the sum of every
-    part's, the earlier parts' read from their records ``TAG_PART.json`` in
-    ``in_dir`` (a missing one is logged and left out). Returns the row and
-    each part's seconds."""
+    part's, the earlier parts' read from their records in ``in_dir``
+    (``part_record_name`` at ``seed``; a missing one is logged and left
+    out). Returns the row and each part's seconds."""
     from ddqst_tpu_torch.campaigns.scaling import experiment, row
 
     walls = {}
     for p in parts[:-1]:
-        path = os.path.join(in_dir, f"{tag}_{p}.json")
+        path = os.path.join(in_dir, part_record_name(tag, p, seed))
         if os.path.exists(path):
             with open(path) as f:
                 walls[p] = json.load(f)["wall_s"]
@@ -6188,10 +6273,11 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--scaling-part"]:
         # python3 chip_smoke.py --scaling-part TAG PART IN_DIR OUT_DIR
-        # [--cut | --no-stop K] [--draws FILE] [--salt K]
+        # [--cut | --no-stop K] [--draws FILE] [--salt K] [--seed K]
         # [--matmul-precision NAME] [--row-note TEXT]: one part of a split
         # rung (SCALING_PARTS), its record written to
-        # OUT_DIR/TAG_PART[_diagnostics].json and printed as one JSON line.
+        # OUT_DIR/TAG_PART[_seedK][_diagnostics].json and printed as one
+        # JSON line.
         # The precision covers the part and its checks (the exact chain is
         # the model's at that precision); the estimators stay float32.
         from ddqst_tpu_torch.ops import precision
@@ -6211,11 +6297,9 @@ def main() -> int:
                 precision.default_matmul_precision(mm):
             out, res, rec = scaling_part(ck, tag, part, in_dir, out_dir, cut,
                                          cfg=cfg, parts=parts,
-                                         salt=a["salt"], draws=a["draws"])
-            stream = "".join(
-                ([f"_{a['draws'][1]}"] if a["draws"] else [])
-                + ([f"_salt{a['salt']}"] if a["salt"] else []))
-            mm_tag = PRECISION_TAGS[mm]
+                                         salt=a["salt"], seed=a["seed"],
+                                         draws=a["draws"])
+            name, note = part_names(a)
             if parts[part].get("eval"):
                 out.update(scaling_part_checks(ck, tag, cfg, res, rec, cut))
                 if diag:
@@ -6224,21 +6308,13 @@ def main() -> int:
                 elif not cut:
                     out["row"], out["part_walls"] = split_row(
                         tag, cfg, res, in_dir, list(parts), out["wall_s"],
-                        smi)
-                    if stream:
-                        out["row"]["note"] += f"; draw stream {stream[1:]}"
-                    if mm_tag:
-                        out["row"]["note"] += (f"; matmul precision {mm} "
-                                               "(bf16-input products)")
-                    if a["row_note"]:
-                        out["row"]["note"] += f"; {a['row_note']}"
+                        smi, a["seed"])
+                    out["row"]["note"] += note
                     with open(os.path.join(out_dir, "scaling.jsonl"),
                               "a") as f:
                         f.write(json.dumps(out["row"]) + "\n")
-            part += ((f"_{mm_tag}" if mm_tag else "")
-                     + (f"_nostop{diag}" if diag else "") + stream)
         out["card"] = smi
-        with open(os.path.join(out_dir, f"{tag}_{part}.json"), "w") as f:
+        with open(os.path.join(out_dir, name), "w") as f:
             json.dump(out, f)
         print(json.dumps({"scaling_part": out}), flush=True)
         return 0

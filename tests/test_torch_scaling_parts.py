@@ -27,7 +27,11 @@ bf16-pass products (counting stand-ins) and the record says so; (j) every
 part records the sha256 of the parameters it starts from and leaves, each
 part's input its predecessor's output (or the hash of the file it was
 really handed), the eval record the step kernel's timing fields, and
-``--row-note`` only on an uncut evaluating part.
+``--row-note`` only on an uncut evaluating part; (k) ``--seed K``: a seed-1
+split gives one ``run_experiment(cfg, seed=1)`` bit for bit (and CE losses
+unlike seed 0's), the flag is taken by any uncut part and refused with
+``--cut``, the record, its file name and the row's note name the seed, and
+a part refuses a predecessor's record of another seed or output hash.
 """
 
 import dataclasses
@@ -684,3 +688,186 @@ def test_matmul_precision_reaches_the_parts_distillation(tmp_path,
     assert got["distill_steps_run"] == base["distill_steps_run"]
     assert not np.array_equal(gres["ft_losses"], bres["ft_losses"])
     assert np.isfinite(gres["fidelity"])
+
+
+def test_seed_split_equals_one_run_at_that_seed(tmp_path):
+    """``seed=1`` through GHZ-6's held-out split (``ce1`` stopped on its
+    checkpoint, ``ce2`` resumed from it, then ``d``) gives one
+    ``run_experiment(cfg, seed=1)`` on the same data file bit for bit: its
+    CE losses, parameters, distillation losses, held-out history and
+    metrics; and the CE losses are not seed 0's. Every record says
+    ``seed: 1`` and each part's input hash is its predecessor's output."""
+    parts = HELD_OUT_SPLITS["ghz6"]
+    cfg = _tiny()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                chain_finetune_steps=6))
+    data = tpipe.ensure_data_cache(cfg, 0, str(tmp_path / "data.npz"),
+                                   log_fn=lambda m: None, device="cpu")
+    with chip_smoke._MleCapped(30):
+        want = tpipe.run_experiment(cfg, seed=1, device="cpu",
+                                    data_cache=data, log_fn=lambda m: None)
+        seed0 = tpipe.run_experiment(cfg, seed=0, device="cpu",
+                                     data_cache=data, log_fn=lambda m: None)
+    work = tmp_path / "work"
+    outs, ce_losses = {}, []
+    for part in parts:
+        outs[part], got, _ = _part(work, part, parts, cfg, data, seed=1)
+        if "losses" in got:
+            ce_losses.append(np.asarray(got["losses"]))
+        with open(work / chip_smoke.part_record_name("tiny", part, 1),
+                  "w") as f:
+            json.dump(outs[part], f)
+    assert [o["seed"] for o in outs.values()] == [1, 1, 1]
+    for prev, part in zip(parts, list(parts)[1:]):
+        assert outs[part]["params_in_sha256"] == (
+            outs[prev]["params_out_sha256"]), part
+    np.testing.assert_array_equal(np.concatenate(ce_losses),
+                                  np.asarray(want["losses"])[-1:])
+    assert not np.array_equal(want["losses"], seed0["losses"])
+    for (k, p), q in zip(got["state"].state_dict().items(),
+                         want["state"].state_dict().values()):
+        assert torch.equal(p, q), k
+    np.testing.assert_array_equal(got["ft_losses"], want["ft_losses"])
+    info = want["chain_info"]
+    assert outs["d"]["best_step"] == info["best_step"]
+    assert outs["d"]["val_history"] == [[k, ce] for k, ce in
+                                        info["val_history"]]
+    for k in ("fidelity", "raw_fidelity", "trace_distance"):
+        assert got[k] == want[k], k
+    assert torch.equal(got["samples"], want["samples"])
+
+
+def _ghz6_in(tmp_path):
+    """GHZ-6's ``IN_DIR`` with the committed CE parameters and empty CE
+    checkpoints, so that only the flags decide."""
+    inp = tmp_path / "in"
+    os.makedirs(inp / "ghz6_auto_ckpt" / "75")
+    open(inp / "ghz6_auto_ckpt" / "75" / "checkpoint.pt", "w").close()
+    shutil.copy(GHZ6_CE, inp / "ghz6_auto_ce2_params.pt")
+    os.makedirs(inp / "rqc6_auto_ckpt" / "1")
+    open(inp / "rqc6_auto_ckpt" / "1" / "checkpoint.pt", "w").close()
+    return inp
+
+
+@pytest.mark.parametrize("argv,seed", [
+    (["ghz6_auto", "ce1", "--seed", "1"], 1),
+    (["ghz6_auto", "ce2", "--seed", "1"], 1),
+    (["ghz6_auto", "d", "--seed", "1", "--salt", "3"], 1),
+    (["ghz6_auto", "d", "--seed", "0"], 0),
+    (["ghz6_auto", "d"], 0),
+    (["rqc6_auto", "ce1", "--cut", "--seed", "1"], "--cut"),
+    (["rqc6_auto", "ce2", "--seed", "0", "--cut"], "--cut"),
+    (["ghz6_auto", "d", "--seed", "-1"], "0 or more"),
+    (["ghz6_auto", "d", "--seed", "one"], "0 or more"),
+    (["ghz6_auto", "ce1", "--seed"], "needs a value")])
+def test_seed_is_taken_by_any_uncut_part_and_refused_with_cut(
+        tmp_path, argv, seed):
+    """``--seed K`` reaches a CE part's and a distilling part's arguments
+    (beside a salt; none means 0); with ``--cut``, below 0, not an integer
+    or without a value it raises before any work."""
+    inp, out = _ghz6_in(tmp_path), tmp_path / "out"
+    full = argv[:2] + [str(inp), str(out)] + argv[2:]
+    if isinstance(seed, str):
+        with pytest.raises(ValueError, match=seed):
+            chip_smoke.scaling_part_args(full)
+        assert not out.exists()
+        return
+    assert chip_smoke.scaling_part_args(full)["seed"] == seed
+
+
+def test_seed_names_the_record_and_the_row(tmp_path):
+    """A part at seed 1 writes ``TAG_PART_seed1[_saltK].json`` and its row's
+    note says ``seed 1`` (before the stream); at seed 0 the names and note
+    are as before."""
+    inp, out = _ghz6_in(tmp_path), str(tmp_path / "out")
+    base = [str(inp), out]
+
+    def names(*argv):
+        return chip_smoke.part_names(chip_smoke.scaling_part_args(
+            list(argv[:2]) + base + list(argv[2:])))
+
+    assert names("ghz6_auto", "ce1", "--seed", "1") == (
+        "ghz6_auto_ce1_seed1.json", "; seed 1")
+    assert names("ghz6_auto", "d", "--seed", "1", "--salt", "2") == (
+        "ghz6_auto_d_seed1_salt2.json", "; seed 1; draw stream salt2")
+    assert names("ghz6_auto", "d", "--seed", "1", "--row-note", "shared") == (
+        "ghz6_auto_d_seed1.json", "; seed 1; shared")
+    assert names("ghz6_auto", "d", "--salt", "2") == (
+        "ghz6_auto_d_salt2.json", "; draw stream salt2")
+    assert names("ghz6_auto", "d") == ("ghz6_auto_d.json", "")
+    assert chip_smoke.part_record_name("ghz6_auto", "ce2", 3) == (
+        "ghz6_auto_ce2_seed3.json")
+
+
+def test_split_row_reads_the_seeds_records(tmp_path):
+    """At seed 1 the row sums the seed-1 records of the earlier parts, not
+    seed 0's beside them."""
+    for name, wall in (("ghz6_auto_ce1.json", 1.0),
+                       ("ghz6_auto_ce1_seed1.json", 100.0),
+                       ("ghz6_auto_ce2_seed1.json", 200.0)):
+        with open(tmp_path / name, "w") as f:
+            json.dump(dict(wall_s=wall), f)
+    res = dict(fidelity=0.97, raw_fidelity=0.75, raw_fidelity_mitigated=0.99,
+               trace_distance=0.03)
+    _, walls = chip_smoke.split_row(
+        "ghz6_auto", chip_smoke.scaling_rung("ghz6_auto"), res,
+        str(tmp_path), ["ce1", "ce2", "d"], 50.0, "card", seed=1)
+    assert walls == {"ce1": 100.0, "ce2": 200.0, "d": 50.0}
+
+
+@pytest.mark.parametrize("part,record,match", [
+    ("ce2", dict(name="tiny_ce1.json", seed=None), "run at seed 0"),
+    ("ce2", dict(name="tiny_ce1.json", seed=0), "run at seed 0"),
+    ("ce2", dict(name="tiny_ce1_seed1.json", seed=2), "run at seed 2"),
+    ("d", dict(name="tiny_ce2.json", seed=None), "run at seed 0"),
+    ("d", dict(name="tiny_ce2_seed1.json", seed=1, sha="0" * 64),
+     "left 0000"),
+    ("ce2", dict(name="tiny_ce1_seed1.json", seed=1, sha="f" * 64),
+     "left ffff")])
+def test_a_seed_part_refuses_another_seeds_predecessor(tmp_path, part,
+                                                       record, match):
+    """A seed-1 ``ce2`` does not resume from a checkpoint whose record says
+    another seed (or none: seed 0), nor a seed-1 ``d`` start from parameters
+    another seed left or that its predecessor did not leave: ``ValueError``
+    before any work (no launch, no output folder)."""
+    parts = HELD_OUT_SPLITS["ghz6"]
+    inp, out = tmp_path / "in", tmp_path / "out"
+    os.makedirs(inp / "tiny_ckpt" / "1")
+    for path in (inp / "tiny_ckpt" / "1" / "checkpoint.pt",
+                 inp / "tiny_ce2_params.pt", tmp_path / "data.npz"):
+        with open(path, "wb") as f:
+            f.write(b"stand-in")
+    # Every stand-in holds the same bytes, so either part is handed these.
+    handed = chip_smoke.file_sha256(str(inp / "tiny_ce2_params.pt"))
+    rec = dict(wall_s=1.0, params_out_sha256=record.get("sha", handed))
+    if record["seed"] is not None:
+        rec["seed"] = record["seed"]
+    with open(inp / record["name"], "w") as f:
+        json.dump(rec, f)
+    ck.fused_chain_walk.launches = 7
+    with pytest.raises(ValueError, match=match):
+        chip_smoke.scaling_part(ck, "tiny", part, str(inp), str(out),
+                                cfg=_tiny(), parts=parts,
+                                data=str(tmp_path / "data.npz"),
+                                device="cpu", seed=1)
+    assert not out.exists() and ck.fused_chain_walk.launches == 7
+
+
+def test_predecessor_check_passes_its_own_chain(tmp_path):
+    """The guard passes a predecessor of the part's seed that left the
+    handed parameters, a record made before records had a ``seed`` at seed
+    0, one made before they had hashes, a first part and no record."""
+    names = ["ce1", "ce2", "d"]
+    with open(tmp_path / "t_ce2_seed1.json", "w") as f:
+        json.dump(dict(seed=1, params_out_sha256="a" * 64), f)
+    chip_smoke.predecessor_check("t", names, "d", str(tmp_path), 1, "a" * 64)
+    with open(tmp_path / "t_ce2.json", "w") as f:
+        json.dump(dict(params_out_sha256="b" * 64), f)
+    chip_smoke.predecessor_check("t", names, "d", str(tmp_path), 0, "b" * 64)
+    with open(tmp_path / "t_ce1.json", "w") as f:
+        json.dump(dict(wall_s=1.0), f)
+    chip_smoke.predecessor_check("t", names, "ce2", str(tmp_path), 0,
+                                 "c" * 64)
+    chip_smoke.predecessor_check("t", names, "ce1", str(tmp_path), 1, None)
+    chip_smoke.predecessor_check("t", names, "d", str(tmp_path / "no"), 2,
+                                 "a" * 64)
